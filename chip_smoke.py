@@ -9,15 +9,32 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. device: require CUDA, print the card and its power limit;
 2. build: compile the port's CUDA kernels from ``delphi_tpu_torch/csrc``;
 3. kernels: K1 ``pair_counts`` and K2 ``entropy_terms`` against their
-   plain PyTorch versions at n = 1,000,000 (vocabularies 9x4, 255x255,
-   2047x2047, an all-NULL pair, and n = 1), with CUDA-event timings;
+   plain PyTorch versions at n = 1,000,000 (one pair of vocabularies 9x4,
+   255x255, 2047x2047, an all-NULL pair, n = 1; all 28 pairs of 8 columns
+   of vocabularies 2 to 200; all 153 pairs of 18 columns, which split into
+   several launches), K2 twice on each input (bit-identical);
 4. end to end: ``delphi.repair...run()`` on a seeded 1,000,000-row table
    shaped like the gauntlet's ``missing_heavy`` scenario (22% NULLs on
    tier, band and grade), with the kernels' launch counts zeroed just
    before and read just after; each kernel is then re-run, held against
-   its plain version and timed on the inputs the run gave it;
+   its plain version and timed on the inputs the run gave it, and both
+   wrappers are run on those inputs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a synchronisation fails);
+
 5. cross-check: the same generator at 20,000 rows on the CPU (plain
-   versions) and on the card (kernels) must give identical repair frames.
+   versions) and on the card (kernels) must give identical repair frames;
+6. kernel device times: ``torch.profiler`` over every call timed above,
+   last, so that no other timing follows a profiling session.
+
+Every kernel timing reports the wrapper call's CUDA-event time (``ms``,
+what the main path pays), the kernel's own device time from
+``torch.profiler`` kernel records over the same calls (``kernel_ms``, with
+the count of records beside it; CUDA events around back-to-back bare
+ctypes launches where the profiler kept fewer or more records than
+launches, or a time below the bound), the host's enqueue time
+(``host_ms``), an empty kernel
+behind the same ctypes path (``launch_floor_ms``), the bound, the plain
+version and one library call.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name and power limit, and the result line
@@ -143,6 +160,137 @@ def time_ms(torch, fn, flush, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+def profiled_kernel_ms(torch, fn, flush, names, reps: int = 15):
+    """(device ms per call, records) of the kernels whose names contain one
+    of ``names``, from ``torch.profiler`` kernel records over ``reps`` calls
+    (L2 flushed before each); ms is None when the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total_us, records = 0.0, 0
+    for evt in prof.key_averages():
+        if any(n in evt.key for n in names):
+            total_us += float(getattr(evt, "device_time_total", None)
+                              or getattr(evt, "cuda_time_total", 0.0))
+            records += int(evt.count)
+    return (total_us / 1e3 / reps if total_us > 0 else None), records
+
+
+def bare_ms(torch, launch, flush, reps: int = 15, burst: int = 20) -> float:
+    """CUDA-event median over ``reps`` bursts of ``burst`` back-to-back bare
+    ctypes launches (L2 flushed before each burst), per launch."""
+    launch()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(burst):
+            launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / burst)
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, reps: int = 15) -> float:
+    """Median host time of one call, enqueue only (the card idle before
+    each)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+PROFILER_SEES_KERNELS = []
+# (label, row, call, bare launch, kernel names, launches per call) whose
+# kernel_ms the profiler fills in at the end of the run, so that no other
+# timing and not the end-to-end run follow a profiling session; the launch
+# floor is read again after it.
+PENDING_KERNEL_MS = []
+
+
+def defer_kernel_ms(label, row, fn, bare, names, per_call) -> None:
+    row["kernel_ms"] = None
+    PENDING_KERNEL_MS.append((label, row, fn, bare, names, per_call))
+
+
+def finish_kernel_ms(torch, flush) -> None:
+    for label, row, fn, bare, names, per_call in PENDING_KERNEL_MS:
+        kernel_ms(torch, row, fn, bare, flush, names, per_call)
+        log(f"[kernel-ms] {label}: kernel_ms={row['kernel_ms']} from "
+            f"{row['kernel_ms_from']} ({row['kernel_records']} profiler "
+            f"records of {row['kernel_records_expected']})")
+
+
+def kernel_ms(torch, row, fn, bare, flush, names, per_call,
+              reps: int = 15) -> None:
+    """Fills ``row["kernel_ms"]``, the kernel's own device time per call:
+    the profiler's when it kept one record per launch and its time is not
+    below the row's bound, else the bare launches' (back to back, so L2 may
+    hold their inputs)."""
+    ms, records = profiled_kernel_ms(torch, fn, flush, names, reps)
+    bound = row.get("bound_ms", 0.0)
+    row["kernel_records"] = records
+    row["kernel_records_expected"] = reps * per_call
+    ok = ms is not None and records == reps * per_call and ms >= bound
+    PROFILER_SEES_KERNELS.append(ok)
+    if ok:
+        row["kernel_ms"], row["kernel_ms_from"] = ms, "profiler"
+        return
+    log(f"[timing] torch.profiler kept {records} of {reps * per_call} "
+        f"records of {names} (ms {ms}, bound {bound}); kernel_ms from "
+        "back-to-back bare ctypes launches")
+    row["kernel_ms"] = bare_ms(torch, bare, flush)
+    row["kernel_ms_from"] = "bare launches"
+
+
+def k1_bare(torch, k_pair, build, codes, pairs, vocab):
+    """One call's K1 launches through ctypes alone (planned once)."""
+    import ctypes
+    out = torch.empty(int(k_pair.matrix_offsets(pairs, vocab)[-1]),
+                      dtype=torch.int32, device=codes.device)
+    plan = k_pair.plan_launches(tuple(map(tuple, pairs)), tuple(vocab))
+    tables = k_pair.pack_tables(pairs, vocab, codes.data_ptr(),
+                                out.data_ptr(), int(codes.shape[1]))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib, stream = build.library(), build.current_stream()
+    args = [(ctypes.addressof(t),
+             k_pair.grid_size(int(codes.shape[1]), sms, ln.smem_bytes),
+             ln.smem_bytes, stream) for ln, t in zip(plan, tables)]
+
+    def launch():
+        for a in args:
+            build.check(lib.delphi_pair_counts(*a), "pair_counts")
+    launch.keep = (out, tables)
+    return launch
+
+
+def k2_bare(torch, k_entropy, build, counts, offsets, n_rows):
+    """One call's K2 launch through ctypes alone (packed once)."""
+    import ctypes
+    t, outs = k_entropy.pack_table(counts, offsets, n_rows)
+    lib, stream = build.library(), build.current_stream()
+
+    def launch():
+        build.check(lib.delphi_entropy_terms(ctypes.addressof(t), stream),
+                    "entropy_terms")
+    launch.keep = (t, outs)
+    return launch
+
+
 def k1_bound_ms(codes, pairs, vocab) -> float:
     """Each code column a pair reads, once, plus each output count written
     once, over the HBM rate."""
@@ -189,8 +337,12 @@ def check_k1(torch, k_pair, codes, pairs, vocab):
 
 def check_k2(torch, k_entropy, counts, offsets, n_rows):
     h, tot, nnz = k_entropy.entropy_terms(counts, offsets, n_rows)
+    h2, tot2, nnz2 = k_entropy.entropy_terms(counts, offsets, n_rows)
     hp, totp, nnzp = k_entropy.entropy_terms_plain(counts, offsets, n_rows)
     torch.cuda.synchronize()
+    if not (torch.equal(h, h2) and torch.equal(tot, tot2)
+            and torch.equal(nnz, nnz2)):
+        fail("K2 entropy_terms differs between two calls on one input")
     if not (torch.equal(tot, totp) and torch.equal(nnz, nnzp)):
         fail("K2 entropy_terms totals differ from its plain version")
     if not torch.allclose(h, hp, rtol=1e-12, atol=0.0):
@@ -198,38 +350,93 @@ def check_k2(torch, k_entropy, counts, offsets, n_rows):
     return float((h - hp).abs().max().item()) if h.numel() else 0.0
 
 
-def kernel_cases(torch, k_pair, k_entropy, flush):
-    """Phase 3: the stand-alone shapes, each K1 result fed to K2."""
+def measure_k1(torch, k_pair, build, flush, codes, pairs, vocab, label):
+    """One K1 input: wrapper, kernel, plain and one-bincount times, and its
+    bound (ms)."""
+    key, total = fused_keys(torch, codes, pairs, vocab)
+    fn = lambda: k_pair.pair_counts(codes, pairs, vocab)  # noqa: E731
+    row = {
+        "ms": time_ms(torch, fn, flush),
+        "host_ms": host_ms(torch, fn),
+        "plain_ms": time_ms(torch, lambda: k_pair.pair_counts_plain(
+            codes, pairs, vocab), flush),
+        "library_ms": time_ms(
+            torch, lambda: torch.bincount(key, minlength=total), flush),
+        "bound_ms": k1_bound_ms(codes, pairs, vocab),
+    }
+    del key
+    plan = k_pair.plan_launches(tuple(map(tuple, pairs)), tuple(vocab))
+    defer_kernel_ms(f"K1 {label}", row, fn,
+                    k1_bare(torch, k_pair, build, codes, pairs, vocab),
+                    ["pair_counts_kernel"], len(plan))
+    return row
+
+
+def measure_k2(torch, k_entropy, build, flush, counts, offsets, n_rows,
+               label):
+    """One K2 input: wrapper, kernel and plain times, and its bound (ms)."""
+    bytes_ms, ops_ms = k2_bound_ms(counts, offsets)
+    fn = lambda: k_entropy.entropy_terms(counts, offsets, n_rows)  # noqa
+    row = {
+        "ms": time_ms(torch, fn, flush),
+        "host_ms": host_ms(torch, fn),
+        "plain_ms": time_ms(torch, lambda: k_entropy.entropy_terms_plain(
+            counts, offsets, n_rows), flush),
+        "library_ms": None,
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+    }
+    defer_kernel_ms(f"K2 {label}", row, fn,
+                    k2_bare(torch, k_entropy, build, counts, offsets, n_rows),
+                    ["entropy_terms_kernel"], 1)
+    return row
+
+
+def fmt(row) -> str:
+    return " ".join(f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in row.items())
+
+
+def kernel_cases(torch, k_pair, k_entropy, build, flush):
+    """Phase 3: the stand-alone shapes, each K1 result fed to K2. Returns
+    (K1 rows, K2 rows) by shape."""
     rng = np.random.default_rng(0)
-    cases = [("9x4", 1_000_000, 9, 4), ("255x255", 1_000_000, 255, 255),
-             ("2047x2047", 1_000_000, 2047, 2047),
-             ("all-NULL 4x4", 1_000_000, 4, 4), ("n=1 3x5", 1, 3, 5)]
-    for label, n, vx, vy in cases:
-        cols = np.stack([rng.integers(0, vx, n), rng.integers(0, vy, n)]) \
+    cases = [("9x4", 1_000_000, [9, 4]), ("255x255", 1_000_000, [255, 255]),
+             ("2047x2047", 1_000_000, [2047, 2047]),
+             ("all-NULL 4x4", 1_000_000, [4, 4]), ("n=1 3x5", 1, [3, 5]),
+             ("28 pairs of 8 columns", 1_000_000,
+              [2, 3, 7, 12, 30, 60, 120, 200]),
+             ("153 pairs of 18 columns", 1_000_000,
+              [int(v) for v in np.random.default_rng(7).integers(2, 25, 18)])]
+    k1_rows, k2_rows = {}, {}
+    for label, n, vocab in cases:
+        cols = np.stack([rng.integers(0, v, n) for v in vocab]) \
             .astype(np.int32)
         cols[:, rng.random(n) < 0.1] = -1
         if label.startswith("all-NULL"):
             cols[:] = -1
         codes = torch.from_numpy(cols).cuda()
-        pairs, vocab = [(0, 1)], [vx, vy]
+        m = len(vocab)
+        pairs = [(0, 1)] if m == 2 else \
+            [(i, j) for i in range(m) for j in range(i + 1, m)]
+        plan = k_pair.plan_launches(tuple(pairs), tuple(vocab))
+        before = k_pair.launches
         counts, off, _ = check_k1(torch, k_pair, codes, pairs, vocab)
+        if k_pair.launches - before != len(plan):
+            fail(f"K1 {label}: {k_pair.launches - before} launches, planned "
+                 f"{len(plan)}")
+        if len(pairs) > k_pair.MAX_PAIRS and len(plan) < 2:
+            fail(f"K1 {label}: {len(pairs)} pairs did not split")
         check_k2(torch, k_entropy, counts, off, n)
-        key, total = fused_keys(torch, codes, pairs, vocab)
-        k1 = time_ms(torch, lambda: k_pair.pair_counts(codes, pairs, vocab),
-                     flush)
-        k1p = time_ms(torch, lambda: k_pair.pair_counts_plain(
-            codes, pairs, vocab), flush)
-        k1l = time_ms(torch, lambda: torch.bincount(key, minlength=total),
-                      flush)
-        k2 = time_ms(torch, lambda: k_entropy.entropy_terms(counts, off, n),
-                     flush)
-        k2p = time_ms(torch, lambda: k_entropy.entropy_terms_plain(
-            counts, off, n), flush)
-        k2b = max(k2_bound_ms(counts, off))
-        log(f"[kernels] {label} n={n}: K1 ok, ms={k1:.4f} plain_ms={k1p:.4f} "
-            f"library_ms(bincount)={k1l:.4f} "
-            f"bound_ms={k1_bound_ms(codes, pairs, vocab):.5f}; "
-            f"K2 ok, ms={k2:.4f} plain_ms={k2p:.4f} bound_ms={k2b:.5f}")
+        k1 = measure_k1(torch, k_pair, build, flush, codes, pairs, vocab,
+                        label)
+        k1["launches_per_call"] = len(plan)
+        k2 = measure_k2(torch, k_entropy, build, flush, counts, off, n, label)
+        k1_rows[label], k2_rows[label] = k1, k2
+        log(f"[kernels] {label} n={n} pairs={len(pairs)}: K1 ok, {fmt(k1)}")
+        log(f"[kernels] {label} n={n}: K2 ok, {fmt(k2)}")
+        del codes, counts
+    return k1_rows, k2_rows
 
 
 def main() -> None:
@@ -266,7 +473,15 @@ def main() -> None:
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
 
     # -- 3. kernels at the stand-alone shapes --------------------------------
-    kernel_cases(torch, k_pair, k_entropy, flush)
+    lib, stream = build.library(), build.current_stream()
+    empty = lambda: lib.delphi_launch_floor(stream)  # noqa: E731
+    floor = {"ms": time_ms(torch, empty, flush),
+             "host_ms": host_ms(torch, empty),
+             "bare_ms": bare_ms(torch, empty, flush)}
+    defer_kernel_ms("launch floor", floor, empty, empty, ["empty_kernel"], 1)
+    log(f"[launch-floor] empty kernel through ctypes: {fmt(floor)}")
+    k1_shapes, k2_shapes = kernel_cases(torch, k_pair, k_entropy, build,
+                                        flush)
 
     # -- 4. end to end on the card -------------------------------------------
     t0 = time.perf_counter()
@@ -291,6 +506,7 @@ def main() -> None:
     k_entropy.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the kernel phase's inputs
     t0 = time.perf_counter()
     out = repair(T, dirty)
     torch.cuda.synchronize()
@@ -307,7 +523,8 @@ def main() -> None:
     log(f"[e2e] rows={E2E_ROWS} wall_s={wall:.3f} error_cells={n_err} "
         f"repairs={len(out)} accuracy={acc:.6f} launches={launches}")
     log(f"[e2e] phase walls (s): {json.dumps(walls)}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB "
+        f"above the {held / 2**20:.1f} MiB held before the run")
     if len(out) != n_err or out["repaired"].isna().any():
         fail(f"expected {n_err} non-NULL repairs, got {len(out)}")
     if acc < MIN_ACCURACY:
@@ -317,35 +534,47 @@ def main() -> None:
             fail(f"kernel {name} was not launched by the end-to-end run")
 
     # -- 4b. each kernel on the inputs the run gave it ------------------------
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "err": 0}
+    def main_path(rows):
+        keys = ("ms", "host_ms", "kernel_ms", "plain_ms", "library_ms",
+                "bound_ms")
+        total = {k: (None if any(r[k] is None for r in rows)
+                     else sum(r[k] for r in rows)) for k in keys}
+        total["calls"] = len(rows)
+        return total
+
+    k1_err, k1_rows = 0, []
     for codes, pairs, vocab in recorded["pair_counts"]:
         _, _, err = check_k1(torch, k_pair, codes, pairs, vocab)
-        key, total = fused_keys(torch, codes, pairs, vocab)
-        k1["err"] = max(k1["err"], err)
-        k1["ms"] += time_ms(torch, lambda: k_pair.pair_counts(
-            codes, pairs, vocab), flush)
-        k1["plain_ms"] += time_ms(torch, lambda: k_pair.pair_counts_plain(
-            codes, pairs, vocab), flush)
-        k1["library_ms"] += time_ms(
-            torch, lambda: torch.bincount(key, minlength=total), flush)
-        k1["bound_ms"] += k1_bound_ms(codes, pairs, vocab)
+        k1_err = max(k1_err, err)
+        k1_rows.append(measure_k1(torch, k_pair, build, flush, codes, pairs,
+                                  vocab, f"main path call {len(k1_rows)}"))
         log(f"[e2e-kernels] K1 pairs={len(pairs)} n={codes.shape[1]} "
-            f"vocab={vocab}")
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-          "err": 0.0}
+            f"vocab={vocab}: {fmt(k1_rows[-1])}")
+    k2_err, k2_rows = 0.0, []
     for counts, offsets, n_rows in recorded["entropy_terms"]:
-        err = check_k2(torch, k_entropy, counts, offsets, n_rows)
-        k2["err"] = max(k2["err"], err)
-        k2["ms"] += time_ms(torch, lambda: k_entropy.entropy_terms(
-            counts, offsets, n_rows), flush)
-        k2["plain_ms"] += time_ms(torch, lambda: k_entropy.entropy_terms_plain(
-            counts, offsets, n_rows), flush)
-        bytes_ms, ops_ms = k2_bound_ms(counts, offsets)
-        k2["bytes_ms"] += bytes_ms
-        k2["ops_ms"] += ops_ms
+        k2_err = max(k2_err, check_k2(torch, k_entropy, counts, offsets,
+                                      n_rows))
+        k2_rows.append(measure_k2(torch, k_entropy, build, flush, counts,
+                                  offsets, n_rows,
+                                  f"main path call {len(k2_rows)}"))
         log(f"[e2e-kernels] K2 segments={len(offsets) - 1} "
-            f"counts={int(offsets[-1] - offsets[0])}")
+            f"counts={int(offsets[-1] - offsets[0])}: {fmt(k2_rows[-1])}")
+
+    # neither wrapper may wait for the card at the main path's shapes
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for codes, pairs, vocab in recorded["pair_counts"]:
+            k_pair.pair_counts(codes, pairs, vocab)
+        for counts, offsets, n_rows in recorded["entropy_terms"]:
+            k_entropy.entropy_terms(counts, offsets, n_rows)
+    except RuntimeError as exc:
+        fail(f"a kernel wrapper synchronised with the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[sync] K1 and K2 wrappers ran under set_sync_debug_mode('error') "
+        "at the main path's shapes without synchronising")
 
     # -- 5. CPU (plain versions) vs card (kernels) ---------------------------
     _, small = missing_heavy(CHECK_ROWS, seed=1)
@@ -365,25 +594,44 @@ def main() -> None:
     log(f"[cross-check] {CHECK_ROWS} rows: CPU and card repair frames "
         f"identical ({len(on_gpu)} repairs)")
 
+    # -- 6. kernel device times from torch.profiler, last --------------------
+    finish_kernel_ms(torch, flush)
+    floor["ms_after_profiler"] = time_ms(torch, empty, flush)
+    floor["host_ms_after_profiler"] = host_ms(torch, empty)
+    log(f"[timing] every kernel_ms from complete torch.profiler records: "
+        f"{all(PROFILER_SEES_KERNELS)}; launch floor {fmt(floor)}")
+    k1, k2 = main_path(k1_rows), main_path(k2_rows)
+    k2_bytes = sum(r["bytes_ms"] for r in k2_rows)
+    k2_ops = sum(r["ops_ms"] for r in k2_rows)
+    log(f"[e2e-kernels] main path K1: {fmt(k1)}")
+    log(f"[e2e-kernels] main path K2: {fmt(k2)}")
+
+    def shapes(rows):
+        return [{"shape": k, **{f: v for f, v in r.items()
+                                if f not in ("bytes_ms", "ops_ms")}}
+                for k, r in rows.items()]
+
     kernels = [
         {"name": "pair_counts", "route": "cuda",
          "source": "delphi_tpu_torch/csrc/pair_counts.cu",
          "replaces": "delphi_tpu/ops/pallas_kernels.py:79",
          "tpu_source": "delphi_tpu/ops/pallas_kernels.py:_pair_count_kernel",
-         "launches": launches["pair_counts"], "max_abs_err": k1["err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "launches": launches["pair_counts"], "max_abs_err": k1_err,
+         "ms": k1["ms"], "kernel_ms": k1["kernel_ms"],
+         "launch_floor_ms": floor["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "bytes",
-         "library_ms": k1["library_ms"], "ok": True},
+         "library_ms": k1["library_ms"], "shapes": shapes(k1_shapes),
+         "ok": True},
         {"name": "entropy_terms", "route": "cuda",
          "source": "delphi_tpu_torch/csrc/entropy.cu",
          "replaces": "delphi_tpu/ops/pallas_kernels.py:186",
          "tpu_source": "delphi_tpu/ops/pallas_kernels.py:_entropy_kernel",
-         "launches": launches["entropy_terms"], "max_abs_err": k2["err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": max(k2["bytes_ms"], k2["ops_ms"]),
-         "bound_by": ("bytes" if k2["bytes_ms"] >= k2["ops_ms"]
-                      else "operations"),
-         "library_ms": None, "ok": True},
+         "launches": launches["entropy_terms"], "max_abs_err": k2_err,
+         "ms": k2["ms"], "kernel_ms": k2["kernel_ms"],
+         "launch_floor_ms": floor["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": max(k2_bytes, k2_ops),
+         "bound_by": "bytes" if k2_bytes >= k2_ops else "operations",
+         "library_ms": None, "shapes": shapes(k2_shapes), "ok": True},
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

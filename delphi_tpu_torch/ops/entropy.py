@@ -11,9 +11,9 @@ ORIGINAL table stats (not bin counts).
 The observed part of every H(x,y) comes from one launch of kernel K2
 (:mod:`delphi_tpu_torch.ops.kernels.entropy`) over the pair matrices K1
 left on the device, and every H(y) from one more over the singleton counts;
-only (h, total, nnz) per segment come back to the host, where the
-correction is applied. For each target x the result list is sorted
-ascending — strongest correlate first.
+only (h, total, nnz) per segment come back to the host, in one copy per
+launch, where the correction is applied. For each target x the result list
+is sorted ascending — strongest correlate first.
 """
 
 import math
@@ -36,8 +36,7 @@ def _with_correction(h: float, total: int, n_observed: int, n_rows: int,
 
 
 def _segment_terms(buffer, offsets, n_rows: int):
-    h, total, nnz = k_entropy.entropy_terms(buffer, offsets, n_rows)
-    return (h.cpu().numpy(), total.cpu().numpy(), nnz.cpu().numpy())
+    return k_entropy.to_host(*k_entropy.entropy_terms(buffer, offsets, n_rows))
 
 
 def compute_pairwise_stats(

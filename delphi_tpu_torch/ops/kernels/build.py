@@ -4,9 +4,11 @@ The sources are ``delphi_tpu_torch/csrc/*.cu``. At first use each source
 compiles with ``nvcc`` for ``sm_90a`` (all sources at once, one ``nvcc``
 each), then they link into one shared library under ``build/delphi_tpu_torch``
 at the repo root. The library's file name carries a hash of the sources and
-flags, so an edited source never loads a stale build. Each C entry point
-takes device pointers and the stream as ``void*`` and returns the launch's
-``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+flags, so an edited source never loads a stale build. Each kernel's C
+entry point takes a host pointer to its parameter table (a ``ctypes``
+structure the kernel receives by value) and the stream as ``void*``, and
+returns the first ``cudaError_t`` it met; :func:`check` raises on a
+non-zero code. No entry point waits for the device.
 """
 
 import ctypes
@@ -96,13 +98,15 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(path)
-            vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            # (table pointer, grid, shared bytes, stream)
             lib.delphi_pair_counts.restype = i32
-            lib.delphi_pair_counts.argtypes = [
-                vp, i64, vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, vp]
+            lib.delphi_pair_counts.argtypes = [vp, i32, i32, vp]
+            # (table pointer, stream)
             lib.delphi_entropy_terms.restype = i32
-            lib.delphi_entropy_terms.argtypes = [
-                vp, vp, i32, ctypes.c_double, vp, vp, vp, vp]
+            lib.delphi_entropy_terms.argtypes = [vp, vp]
+            lib.delphi_launch_floor.restype = i32
+            lib.delphi_launch_floor.argtypes = [vp]
             _lib = lib
         return _lib
 

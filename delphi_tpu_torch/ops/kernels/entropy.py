@@ -12,9 +12,19 @@ stays with the caller (:mod:`delphi_tpu_torch.ops.entropy`).
 
 A CUDA tensor goes to the hand kernel (``csrc/entropy.cu``), a CPU tensor
 to :func:`entropy_terms_plain`, the f64 host formula written in torch.
+
+The chunk plan is pure Python (:func:`plan_chunks`): every segment is cut
+into chunks of :func:`chunk_length` counts, at least one each, and the
+kernel gives every chunk one warp. The segment table
+(:class:`EntropyTable`) goes to the kernel by value: as a stride and a
+count when the segments are uniform, inline up to
+:data:`INLINE_SEGMENTS` segments, else in one ``non_blocking`` copy from
+pinned memory. Nothing in a call waits for the device.
 """
 
-from typing import Sequence, Tuple
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,10 +34,90 @@ from delphi_tpu_torch.ops.kernels import build
 # Launches of the CUDA kernel since the last reset.
 launches = 0
 
+# Counts per chunk (one warp each): the call's counts over TARGET_CHUNKS,
+# rounded up to a power of two within [MIN_CHUNK, MAX_CHUNK].
+TARGET_CHUNKS = 2048
+MIN_CHUNK, MAX_CHUNK = 256, 8192
+INLINE_SEGMENTS = 192         # csrc: kInline
+MODE_UNIFORM, MODE_INLINE, MODE_DEVICE = 0, 1, 2
+
 
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+class EntropyTable(ctypes.Structure):
+    """A launch's parameters, passed to the kernel by value; the layout of
+    ``EntropyTable`` in ``csrc/entropy.cu`` (3,208 bytes)."""
+    _fields_ = [("counts", ctypes.c_void_p), ("h", ctypes.c_void_p),
+                ("total", ctypes.c_void_p), ("nnz", ctypes.c_void_p),
+                ("part_h", ctypes.c_void_p), ("part_total", ctypes.c_void_p),
+                ("part_nnz", ctypes.c_void_p), ("tickets", ctypes.c_void_p),
+                ("table_dev", ctypes.c_void_p), ("n_rows", ctypes.c_double),
+                ("base", ctypes.c_int64), ("stride", ctypes.c_int64),
+                ("chunk", ctypes.c_int64), ("n_segments", ctypes.c_int32),
+                ("n_chunks", ctypes.c_int32),
+                ("chunks_per_segment", ctypes.c_int32),
+                ("mode", ctypes.c_int32),
+                ("table", ctypes.c_int64 * (2 * (INLINE_SEGMENTS + 1)))]
+
+
+def chunk_length(offsets: np.ndarray) -> int:
+    """Counts per chunk for one call: enough chunks to spread a large
+    segment over every SM, few enough that finishing it stays short."""
+    total = int(offsets[-1] - offsets[0]) if len(offsets) else 0
+    want = max(1, -(-total // TARGET_CHUNKS))
+    return min(MAX_CHUNK, max(MIN_CHUNK, 1 << (want - 1).bit_length()))
+
+
+def plan_chunks(offsets: np.ndarray, chunk: int) -> np.ndarray:
+    """int64 [S+1] ``chunk_base``: segment s owns chunks
+    ``[chunk_base[s], chunk_base[s+1])``, at least one."""
+    lengths = np.diff(np.asarray(offsets, dtype=np.int64))
+    per = np.maximum(1, -(-lengths // chunk))
+    return np.concatenate([[0], np.cumsum(per)]).astype(np.int64)
+
+
+def _uniform(offsets: np.ndarray) -> Optional[int]:
+    """The common segment length, if every segment has one."""
+    lengths = np.diff(offsets)
+    if len(lengths) and (lengths == lengths[0]).all():
+        return int(lengths[0])
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(off_bytes: bytes, chunk: int) \
+        -> Tuple[bytes, Optional[np.ndarray], int, bool]:
+    """(table template without pointers and ``n_rows``, the host copy of a
+    mode-2 table, chunks, whether any segment has several chunks), for
+    valid offsets (cached by them)."""
+    off = np.frombuffer(off_bytes, dtype=np.int64)
+    if len(off) < 2 or off[0] < 0 or (np.diff(off) < 0).any():
+        raise ValueError("entropy_terms: offsets must be ascending and "
+                         "inside the count buffer")
+    n_seg = len(off) - 1
+    chunk_base = plan_chunks(off, chunk)
+    n_chunks = int(chunk_base[-1])
+    if n_chunks >= 1 << 31:
+        raise ValueError("entropy_terms: too many chunks for one launch")
+    t = EntropyTable()
+    t.chunk, t.n_segments, t.n_chunks = chunk, n_seg, n_chunks
+    host_table = None
+    stride = _uniform(off)
+    if stride is not None:
+        t.mode, t.base, t.stride = MODE_UNIFORM, int(off[0]), stride
+        t.chunks_per_segment = n_chunks // n_seg
+    else:
+        tab = np.concatenate([off, chunk_base]).astype(np.int64)
+        if n_seg <= INLINE_SEGMENTS:
+            t.mode = MODE_INLINE
+            np.ctypeslib.as_array(t.table)[:len(tab)] = tab
+        else:
+            t.mode = MODE_DEVICE
+            host_table = tab
+    return bytes(t), host_table, n_chunks, n_chunks > n_seg
 
 
 def entropy_terms_plain(counts: torch.Tensor, offsets: Sequence[int],
@@ -66,6 +156,53 @@ def entropy_terms(counts: torch.Tensor, offsets: Sequence[int], n_rows: int) \
     return _launch(counts, offsets, n_rows)
 
 
+def to_host(h: torch.Tensor, total: torch.Tensor, nnz: torch.Tensor) \
+        -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(h, total, nnz) as numpy arrays, in one device-to-host copy: h is
+    bit-cast to int64 and the three stacked."""
+    packed = torch.stack([h.view(torch.int64), total, nnz]).cpu().numpy()
+    return packed[0].view(np.float64), packed[1], packed[2]
+
+
+def pack_table(counts: torch.Tensor, offsets: Sequence[int], n_rows: int) \
+        -> Tuple[EntropyTable, Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]]:
+    """The filled :class:`EntropyTable` of one call and its (h, total, nnz)
+    outputs; allocates the outputs and scratch and, for a table past the
+    inline capacity, starts its ``non_blocking`` upload from pinned
+    memory. The table holds the only references to the scratch tensors'
+    memory, so they ride along on the table object."""
+    off = np.ascontiguousarray(offsets, dtype=np.int64)
+    raw, host_table, n_chunks, multi = _plan(off.tobytes(),
+                                             chunk_length(off))
+    n_seg = len(off) - 1
+    dev = counts.device
+    packed = torch.empty((3, n_seg), dtype=torch.int64, device=dev)
+    t = EntropyTable.from_buffer_copy(raw)
+    t.counts, t.n_rows = counts.data_ptr(), float(n_rows)
+    base = packed.data_ptr()
+    t.h, t.total, t.nnz = base, base + 8 * n_seg, base + 16 * n_seg
+    keep = [packed]
+    if multi:
+        scratch = torch.empty(3 * n_chunks + (n_seg + 1) // 2,
+                              dtype=torch.int64, device=dev)
+        base = scratch.data_ptr()
+        t.part_h, t.part_total, t.part_nnz = (
+            base, base + 8 * n_chunks, base + 16 * n_chunks)
+        t.tickets = base + 24 * n_chunks
+        keep.append(scratch)
+    if host_table is not None:
+        pinned = torch.from_numpy(host_table).pin_memory()
+        dev_table = torch.empty(len(host_table), dtype=torch.int64,
+                                device=dev)
+        dev_table.copy_(pinned, non_blocking=True)
+        t.table_dev = dev_table.data_ptr()
+        keep.append(dev_table)
+    t._keep = keep
+    h, total, nnz = packed.unbind(0)
+    return t, (h.view(torch.float64), total, nnz)
+
+
 def _launch(counts: torch.Tensor, offsets: Sequence[int], n_rows: int) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global launches
@@ -73,23 +210,16 @@ def _launch(counts: torch.Tensor, offsets: Sequence[int], n_rows: int) \
             or not counts.is_contiguous():
         raise ValueError("entropy_terms: counts must be a contiguous 1-D "
                          "int32 tensor")
-    off = np.asarray(offsets, dtype=np.int64)
-    if len(off) < 1 or (np.diff(off) < 0).any() or off[0] < 0 \
-            or off[-1] > counts.numel():
+    off = np.ascontiguousarray(offsets, dtype=np.int64)
+    if len(off) < 1 or off[-1] > counts.numel():
         raise ValueError("entropy_terms: offsets must be ascending and "
                          "inside the count buffer")
-    n_seg = len(off) - 1
-    dev = counts.device
-    h = torch.empty(n_seg, dtype=torch.float64, device=dev)
-    total = torch.empty(n_seg, dtype=torch.int64, device=dev)
-    nnz = torch.empty(n_seg, dtype=torch.int64, device=dev)
-    if n_seg == 0:
-        return h, total, nnz
-    off_dev = torch.from_numpy(off).to(dev)
-    err = build.library().delphi_entropy_terms(
-        counts.data_ptr(), off_dev.data_ptr(), n_seg, float(n_rows),
-        h.data_ptr(), total.data_ptr(), nnz.data_ptr(),
-        build.current_stream())
+    if len(off) == 1:
+        empty = torch.empty(0, dtype=torch.int64, device=counts.device)
+        return empty.view(torch.float64), empty, empty.clone()
+    t, out = pack_table(counts, off, n_rows)
+    err = build.library().delphi_entropy_terms(ctypes.addressof(t),
+                                               build.current_stream())
     build.check(err, "entropy_terms")
     launches += 1
-    return h, total, nnz
+    return out

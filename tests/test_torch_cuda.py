@@ -60,6 +60,92 @@ def test_kernels_match_plain_on_card(card):
 
 
 @pytest.mark.cuda
+def test_pair_counts_splits_past_128_pairs(card):
+    """All 153 pairs of 18 columns: more pairs and columns than one launch
+    takes, so the call makes several launches, each counted, and still
+    equals the plain version bit for bit."""
+    rng = np.random.default_rng(11)
+    vocab = [int(v) for v in rng.integers(1, 40, 18)]
+    n = 20_001
+    cols = np.stack([_codes(rng, n, v) for v in vocab])
+    pairs = [(i, j) for i in range(18) for j in range(i + 1, 18)]
+    plan = k_pair.plan_launches(tuple(pairs), tuple(vocab))
+    assert len(pairs) > k_pair.MAX_PAIRS and len(plan) > 1
+    want, off = k_pair.pair_counts_plain(torch.from_numpy(cols), pairs, vocab)
+    before = k_pair.launches
+    got, off2 = k_pair.pair_counts(torch.from_numpy(cols).to(card), pairs,
+                                   vocab)
+    torch.cuda.synchronize()
+    assert k_pair.launches == before + len(plan)
+    np.testing.assert_array_equal(off, off2)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4099, 65_536])
+def test_pair_counts_unaligned_and_aligned_rows(card, n):
+    """The main path's pairs on unaligned (n % 4 != 0, four 4-byte copies a
+    quad) and aligned (one 16-byte copy) row counts."""
+    rng = np.random.default_rng(12)
+    vocab = [10, 5, 5, 6, 4]
+    pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3), (0, 4), (1, 4),
+             (2, 4)]
+    cols = np.stack([_codes(rng, n, v) for v in vocab])
+    want, _ = k_pair.pair_counts_plain(torch.from_numpy(cols), pairs, vocab)
+    got, _ = k_pair.pair_counts(torch.from_numpy(cols).to(card), pairs, vocab)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_entropy_big_segment_with_empty_and_single(card):
+    """A 2047x2047 segment (2,048 chunks, finished by the last warp) beside
+    empty and one-count segments, inline and in the pinned-upload table;
+    repeatable bit for bit."""
+    rng = np.random.default_rng(13)
+    big = 2048 * 2048
+    flat = np.zeros(big + 3, dtype=np.int32)
+    flat[:big] = np.where(rng.random(big) < 0.2,
+                          rng.integers(1, 50, big), 0)
+    flat[big + 1] = 7
+    counts = torch.from_numpy(flat).to(card)
+    for offsets in ([0, big, big, big + 1, big + 2, big + 2, big + 3],
+                    [0, big] + [big + 1] * 300 + [big + 3]):
+        hw, tw, nw = k_entropy.entropy_terms_plain(counts, offsets, 10**7)
+        hg, tg, ng = k_entropy.entropy_terms(counts, offsets, 10**7)
+        h2, t2, n2 = k_entropy.entropy_terms(counts, offsets, 10**7)
+        torch.cuda.synchronize()
+        assert torch.equal(tg, tw) and torch.equal(ng, nw)
+        assert torch.allclose(hg, hw, rtol=1e-12, atol=0.0)
+        assert torch.equal(hg, h2) and torch.equal(tg, t2) \
+            and torch.equal(ng, n2)
+
+
+@pytest.mark.cuda
+def test_wrappers_never_synchronize(card):
+    """At the main path's shapes neither wrapper copies to or waits for the
+    card: both run under set_sync_debug_mode("error")."""
+    rng = np.random.default_rng(14)
+    vocab = [10, 5, 5, 6, 4]
+    pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3), (0, 4), (1, 4),
+             (2, 4)]
+    codes = torch.from_numpy(
+        np.stack([_codes(rng, 100_000, v) for v in vocab])).to(card)
+    singles = torch.zeros(5 * 11, dtype=torch.int32, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flat, off = k_pair.pair_counts(codes, pairs, vocab)
+        k_entropy.entropy_terms(flat, off, 100_000)
+        k_entropy.entropy_terms(singles, np.arange(6) * 11, 100_000)
+        # past the inline table: the pinned, non-blocking upload
+        k_entropy.entropy_terms(flat, np.linspace(0, int(off[-1]), 400)
+                                .astype(np.int64), 100_000)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_tree_builder_card_matches_cpu(card):
     """Fixed-order histogram sums: the same splits on the card as on the
     CPU, and leaves within one f32 rounding."""
