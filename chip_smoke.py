@@ -13,16 +13,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    255x255, 2047x2047, an all-NULL pair, n = 1; all 28 pairs of 8 columns
    of vocabularies 2 to 200; all 153 pairs of 18 columns, which split into
    several launches), K2 twice on each input (bit-identical);
-4. end to end: ``delphi.repair...run()`` on a seeded 1,000,000-row table
-   shaped like the gauntlet's ``missing_heavy`` scenario (22% NULLs on
-   tier, band and grade), with the kernels' launch counts zeroed just
-   before and read just after; each kernel is then re-run, held against
-   its plain version and timed on the inputs the run gave it, and both
-   wrappers are run on those inputs under
-   ``torch.cuda.set_sync_debug_mode("error")`` (a synchronisation fails);
+4. end to end at default options (the CV grid search for every target):
+   ``delphi.repair...run()`` on a seeded 1,000,000-row table shaped like
+   the gauntlet's ``missing_heavy`` scenario (22% NULLs on tier, band and
+   grade), with the kernels' launch counts zeroed just before and read
+   just after; it prints each target's chosen config, CV score, CV-proven
+   rounds and chunk steps, and the training wall split into CV search and
+   final fit. In 4b each kernel is re-run, held against its plain version
+   (K1 bitwise, K2 within 1e-12 relative) and timed on the inputs that each
+   driven path (4, 4c, 4d) gave it, reported per path, and both wrappers
+   are run on those inputs under ``torch.cuda.set_sync_debug_mode("error")``
+   (a synchronisation fails);
+   4c. the same table through batched training
+   (``setParallelStatTrainingEnabled(True)``): the same frame, at least
+   one multi-target CV launch and one batched fit launch, no fallback;
+   4d. a seeded 200,000-row table whose one NULL-bearing column has 40
+   classes: it must train the logistic head and repair at least 0.85;
+   4e. one boosting round of a CV step at the 1M run's shapes: ms and
+   the kernels it launches;
 
-5. cross-check: the same generator at 20,000 rows on the CPU (plain
-   versions) and on the card (kernels) must give identical repair frames;
+5. cross-check at default options, 20,000 rows, CPU (plain versions)
+   against card (kernels): identical ``missing_heavy`` repair frames; on
+   the 40-class table, every repair whose CPU top-two probability gap
+   exceeds 1e-4 identical (the others counted); no target a PoorModel on
+   the card only;
 6. kernel device times: ``torch.profiler`` over every call timed above,
    last, so that no other timing follows a profiling session.
 
@@ -60,17 +74,20 @@ FP64_OPS_PER_S = 34e12
 K2_OPS_PER_NONZERO = 4
 
 E2E_ROWS = 1_000_000
+LOGISTIC_ROWS = 200_000
 CHECK_ROWS = 20_000
 NULL_RATE = 0.22
-# One depth-3 config cannot fully express grade = (level + segment) mod 6,
-# so the JAX package's repairs of this table fall short of 1.0 as well;
-# the port is held to the same model.
 MIN_ACCURACY = 0.85
+# Classes of the logistic-head table's target (more than the GBDT's 24)
+ZONES = 40
 # With the default cap of 3 correlates per target, the 22% NULLs make
 # every pair of this 5-column table fail candidate pruning, and phase 1
-# would count no pairs at all; 4 keeps every candidate.
-RUN_OPTIONS = {"model.hp.max_evals": "1",
-               "error.max_attrs_to_compute_pairwise_stats": "4"}
+# would count no pairs at all; 4 keeps every candidate. Every other option
+# is the default: the CV grid search runs for every GBDT target.
+RUN_OPTIONS = {"error.max_attrs_to_compute_pairwise_stats": "4"}
+# top-two probability gap above which the card's and the CPU's logistic
+# repairs must agree
+NEAR_TIE = 1e-4
 
 
 def log(msg: str) -> None:
@@ -120,6 +137,33 @@ def missing_heavy(n: int, seed: int):
     return clean, dirty
 
 
+def zones_table(n: int, seed: int):
+    """(clean, dirty) frames whose one NULL-bearing column, zone, has ZONES
+    classes (the logistic head's range): zone is a latent value, district
+    its half and parity its last bit, amount a noisy multiple, channel
+    noise; NULL_RATE of the zone cells are blanked."""
+    import pandas as pd
+    rng = np.random.RandomState(seed)
+    latent = rng.randint(0, ZONES, size=n)
+
+    def names(fmt, k, idx):
+        return np.array([fmt.format(i) for i in range(k)], dtype=object)[idx]
+
+    clean = pd.DataFrame({
+        "tid": np.arange(n, dtype=np.int64),
+        "zone": names("z{}", ZONES, latent),
+        "district": names("d{}", ZONES // 2, latent // 2),
+        "parity": names("p{}", 2, latent % 2),
+        "channel": names("c{}", 3, rng.randint(0, 3, size=n)),
+        "amount": np.round(latent * 10.0 + rng.normal(0, 4.0, size=n), 2),
+    })
+    dirty = clean.copy()
+    values = dirty["zone"].to_numpy(dtype=object).copy()
+    values[rng.choice(n, int(round(NULL_RATE * n)), replace=False)] = None
+    dirty["zone"] = values
+    return clean, dirty
+
+
 def repair_accuracy(clean, out) -> float:
     """Share of repaired cells equal to the clean value (tid = row)."""
     if not len(out):
@@ -135,12 +179,82 @@ def repair_accuracy(clean, out) -> float:
     return hits / len(out)
 
 
-def repair(T, df):
+def repair(T, df, batched: bool = False):
     m = T.delphi.repair.setInput(df).setRowId("tid") \
-        .setErrorDetectors([T.NullErrorDetector()])
+        .setErrorDetectors([T.NullErrorDetector()]) \
+        .setParallelStatTrainingEnabled(batched)
     for k, v in RUN_OPTIONS.items():
         m = m.option(k, v)
     return m.run()
+
+
+def training_summary(reports) -> dict:
+    """Per target: model, chosen config, CV score, CV-proven rounds, CV
+    chunk steps; and the training wall split into CV search and final fit.
+    The targets of one batched search or fit carry the same measured
+    float, so summing the distinct values counts it once."""
+    per_target = {}
+    for r in reports:
+        per_target[r["target"]] = {
+            "model": type(r["model"]).__name__, "config": r.get("config"),
+            "cv_score": r.get("cv_score"), "cv_rounds": r.get("cv_rounds"),
+            "cv_chunks": r.get("cv_chunks"), "steps": r.get("steps")}
+    return {"targets": per_target,
+            "cv_search_s": sum({r.get("cv_seconds", 0.0) for r in reports}),
+            "final_fit_s": sum({r.get("fit_seconds", 0.0) for r in reports})}
+
+
+def logistic_gaps(T):
+    """Wraps LogisticRegressionModel.predict to record each repair's
+    top-two probability gap; returns (gaps list, restore function)."""
+    from delphi_tpu_torch.models.linear import LogisticRegressionModel
+    gaps, orig = [], LogisticRegressionModel.predict
+
+    def predict(self, X):
+        p = np.sort(np.asarray(self.predict_proba(X)), axis=1)
+        gaps.append(p[:, -1] - p[:, -2])
+        return orig(self, X)
+
+    LogisticRegressionModel.predict = predict
+
+    def restore():
+        LogisticRegressionModel.predict = orig
+    return gaps, restore
+
+
+def boost_round_profile(torch, gbdt, depth: int):
+    """One CV step's tree building at the 1M-row run's shapes (3 folds x 8
+    class trees of one 6-class target, 10,000 rows, 4 features, 64 bins):
+    CUDA-event ms per round over 4 rounds, and the kernels the profiler
+    saw per round (None when it kept no device record)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(0)
+    M, k, n, d = 3, 8, 10_000, 4
+    bins = torch.randint(0, 64, (M, n, d), device="cuda", generator=g)
+    y = torch.randint(0, 6, (M, n), device="cuda", generator=g).float()
+    w = torch.ones((M, n), device="cuda")
+    F = torch.zeros((M, k, n), device="cuda")
+
+    def run(rounds):
+        return gbdt._boost(bins, y, w, F, rounds, depth, 64, "multiclass", k,
+                           0.1, 1.0, 0.0, 1.0, 0.0, use_counts=False,
+                           collect_trees=False)
+
+    run(1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(4)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 4
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(1)
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return ms, (kernels or None)
 
 
 def time_ms(torch, fn, flush, reps: int = 15) -> float:
@@ -440,6 +554,7 @@ def kernel_cases(torch, k_pair, k_entropy, build, flush):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -458,7 +573,10 @@ def main() -> None:
     from delphi_tpu_torch.ops.kernels import build
     from delphi_tpu_torch.ops.kernels import entropy as k_entropy
     from delphi_tpu_torch.ops.kernels import pair_counts as k_pair
-    from delphi_tpu_torch.utils import phase_walls
+    from delphi_tpu_torch.models import gbdt
+    from delphi_tpu_torch.models.encoding import FeatureEncoder
+    from delphi_tpu_torch.models.linear import LogisticRegressionModel
+    from delphi_tpu_torch.utils import counters, phase_walls, train_reports
     T.set_device("cuda")
 
     # -- 2. build ------------------------------------------------------------
@@ -487,53 +605,124 @@ def main() -> None:
     t0 = time.perf_counter()
     clean, dirty = missing_heavy(E2E_ROWS, seed=0)
     log(f"[e2e] generated {E2E_ROWS} rows in {time.perf_counter() - t0:.1f} s")
-    recorded = {"pair_counts": [], "entropy_terms": []}
+    # each driven path's K1 and K2 inputs, by path label, for 4b
+    recorded, recording = {}, {"into": None}
+    path_launches = {}
     orig_pc, orig_et = k_pair.pair_counts, k_entropy.entropy_terms
 
     def rec_pair_counts(codes, pairs, vocab):
-        recorded["pair_counts"].append((codes, list(pairs), list(vocab)))
+        recording["into"]["pair_counts"].append(
+            (codes, list(pairs), list(vocab)))
         return orig_pc(codes, pairs, vocab)
 
     def rec_entropy_terms(counts, offsets, n_rows):
-        recorded["entropy_terms"].append(
+        recording["into"]["entropy_terms"].append(
             (counts, np.asarray(offsets, dtype=np.int64), n_rows))
         return orig_et(counts, offsets, n_rows)
 
+    def drive(label, df, clean_df, cells, batched=False):
+        """One main path: every count zeroed just before the run and read
+        just after; its K1 and K2 inputs recorded under ``label``; phase
+        walls, training summary, accuracy, memory."""
+        recording["into"] = recorded[label] = {"pair_counts": [],
+                                               "entropy_terms": []}
+        phase_walls.clear()
+        counters.clear()
+        train_reports.clear()
+        k_pair.reset_launches()
+        k_entropy.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = repair(T, df, batched=batched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"pair_counts": k_pair.launches,
+                    "entropy_terms": k_entropy.launches}
+        recording["into"] = None
+        path_launches[label] = launches
+        counts = dict(counters)
+        summary = training_summary(train_reports)
+        models = {r["target"]: r["model"] for r in train_reports}
+        walls = {k: round(v, 3) for k, v in phase_walls.items()}
+        n_err = int(df[cells].isna().to_numpy().sum())
+        if list(res.columns) != ["tid", "attribute", "current_value",
+                                 "repaired"]:
+            fail(f"{label}: unexpected result columns {list(res.columns)}")
+        acc = repair_accuracy(clean_df, res)
+        log(f"[{label}] rows={len(df)} wall_s={wall:.3f} error_cells={n_err} "
+            f"repairs={len(res)} accuracy={acc:.6f} launches={launches} "
+            f"counters={json.dumps(counts)}")
+        log(f"[{label}] phase walls (s): {json.dumps(walls)}; peak device "
+            f"memory {(torch.cuda.max_memory_allocated() - held) / 2**20:.1f}"
+            f" MiB above the {held / 2**20:.1f} MiB held before the run")
+        log(f"[{label}] training: CV search {summary['cv_search_s']:.3f} s, "
+            f"final fit {summary['final_fit_s']:.3f} s")
+        for target, t in summary["targets"].items():
+            log(f"[{label}] target {target}: {json.dumps(t, default=str)}")
+        if len(res) != n_err or res["repaired"].isna().any():
+            fail(f"{label}: expected {n_err} non-NULL repairs, got {len(res)}")
+        if acc < MIN_ACCURACY:
+            fail(f"{label}: repair accuracy {acc} below {MIN_ACCURACY}")
+        for name, count in launches.items():
+            if count < 1:
+                fail(f"{label}: kernel {name} was not launched by the run")
+        return res, launches, counts, models, wall
+
+    # the main path: sequential training at default options
     k_pair.pair_counts = rec_pair_counts
     k_entropy.entropy_terms = rec_entropy_terms
-    phase_walls.clear()
-    k_pair.reset_launches()
-    k_entropy.reset_launches()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()  # the kernel phase's inputs
-    t0 = time.perf_counter()
-    out = repair(T, dirty)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"pair_counts": k_pair.launches,
-                "entropy_terms": k_entropy.launches}
+    cells = ["tier", "band", "grade"]
+    out, launches, _, _, wall = drive("e2e", dirty, clean, cells)
+
+    # -- 4c. batched training on the same table ------------------------------
+    batched, _, counts, _, _ = drive("batched", dirty, clean, cells,
+                                     batched=True)
+    if not batched.equals(out):
+        fail("batched training's repair frame differs from sequential's")
+    for name in ("gbdt.cv_multi_target_launches", "gbdt.fit_batch_launches"):
+        if counts.get(name, 0) < 1:
+            fail(f"batched training made no {name}")
+    if counts.get("train.batched_fallbacks", 0):
+        fail("batched training fell back to per-target fits")
+    log("[batched] frame identical to the sequential run's")
+
+    # -- 4d. the logistic head -----------------------------------------------
+    zclean, zdirty = zones_table(LOGISTIC_ROWS, seed=2)
+    _, _, _, zmodels, _ = drive("logistic", zdirty, zclean, ["zone"])
     k_pair.pair_counts, k_entropy.entropy_terms = orig_pc, orig_et
-    walls = {k: round(v, 3) for k, v in phase_walls.items()}
+    if not isinstance(zmodels.get("zone"), LogisticRegressionModel):
+        fail(f"zone trained {type(zmodels.get('zone')).__name__}, not the "
+             "logistic head")
+    # the same fit warm, and what a fresh process pays for its first Adam
+    sample = zclean.sample(n=10_000, random_state=0)
+    design = FeatureEncoder(["district", "parity", "channel", "amount"],
+                            ["amount"]).fit_transform_compact(sample)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = LogisticRegressionModel().fit(design, sample["zone"])
+    warm_s = time.perf_counter() - t0
+    first_adam = subprocess.run(
+        [sys.executable, "-c", "import time, torch; t = time.perf_counter(); "
+         "torch.optim.Adam([torch.zeros(1, requires_grad=True)]); "
+         "print(time.perf_counter() - t)"],
+        capture_output=True, text=True, timeout=300, check=True)
+    log(f"[logistic] warm fit, 10,000 rows: {warm_s:.3f} s, "
+        f"{warm.n_steps_run_} steps, {1e3 * warm_s / warm.n_steps_run_:.3f} "
+        f"ms a step; first torch.optim.Adam of a fresh process: "
+        f"{float(first_adam.stdout.strip()):.3f} s")
 
-    n_err = int(dirty[["tier", "band", "grade"]].isna().to_numpy().sum())
-    if list(out.columns) != ["tid", "attribute", "current_value", "repaired"]:
-        fail(f"unexpected result columns {list(out.columns)}")
-    acc = repair_accuracy(clean, out)
-    log(f"[e2e] rows={E2E_ROWS} wall_s={wall:.3f} error_cells={n_err} "
-        f"repairs={len(out)} accuracy={acc:.6f} launches={launches}")
-    log(f"[e2e] phase walls (s): {json.dumps(walls)}; peak device memory "
-        f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB "
-        f"above the {held / 2**20:.1f} MiB held before the run")
-    if len(out) != n_err or out["repaired"].isna().any():
-        fail(f"expected {n_err} non-NULL repairs, got {len(out)}")
-    if acc < MIN_ACCURACY:
-        fail(f"repair accuracy {acc} below {MIN_ACCURACY}")
-    for name, count in launches.items():
-        if count < 1:
-            fail(f"kernel {name} was not launched by the end-to-end run")
+    # -- 4e. tree-builder cost per boosting round ----------------------------
+    rounds = {}
+    for depth in (3, 5):
+        ms, kernels = boost_round_profile(torch, gbdt, depth)
+        rounds[f"depth{depth}"] = {"ms_per_round": ms,
+                                   "kernels_per_round": kernels}
+    log(f"[train-profile] one CV step of a 6-class target (3 folds x 8 "
+        f"class trees, 10,000 rows, 4 features): {json.dumps(rounds)}")
 
-    # -- 4b. each kernel on the inputs the run gave it ------------------------
+    # -- 4b. each kernel on the inputs each path gave it ---------------------
     def main_path(rows):
         keys = ("ms", "host_ms", "kernel_ms", "plain_ms", "library_ms",
                 "bound_ms")
@@ -542,57 +731,104 @@ def main() -> None:
         total["calls"] = len(rows)
         return total
 
-    k1_err, k1_rows = 0, []
-    for codes, pairs, vocab in recorded["pair_counts"]:
-        _, _, err = check_k1(torch, k_pair, codes, pairs, vocab)
-        k1_err = max(k1_err, err)
-        k1_rows.append(measure_k1(torch, k_pair, build, flush, codes, pairs,
-                                  vocab, f"main path call {len(k1_rows)}"))
-        log(f"[e2e-kernels] K1 pairs={len(pairs)} n={codes.shape[1]} "
-            f"vocab={vocab}: {fmt(k1_rows[-1])}")
-    k2_err, k2_rows = 0.0, []
-    for counts, offsets, n_rows in recorded["entropy_terms"]:
-        k2_err = max(k2_err, check_k2(torch, k_entropy, counts, offsets,
-                                      n_rows))
-        k2_rows.append(measure_k2(torch, k_entropy, build, flush, counts,
-                                  offsets, n_rows,
-                                  f"main path call {len(k2_rows)}"))
-        log(f"[e2e-kernels] K2 segments={len(offsets) - 1} "
-            f"counts={int(offsets[-1] - offsets[0])}: {fmt(k2_rows[-1])}")
+    # per path: K1 rows, K2 rows, K1 max |err|, K2 max |err|; K1 bitwise and
+    # K2 within 1e-12 relative of the plain versions on that path's inputs
+    path_rows = {}
+    for path, rec in recorded.items():
+        k1_err, k1_rows = 0, []
+        for codes, pairs, vocab in rec["pair_counts"]:
+            _, _, err = check_k1(torch, k_pair, codes, pairs, vocab)
+            k1_err = max(k1_err, err)
+            k1_rows.append(measure_k1(torch, k_pair, build, flush, codes,
+                                      pairs, vocab,
+                                      f"{path} call {len(k1_rows)}"))
+            log(f"[{path}-kernels] K1 pairs={len(pairs)} "
+                f"n={codes.shape[1]} vocab={vocab}: {fmt(k1_rows[-1])}")
+        k2_err, k2_rows = 0.0, []
+        for counts, offsets, n_rows in rec["entropy_terms"]:
+            k2_err = max(k2_err, check_k2(torch, k_entropy, counts, offsets,
+                                          n_rows))
+            k2_rows.append(measure_k2(torch, k_entropy, build, flush, counts,
+                                      offsets, n_rows,
+                                      f"{path} call {len(k2_rows)}"))
+            log(f"[{path}-kernels] K2 segments={len(offsets) - 1} "
+                f"counts={int(offsets[-1] - offsets[0])}: {fmt(k2_rows[-1])}")
+        path_rows[path] = (k1_rows, k2_rows, k1_err, k2_err)
+        log(f"[{path}-kernels] K1 ({len(k1_rows)} calls) bitwise equal and "
+            f"K2 ({len(k2_rows)} calls) within 1e-12 relative of their plain "
+            f"versions on this path's inputs: max |err| {k1_err}, {k2_err}")
 
-    # neither wrapper may wait for the card at the main path's shapes
+    # neither wrapper may wait for the card at any path's shapes
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for codes, pairs, vocab in recorded["pair_counts"]:
-            k_pair.pair_counts(codes, pairs, vocab)
-        for counts, offsets, n_rows in recorded["entropy_terms"]:
-            k_entropy.entropy_terms(counts, offsets, n_rows)
+        for rec in recorded.values():
+            for codes, pairs, vocab in rec["pair_counts"]:
+                k_pair.pair_counts(codes, pairs, vocab)
+            for counts, offsets, n_rows in rec["entropy_terms"]:
+                k_entropy.entropy_terms(counts, offsets, n_rows)
     except RuntimeError as exc:
         fail(f"a kernel wrapper synchronised with the card: {exc}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     log("[sync] K1 and K2 wrappers ran under set_sync_debug_mode('error') "
-        "at the main path's shapes without synchronising")
+        f"at the shapes of paths {list(recorded)} without synchronising")
 
     # -- 5. CPU (plain versions) vs card (kernels) ---------------------------
+    def both(df):
+        """(CPU frame, card frame, CPU models, card models, CPU logistic
+        gaps) of one default-option repair."""
+        frames, models, gaps = [], [], None
+        for dev in ("cpu", "cuda"):
+            T.set_device(dev)
+            train_reports.clear()
+            g, restore = logistic_gaps(T)
+            before = k_pair.launches, k_entropy.launches
+            try:
+                frames.append(repair(T, df))
+            finally:
+                restore()
+            if dev == "cuda" and (k_pair.launches,
+                                  k_entropy.launches) <= before:
+                fail("a 20k-row card run did not launch the kernels")
+            models.append({r["target"]: type(r["model"]).__name__
+                           for r in train_reports})
+            gaps = g if dev == "cpu" else gaps
+        return frames[0], frames[1], models[0], models[1], gaps
+
+    t0 = time.perf_counter()
     _, small = missing_heavy(CHECK_ROWS, seed=1)
-    T.set_device("cpu")
-    on_cpu = repair(T, small)
-    T.set_device("cuda")
-    before = k_pair.launches, k_entropy.launches
-    on_gpu = repair(T, small)
-    if (k_pair.launches, k_entropy.launches) <= before:
-        fail("the 20k-row card run did not launch the kernels")
+    on_cpu, on_gpu, m_cpu, m_gpu, _ = both(small)
     if not on_cpu.equals(on_gpu):
         diff = on_cpu.merge(on_gpu, on=["tid", "attribute"], how="outer",
                             suffixes=("_cpu", "_gpu"))
         diff = diff[diff["repaired_cpu"] != diff["repaired_gpu"]]
         fail(f"20k-row repair frames differ between CPU and card:\n"
              f"{diff.head(20)}")
-    log(f"[cross-check] {CHECK_ROWS} rows: CPU and card repair frames "
-        f"identical ({len(on_gpu)} repairs)")
+    log(f"[cross-check] {CHECK_ROWS} rows, default options: CPU and card "
+        f"GBDT repair frames identical ({len(on_gpu)} repairs; models "
+        f"{m_gpu})")
+
+    _, zsmall = zones_table(CHECK_ROWS, seed=3)
+    z_cpu, z_gpu, zm_cpu, zm_gpu, gaps = both(zsmall)
+    if len(gaps) != 1 or len(gaps[0]) != len(z_cpu) or not z_cpu[
+            ["tid", "attribute"]].equals(z_gpu[["tid", "attribute"]]):
+        fail("logistic cross-check: the CPU and card repair different cells")
+    near = gaps[0] < NEAR_TIE
+    differ = z_cpu["repaired"].to_numpy() != z_gpu["repaired"].to_numpy()
+    if (differ & ~near).any():
+        fail(f"logistic head: {int((differ & ~near).sum())} repairs with a "
+             f"top-two gap over {NEAR_TIE} differ between CPU and card")
+    for on_card, on_cpu_ in ((zm_gpu, zm_cpu), (m_gpu, m_cpu)):
+        for target, model_kind in on_card.items():
+            if model_kind == "PoorModel" and on_cpu_.get(target) != "PoorModel":
+                fail(f"{target} ended as PoorModel on the card only")
+    log(f"[cross-check] {CHECK_ROWS} rows, logistic head: {len(z_gpu)} "
+        f"repairs, {int(near.sum())} under a top-two gap of {NEAR_TIE} "
+        f"({int((differ & near).sum())} of them differ), every other repair "
+        f"identical; models CPU {zm_cpu} card {zm_gpu} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # -- 6. kernel device times from torch.profiler, last --------------------
     finish_kernel_ms(torch, flush)
@@ -600,11 +836,21 @@ def main() -> None:
     floor["host_ms_after_profiler"] = host_ms(torch, empty)
     log(f"[timing] every kernel_ms from complete torch.profiler records: "
         f"{all(PROFILER_SEES_KERNELS)}; launch floor {fmt(floor)}")
+    paths = {"pair_counts": [], "entropy_terms": []}
+    for path, (k1_rows, k2_rows, k1_err, k2_err) in path_rows.items():
+        for name, rows, err in (("pair_counts", k1_rows, k1_err),
+                                ("entropy_terms", k2_rows, k2_err)):
+            total = main_path(rows)
+            log(f"[{path}-kernels] {name}: {fmt(total)}")
+            paths[name].append({"path": path,
+                                "launches": path_launches[path][name],
+                                "max_abs_err": err, **total})
+    k1_rows, k2_rows, _, _ = path_rows["e2e"]
     k1, k2 = main_path(k1_rows), main_path(k2_rows)
+    k1_err = max(p["max_abs_err"] for p in paths["pair_counts"])
+    k2_err = max(p["max_abs_err"] for p in paths["entropy_terms"])
     k2_bytes = sum(r["bytes_ms"] for r in k2_rows)
     k2_ops = sum(r["ops_ms"] for r in k2_rows)
-    log(f"[e2e-kernels] main path K1: {fmt(k1)}")
-    log(f"[e2e-kernels] main path K2: {fmt(k2)}")
 
     def shapes(rows):
         return [{"shape": k, **{f: v for f, v in r.items()
@@ -621,7 +867,7 @@ def main() -> None:
          "launch_floor_ms": floor["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "bytes",
          "library_ms": k1["library_ms"], "shapes": shapes(k1_shapes),
-         "ok": True},
+         "paths": paths["pair_counts"], "ok": True},
         {"name": "entropy_terms", "route": "cuda",
          "source": "delphi_tpu_torch/csrc/entropy.cu",
          "replaces": "delphi_tpu/ops/pallas_kernels.py:186",
@@ -631,8 +877,11 @@ def main() -> None:
          "launch_floor_ms": floor["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": max(k2_bytes, k2_ops),
          "bound_by": "bytes" if k2_bytes >= k2_ops else "operations",
-         "library_ms": None, "shapes": shapes(k2_shapes), "ok": True},
+         "library_ms": None, "shapes": shapes(k2_shapes),
+         "paths": paths["entropy_terms"], "ok": True},
     ]
+    log(f"[total] {time.perf_counter() - t_start:.1f} s from start to the "
+        "result lines")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

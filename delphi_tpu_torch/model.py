@@ -1,14 +1,15 @@
 """RepairModel: the 3-phase repair pipeline (detect -> train -> repair).
 
-The port of the JAX package's ``model.py`` for this slice: the fluent
-setters and option keys, error detection (:mod:`delphi_tpu_torch.errors`),
-sequential per-attribute GBDT training on rows whose target is clean, and
-one-shot batched repair inference over the dirty rows. Paths of the
-reference that this slice does not port raise ``NotImplementedError``
-naming what is missing: the PMF / score / maximal-likelihood modes,
-user-supplied error cells, rule repairs (regex, nearest values, FD rules),
-constraints, batched training, chunked repair, repair validation,
-escalation, incremental runs and checkpoints.
+The port of the JAX package's ``model.py`` for the slices so far: the
+fluent setters and option keys, error detection
+(:mod:`delphi_tpu_torch.errors`), per-attribute training on rows whose
+target is clean (sequential, or batched behind
+``setParallelStatTrainingEnabled(True)``), and one-shot batched repair
+inference over the dirty rows. Paths of the reference that the port does
+not have yet raise ``NotImplementedError`` naming what is missing: the
+PMF / score / maximal-likelihood modes, user-supplied error cells, rule
+repairs (regex, nearest values, FD rules), constraints, chunked repair,
+repair validation, escalation, incremental runs and checkpoints.
 
 DataFrames in and out are pandas.
 """
@@ -25,12 +26,13 @@ from delphi_tpu_torch.errors import ROW_IDX, ErrorDetector, ErrorModel
 from delphi_tpu_torch.models.encoding import FeatureEncoder, OrdinalEncoder
 from delphi_tpu_torch.session import get_session
 from delphi_tpu_torch.table import KIND_INTEGRAL, EncodedTable, check_input_table
-from delphi_tpu_torch.train import (build_model, rebalance_training_data,
+from delphi_tpu_torch.train import (build_model, build_models_batched,
+                                    rebalance_training_data,
                                     train_option_keys)
 from delphi_tpu_torch.utils import (argtype_check, elapsed_time,
                                     get_option_value, job_phase,
                                     log_based_on_level, phase_span,
-                                    setup_logger, to_list_str)
+                                    setup_logger, to_list_str, train_reports)
 
 _logger = setup_logger()
 
@@ -225,7 +227,8 @@ class RepairModel:
 
     @argtype_check  # type: ignore
     def setParallelStatTrainingEnabled(self, enabled: bool) -> "RepairModel":
-        """Selects batched multi-target training (a later slice)."""
+        """Selects batched multi-target training: the targets' CV searches
+        and final fits share device launches."""
         self.parallel_stat_training_enabled = enabled
         return self
 
@@ -307,9 +310,6 @@ class RepairModel:
         if self.repair_by_rules:
             unported("setRepairByRules (regex / nearest-value / FD rule "
                      "repairs)", "comes with constraints in a later slice")
-        if self.parallel_stat_training_enabled:
-            unported("setParallelStatTrainingEnabled (batched training)",
-                     "slice 2, after the CV grid search")
         if self.repair_validation_enabled:
             unported("repair validation", "comes with constraints")
 
@@ -360,9 +360,18 @@ class RepairModel:
 
     @staticmethod
     def _encode_features(transformers: List[Any], X: Any,
-                         fit: bool = False) -> Any:
+                         fit: bool = False, compact: bool = True) -> Any:
+        """Runs the feature transformers, routing FeatureEncoder through the
+        factored one-hot design (the logistic head's gather path) unless
+        the caller needs a dense, row-indexable matrix (``compact=False``,
+        e.g. rebalancing). Training and prediction both encode here."""
         for t in transformers:
-            X = t.fit_transform(X) if fit else t.transform(X)
+            use_compact = compact and isinstance(t, FeatureEncoder)
+            if fit:
+                X = t.fit_transform_compact(X) if use_compact \
+                    else t.fit_transform(X)
+            else:
+                X = t.transform_compact(X) if use_compact else t.transform(X)
         return X
 
     def _create_transformers(self, features: List[str],
@@ -408,13 +417,33 @@ class RepairModel:
             rows=sel_pos, columns=list(feature_map[y]) + [y],
             integral_as_float=float_cols)
         is_discrete = y not in continuous_columns
-        X = self._encode_features(
-            transformer_map[y], train_pdf[feature_map[y]], fit=True)
-        if is_discrete and self.training_data_rebalancing_enabled:
-            X, y_ = rebalance_training_data(X, train_pdf[y], y)
-        else:
-            y_ = train_pdf[y]
+        X, y_ = self._encode_training_frame(
+            y, train_pdf, is_discrete, feature_map, transformer_map)
         return X, y_, len(train_pdf)
+
+    def _encode_training_frame(self, y: str, train_pdf: pd.DataFrame,
+                               is_discrete: bool,
+                               feature_map: Dict[str, List[str]],
+                               transformer_map: Dict[str, List[Any]]) \
+            -> Tuple[Any, Any]:
+        """Fit-encodes a decoded training frame (+ optional rebalancing).
+        Linear-head targets train from the factored one-hot design;
+        rebalancing needs row indexing, so it keeps dense."""
+        X: Any = self._encode_features(
+            transformer_map[y], train_pdf[feature_map[y]], fit=True,
+            compact=not (is_discrete
+                         and self.training_data_rebalancing_enabled))
+        if is_discrete and self.training_data_rebalancing_enabled:
+            return rebalance_training_data(X, train_pdf[y], y)
+        return X, train_pdf[y]
+
+    def _use_batched_training(self, n_pending: int) -> bool:
+        """Whether phase 2 trains its targets through the batched path
+        (`train.build_models_batched`): more than one pending target and
+        ``setParallelStatTrainingEnabled(True)``. The reference also
+        defaults to it on accelerators; the port pins its CPU choice
+        (sequential) on the card too."""
+        return n_pending > 1 and self.parallel_stat_training_enabled
 
     def _build_repair_stat_models(
             self, models: Dict[str, Any], masked: EncodedTable,
@@ -423,10 +452,15 @@ class RepairModel:
             num_class_map: Dict[str, int],
             feature_map: Dict[str, List[str]],
             transformer_map: Dict[str, List[Any]]) -> Dict[str, Any]:
-        """Fits the remaining per-attribute stat models one target at a
-        time (the reference's sequential branch)."""
-        for y in [c for c in target_columns if c not in models]:
-            index = len(models) + 1
+        """Builds the remaining per-attribute stat models: batched (every
+        target's CV search and final fit in shared launches) or one target
+        at a time (`_use_batched_training`). A failed fit becomes a
+        ``PoorModel(None)``."""
+        pending = [c for c in target_columns if c not in models]
+        batched = self._use_batched_training(len(pending))
+        tasks = []
+        for y in pending:
+            index = len(models) + len(tasks) + 1
             prep = self._prepare_training_task(
                 y, masked, float_cols, continuous_columns, feature_map,
                 transformer_map)
@@ -444,12 +478,38 @@ class RepairModel:
                     "classfier" if is_discrete else "regressor", y,
                     to_list_str(feature_map[y]), n_rows,
                     f" #class={num_class_map[y]}" if num_class_map[y] > 0 else ""))
+            if batched:
+                tasks.append((y, X, y_, is_discrete, num_class_map[y]))
+                continue
             (model, score), elapsed = build_model(
                 X, y_, is_discrete, num_class_map[y], n_jobs=-1, opts=self.opts)
             _logger.info(
                 f"Finishes building '{y}' model...  score={score} elapsed={elapsed}s")
-            models[y] = (model, feature_map[y], transformer_map[y])
+            self._keep_model(models, y, model, feature_map, transformer_map)
+        if tasks:
+            _logger.info(
+                f"Training {len(tasks)} models in batched device launches...")
+            out = build_models_batched(tasks, self.opts)
+            for y, *_ in tasks:
+                (model, score), elapsed = out[y]
+                _logger.info(
+                    f"Finishes building '{y}' model...  score={score} "
+                    f"elapsed={elapsed}s")
+                self._keep_model(models, y, model, feature_map,
+                                 transformer_map)
         return models
+
+    @staticmethod
+    def _keep_model(models: Dict[str, Any], y: str, model: Any,
+                    feature_map: Dict[str, List[str]],
+                    transformer_map: Dict[str, List[Any]]) -> None:
+        """Stores a trained model (a failed fit becomes ``PoorModel(None)``)
+        and appends its training record to ``utils.train_reports``."""
+        if model is None:
+            model = PoorModel(None)
+        train_reports.append({"target": y, "model": model,
+                              **getattr(model, "train_report_", {})})
+        models[y] = (model, feature_map[y], transformer_map[y])
 
     @job_phase(name="repair model training")
     def _build_repair_models(self, masked: EncodedTable,
@@ -466,6 +526,7 @@ class RepairModel:
             "in {}".format(len(target_columns), to_list_str(target_columns)))
 
         models: Dict[str, Any] = {}
+        train_reports.clear()  # the records of this run only
         num_class_map: Dict[str, int] = {}
         for y in target_columns:
             index = len(models) + 1

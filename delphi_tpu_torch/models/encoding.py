@@ -38,6 +38,22 @@ def _vocab_codes(series: pd.Series, vocab: Dict[str, int],
                     np.int64(default))
 
 
+def f1_macro(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """Macro-averaged F1 over the classes present in ``y_true``: the CV
+    scorer for classifier selection (``gbdt._f1_from_confusion`` computes
+    the same from a confusion matrix)."""
+    classes = np.unique(y_true)
+    f1s = []
+    for c in classes:
+        tp = float(((y_pred == c) & (y_true == c)).sum())
+        fp = float(((y_pred == c) & (y_true != c)).sum())
+        fn = float(((y_pred != c) & (y_true == c)).sum())
+        p = tp / (tp + fp) if tp + fp > 0 else 0.0
+        r = tp / (tp + fn) if tp + fn > 0 else 0.0
+        f1s.append(2 * p * r / (p + r) if p + r > 0 else 0.0)
+    return float(np.mean(f1s)) if f1s else 0.0
+
+
 def balanced_class_weights(counts: np.ndarray, n: int,
                            damped: bool = True) -> np.ndarray:
     """Balanced class weights, optionally square-root-damped.

@@ -1,13 +1,18 @@
 """Histogram gradient-boosted decision trees in PyTorch — the port of the
-JAX package's ``models/gbdt.py`` (single fit without a mesh; the batched
-and cross-validated fits come in a later slice).
+JAX package's ``models/gbdt.py`` without the mesh paths: the single fit,
+the chunked early-stopping K-fold CV grid search over one or many targets,
+and the batched multi-model final fit.
 
-* features are quantile-binned once on the host into an integer bin matrix
-  (NaN/missing = bin 0);
+* features are quantile-binned on the host into an integer bin matrix
+  (NaN/missing = bin 0); CV folds bin from their own training rows;
 * trees grow depth-wise: level ``t`` owns node ids ``[0, 2^t)``; per level
   the (node, feature, bin) histograms of the gradient channels are segment
   sums, the split gain is an argmax over the (feature, bin) grid;
-* multiclass trains K class trees per round together (a leading tree axis).
+* ONE tree builder serves every fit: its leading tree axis stacks the
+  class trees of a multiclass round, the configs of a CV group and the
+  (target, fold) instances of a CV launch or the models of a batched fit,
+  each tree with its own bins, row weights and hyperparameters — the
+  JAX package's vmaps.
 
 Objectives: L2 regression, binary logistic, multiclass softmax, with
 balanced class weights.
@@ -19,23 +24,46 @@ then ``torch.segment_reduce``, whose kernels add each segment's values one
 after the other), and the bin cumsum reproduces XLA:CPU's blocked scan
 (sequential within blocks of 16, then the block totals). Float atomics,
 whose order changes from run to run and can flip near-tie splits, are
-never used.
+never used. Rows and features added to stack unequal fits into one launch
+carry zero weight and a constant bin, so they add exact zeros to every
+sum and never win a split.
 """
 
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
 import torch
 
 from delphi_tpu_torch.ops.xfer import to_device
+from delphi_tpu_torch.utils import counter_inc
 
 MAX_MULTICLASS = 24
+
+# Boosting runs in chunks of this many rounds; CV early stopping checks
+# its scores between chunks.
+_CHUNK_ROUNDS = 25
+
+# CV macro-F1 past which further search cannot pay for itself: the chunk
+# loop and the later config groups stop for that target.
+_GOOD_ENOUGH_F1 = 0.995
+
+# Instances ((target, fold) pairs) per CV launch, and models per batched
+# fit launch: they bound the stacked tensors' memory.
+_CV_INSTANCE_CAP = 16
+_FIT_BATCH_CAP = 8
 
 
 def gbdt_supported(is_discrete: bool, num_class: int) -> bool:
     """Very wide multiclass targets route to the logistic head instead."""
     return (not is_discrete) or num_class <= MAX_MULTICLASS
+
+
+def round_chunks(n_rounds: int, chunk: int = _CHUNK_ROUNDS) -> List[int]:
+    """``n_rounds`` boosting rounds as fixed-size chunks plus one remainder."""
+    q, r = divmod(max(int(n_rounds), 1), int(chunk))
+    return [int(chunk)] * q + ([r] if r else [])
 
 
 # ---------------------------------------------------------------------------
@@ -83,11 +111,12 @@ class _Binner:
 # ---------------------------------------------------------------------------
 
 def _segment_sum(vals: torch.Tensor, seg: torch.Tensor,
-                 n_seg: int) -> torch.Tensor:
+                n_seg: int) -> torch.Tensor:
     """[n_seg, C] sums of the rows of ``vals`` [N, C] grouped by ``seg``
-    [N], each segment summed in index order."""
+    [N], each segment summed in index order. Nothing waits for the card."""
     order = torch.argsort(seg, stable=True)
-    lengths = torch.bincount(seg, minlength=n_seg)
+    lengths = torch.zeros(n_seg, dtype=torch.int64, device=seg.device) \
+        .index_add_(0, seg, torch.ones_like(seg))
     return torch.segment_reduce(vals[order], "sum", lengths=lengths, axis=0,
                                 unsafe=True)
 
@@ -120,10 +149,16 @@ def _blocked_cumsum(x: torch.Tensor, block: int = 16) -> torch.Tensor:
 
 
 def _row_bins(bins: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-    """bins[i, feat[..., i]] for a [..., n] feature index per row."""
-    n, d = bins.shape
-    rows = torch.arange(n, device=bins.device)
-    return bins.reshape(-1)[rows * d + feat]
+    """bins[t, i, feat[t, i]] for per-tree bins [T, n, d]."""
+    return torch.gather(bins, 2, feat[..., None])[..., 0]
+
+
+def _per_tree(v: Any, T: int, dims: int) -> Any:
+    """A per-tree hyperparameter (f32 [T] tensor) shaped to broadcast over
+    ``dims`` trailing axes; a Python float stays as it is."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape((T,) + (1,) * dims)
+    return v
 
 
 # ---------------------------------------------------------------------------
@@ -132,21 +167,30 @@ def _row_bins(bins: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
 
 def _build_trees(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                  weight: torch.Tensor, depth: int, n_bins: int,
-                 reg_lambda: float, min_split_gain: float,
-                 min_child_weight: float, min_child_samples: float,
+                 reg_lambda: Any, min_split_gain: Any,
+                 min_child_weight: Any, min_child_samples: Any,
                  use_counts: bool = True, hess_is_weight: bool = False) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grows T depth-wise trees at once, one per row of ``grad``/``hess``
-    [T, n] over the shared ``bins`` [n, d]. Returns (feat [T, nodes-1],
-    thr [T, nodes-1], leaf f32 [T, nodes], node [T, n]) with all-left
-    sentinel splits (thr = n_bins) for terminated nodes — the JAX package's
-    ``_build_tree`` per tree. Rows with weight 0 drop out of the row-count
-    channel (``min_child_samples``), which exists only when ``use_counts``;
-    for L2 (``hess_is_weight``) the hessian doubles as the weight channel."""
+    [T, n]. ``bins`` is [n, d] shared by every tree or [T, n, d] per tree,
+    ``weight`` [n] or [T, n]; each hyperparameter is a float or an f32 [T]
+    tensor. Returns (feat [T, nodes-1], thr [T, nodes-1], leaf f32
+    [T, nodes], node [T, n]) with all-left sentinel splits (thr = n_bins)
+    for terminated nodes — the JAX package's ``_build_tree`` per tree.
+    Rows with weight 0 drop out of the row-count channel
+    (``min_child_samples``), which exists only when ``use_counts``; for L2
+    (``hess_is_weight``) the hessian doubles as the weight channel."""
     T, n = grad.shape
-    d = bins.shape[1]
-    dev = bins.device
+    if bins.dim() == 2:
+        bins = bins.expand(T, *bins.shape)
+    d = bins.shape[2]
+    dev = grad.device
     n_nodes = 1 << depth
+    weight = weight.expand(T, n)
+    lam = _per_tree(reg_lambda, T, 3)
+    msg = _per_tree(min_split_gain, T, 1)
+    mcw = _per_tree(min_child_weight, T, 3)
+    mcs = _per_tree(min_child_samples, T, 3)
 
     feat = torch.zeros((T, n_nodes - 1), dtype=torch.int64, device=dev)
     thr = torch.full((T, n_nodes - 1), n_bins, dtype=torch.int64, device=dev)
@@ -155,10 +199,10 @@ def _build_trees(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     channels = [grad, hess]
     w_slot = 1 if hess_is_weight else len(channels)
     if not hess_is_weight:
-        channels.append(weight.expand(T, n))
+        channels.append(weight)
     c_slot = len(channels) if use_counts else -1
     if use_counts:
-        channels.append((weight > 0).to(grad.dtype).expand(T, n))
+        channels.append((weight > 0).to(grad.dtype))
     C = len(channels)
     # rows of the flattened (tree, row, feature) order the histograms use
     vals = torch.stack(channels, dim=-1)[:, :, None, :] \
@@ -169,28 +213,24 @@ def _build_trees(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     for level in range(depth):
         n_level = 1 << level
         seg = ((tree_ids * n_level + node[:, :, None]) * d + feat_ids) \
-            * n_bins + bins[None, :, :]
+            * n_bins + bins
         hist = _segment_sum(vals, seg.reshape(-1), T * n_level * d * n_bins)
         hist = hist.reshape(T, n_level, d, n_bins, C).permute(4, 0, 1, 2, 3)
-        hg, hh, hw = hist[0], hist[1], hist[w_slot]
-
-        GL = _blocked_cumsum(hg)
-        HL = _blocked_cumsum(hh)
-        WL = _blocked_cumsum(hw)
-        G = GL[..., -1:]
-        H = HL[..., -1:]
-        W = WL[..., -1:]
+        # every channel's cumsum in one pass (elementwise the same sums)
+        cum = _blocked_cumsum(hist)
+        tot = cum[..., -1:]
+        GL, HL, WL = cum[0], cum[1], cum[w_slot]
+        G, H, W = tot[0], tot[1], tot[w_slot]
         GR, HR, WR = G - GL, H - HL, W - WL
 
-        gain = (GL * GL / (HL + reg_lambda)
-                + GR * GR / (HR + reg_lambda)
-                - G * G / (H + reg_lambda))
-        ok = (WL >= min_child_weight) & (WR >= min_child_weight)
+        gain = (GL * GL / (HL + lam)
+                + GR * GR / (HR + lam)
+                - G * G / (H + lam))
+        ok = (WL >= mcw) & (WR >= mcw)
         if use_counts:
-            CL = _blocked_cumsum(hist[c_slot])
-            Ct = CL[..., -1:]
+            CL, Ct = cum[c_slot], tot[c_slot]
             CR = Ct - CL
-            ok = ok & (CL >= min_child_samples) & (CR >= min_child_samples)
+            ok = ok & (CL >= mcs) & (CR >= mcs)
         gain = torch.where(ok, gain, torch.full_like(gain, -torch.inf))
         # never split on the last bin (right side empty by construction)
         gain[..., -1] = -torch.inf
@@ -200,7 +240,7 @@ def _build_trees(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         best_gain = torch.gather(flat_gain, 2, best[..., None])[..., 0]
         best_f = best // n_bins
         best_b = best % n_bins
-        do_split = best_gain > min_split_gain
+        do_split = best_gain > msg
         best_f = torch.where(do_split, best_f, torch.zeros_like(best_f))
         best_b = torch.where(do_split, best_b, torch.full_like(best_b, n_bins))
 
@@ -215,49 +255,79 @@ def _build_trees(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     leaf_seg = (torch.arange(T, device=dev)[:, None] * n_nodes + node).reshape(-1)
     leaf_gh = _segment_sum(torch.stack([grad, hess], dim=-1).reshape(T * n, 2),
-                           leaf_seg, T * n_nodes).reshape(T, n_nodes, 2)
-    leaf = -leaf_gh[..., 0] / (leaf_gh[..., 1] + reg_lambda)
+                          leaf_seg, T * n_nodes).reshape(T, n_nodes, 2)
+    leaf = -leaf_gh[..., 0] / (leaf_gh[..., 1] + _per_tree(reg_lambda, T, 1))
     return feat, thr, leaf, node
 
 
 def _grad_hess(F: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
                objective: str, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[T, n] gradient and hessian channels; F is [n] ([k, n] multiclass)."""
+    """[M * trees per round, n] gradient and hessian channels of M models:
+    F is [M, n] ([M, k, n] multiclass), y and weight [M, n]."""
     if objective == "regression":
-        return ((F - y) * weight)[None, :], weight[None, :]
+        return (F - y) * weight, weight
     if objective == "binary":
         p = torch.sigmoid(F)
-        return ((p - y) * weight)[None, :], \
-            torch.clamp_min(p * (1 - p), 1e-6)[None, :] * weight[None, :]
-    z = F - F.max(dim=0, keepdim=True).values
+        return (p - y) * weight, torch.clamp_min(p * (1 - p), 1e-6) * weight
+    z = F - F.max(dim=1, keepdim=True).values
     e = torch.exp(z)
-    p = e / e.sum(dim=0, keepdim=True)
-    onehot = torch.nn.functional.one_hot(y.to(torch.int64), k).T.to(F.dtype)
-    return (p - onehot) * weight[None, :], \
-        torch.clamp_min(p * (1 - p), 1e-6) * weight[None, :]
+    p = e / e.sum(dim=1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(y.to(torch.int64), k) \
+        .permute(0, 2, 1).to(F.dtype)
+    w = weight[:, None, :]
+    M, n = y.shape
+    return ((p - onehot) * w).reshape(M * k, n), \
+        (torch.clamp_min(p * (1 - p), 1e-6) * w).reshape(M * k, n)
 
 
 def _boost(bins: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
            F: torch.Tensor, n_rounds: int, depth: int, n_bins: int,
-           objective: str, k: int, lr: float, reg_lambda: float,
-           min_split_gain: float, min_child_weight: float,
-           min_child_samples: float, use_counts: bool) \
-        -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """``n_rounds`` boosting rounds from the margin ``F``. Returns (F,
-    (feats [R, T, nodes-1], thrs [R, T, nodes-1], leaves [R, T, nodes]))."""
+           objective: str, k: int, lr: Any, reg_lambda: Any,
+           min_split_gain: Any, min_child_weight: Any,
+           min_child_samples: Any, use_counts: bool,
+           collect_trees: bool = True) \
+        -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]]]:
+    """``n_rounds`` boosting rounds of M models at once, RESUMING from
+    their margins ``F`` ([M, n], or [M, k, n] multiclass): a fit advances
+    chunk by chunk with the carry on the device. Each model has its own
+    bins [M, n, d], labels and row weights [M, n]; each hyperparameter is
+    a float or an f32 [M] tensor. Returns (F, (feats [R, M * trees, nodes-1],
+    thrs, leaves [R, M * trees, nodes])), the trees None when not
+    ``collect_trees`` (CV reads only the margins: the carry IS every row's
+    prediction, held-out rows included)."""
+    M, n = y.shape
+    per_round = k if objective == "multiclass" else 1
+    T = M * per_round
+
+    def trees_of(v: Any) -> Any:
+        if isinstance(v, torch.Tensor) and per_round > 1:
+            return v.repeat_interleave(per_round)
+        return v
+
+    if per_round > 1:
+        tree_bins = bins.repeat_interleave(per_round, dim=0) if M > 1 \
+            else bins.expand(T, *bins.shape[1:])
+        tree_w = weight.repeat_interleave(per_round, dim=0)
+    else:
+        tree_bins, tree_w = bins, weight
+    lr_t = _per_tree(trees_of(lr), T, 1)
+    hyper = [trees_of(v) for v in (reg_lambda, min_split_gain,
+                                   min_child_weight, min_child_samples)]
     feats, thrs, leaves = [], [], []
     for _ in range(n_rounds):
         g, h = _grad_hess(F, y, weight, objective, k)
         feat, thr, leaf, node = _build_trees(
-            bins, g, h, weight, depth, n_bins, reg_lambda, min_split_gain,
-            min_child_weight, min_child_samples, use_counts=use_counts,
-            hess_is_weight=(objective == "regression"))
-        leaf = leaf * lr
+            tree_bins, g, h, tree_w, depth, n_bins, *hyper,
+            use_counts=use_counts, hess_is_weight=(objective == "regression"))
+        leaf = leaf * lr_t
         delta = torch.gather(leaf, 1, node)     # [T, n]
-        F = F + (delta[0] if objective != "multiclass" else delta)
-        feats.append(feat)
-        thrs.append(thr)
-        leaves.append(leaf)
+        F = F + delta.reshape(F.shape)
+        if collect_trees:
+            feats.append(feat)
+            thrs.append(thr)
+            leaves.append(leaf)
+    if not collect_trees:
+        return F, None
     return F, (torch.stack(feats), torch.stack(thrs), torch.stack(leaves))
 
 
@@ -268,6 +338,7 @@ def _predict_boosted(bins: torch.Tensor, feats: torch.Tensor,
     in f32 (the JAX package's scan order). [n], or [k, n] multiclass."""
     n = bins.shape[0]
     T = feats.shape[1]
+    tree_bins = bins.expand(T, *bins.shape)
     if objective == "multiclass":
         F = base[:, None].expand(T, n).clone()
     else:
@@ -279,7 +350,7 @@ def _predict_boosted(bins: torch.Tensor, feats: torch.Tensor,
             idx = (1 << level) - 1 + node
             f = torch.gather(feats[r], 1, idx)
             b = torch.gather(thrs[r], 1, idx)
-            node = node * 2 + (_row_bins(bins, f) > b).to(torch.int64)
+            node = node * 2 + (_row_bins(tree_bins, f) > b).to(torch.int64)
         delta = torch.gather(leaves[r], 1, node)
         F = F + (delta[0] if objective != "multiclass" else delta)
     return F
@@ -291,6 +362,424 @@ def _init_margin(base: np.ndarray, n: int, objective: str, k: int) -> np.ndarray
     if objective == "multiclass":
         return np.broadcast_to(base[:, None], (k, n)).copy()
     return np.full((n,), base[0], np.float32)
+
+
+def _stack_pad(arrs: Sequence[np.ndarray], dtype: Any = None) -> np.ndarray:
+    """Stacks arrays whose trailing axes may differ, zero-padding each to
+    the largest (rows, and features of bin matrices): padded rows carry
+    zero weight and padded features one constant bin."""
+    arrs = [np.asarray(a) for a in arrs]
+    shape = tuple(max(a.shape[i] for a in arrs) for i in range(arrs[0].ndim))
+    out = np.zeros((len(arrs),) + shape, dtype=dtype or arrs[0].dtype)
+    for i, a in enumerate(arrs):
+        out[(i,) + tuple(slice(0, s) for s in a.shape)] = a
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Cross-validated grid search
+# ---------------------------------------------------------------------------
+
+def _cv_stats(F: torch.Tensor, y: torch.Tensor, val: torch.Tensor,
+              y_cmp: torch.Tensor, log_flag: torch.Tensor,
+              inv_scale: torch.Tensor, cw_corr: torch.Tensor,
+              class_valid: torch.Tensor, objective: str,
+              kk: int) -> torch.Tensor:
+    """CV scoring statistics of M models from their margins ([M, n] or
+    [M, k, n]): a [M, kk, kk] int64 confusion-count matrix over the
+    held-out rows (``val`` 1) for classifiers, [M, 2] f64 (scaled SSE,
+    count) for regressors — small tensors, so early stopping never fetches
+    prediction vectors. Regression errors are scaled by the target's RMS
+    (``inv_scale``) in f32, as in the JAX package, and summed in f64."""
+    M = F.shape[0]
+    if objective == "regression":
+        pred = torch.where(log_flag[:, None] > 0, torch.expm1(F), F)
+        err = (pred - y_cmp) * inv_scale[:, None]
+        return torch.stack([(val * err * err).double().sum(1),
+                            val.double().sum(1)], dim=1)
+    if objective == "binary":
+        p = torch.sigmoid(F)
+        # deploy parity: importance-correct back to the true priors before
+        # the argmax, as predict_proba does
+        pred = (p / cw_corr[:, 1:2] > (1 - p) / cw_corr[:, 0:1]) \
+            .to(torch.int64)
+    else:
+        shifted = F - F.max(dim=1, keepdim=True).values
+        logp = shifted - torch.log(torch.exp(shifted).sum(dim=1, keepdim=True))
+        adj = logp - torch.log(cw_corr)[:, :, None]
+        adj = torch.where(class_valid[:, :, None] > 0, adj,
+                          torch.full_like(adj, -torch.inf))
+        pred = torch.argmax(adj, dim=1)
+    model = torch.arange(M, device=F.device)[:, None]
+    idx = (model * kk + y.to(torch.int64)) * kk + pred
+    conf = torch.zeros(M * kk * kk, dtype=torch.int64, device=F.device)
+    conf.index_add_(0, idx.reshape(-1), val.to(torch.int64).reshape(-1))
+    return conf.reshape(M, kk, kk)
+
+
+def _f1_from_confusion(conf: np.ndarray, k_real: int) -> float:
+    """Macro-F1 from a confusion-count matrix, averaging over the classes
+    present in the fold's truth (``encoding.f1_macro``'s semantics)."""
+    conf = np.asarray(conf, np.float64)[:k_real, :k_real]
+    truth_counts = conf.sum(axis=1)
+    f1s = []
+    for c in range(k_real):
+        if truth_counts[c] <= 0:
+            continue
+        tp = conf[c, c]
+        fp = conf[:, c].sum() - tp
+        fn = truth_counts[c] - tp
+        p = tp / (tp + fp) if tp + fp > 0 else 0.0
+        r = tp / (tp + fn) if tp + fn > 0 else 0.0
+        f1s.append(2 * p * r / (p + r) if p + r > 0 else 0.0)
+    return float(np.mean(f1s)) if f1s else 0.0
+
+
+def _cv_prepare_target(X: Any, y: Any, is_discrete: bool, n_splits: int,
+                       class_weight: str,
+                       template: "GradientBoostedTreesModel") \
+        -> Optional[dict]:
+    """Per-target CV preprocessing shared by the single- and multi-target
+    searches: factorized labels and balanced weights, per-fold binning (bin
+    edges and the regression log-target decision come from the fold's
+    TRAINING rows only), the per-fold instances and the scoring constants.
+    Returns None when no fold is usable (degenerate labels)."""
+    Xm = template._as_matrix(X)
+    n = Xm.shape[0]
+    y_arr = np.asarray(y)
+    per_class_w = None
+    yv64 = None
+    if is_discrete:
+        codes, classes = pd.factorize(y_arr, sort=True)
+        k_real = len(classes)
+        counts = np.bincount(codes, minlength=k_real).astype(np.float64)
+        if class_weight == "balanced":
+            from delphi_tpu_torch.models.encoding import balanced_class_weights
+            per_class_w = balanced_class_weights(counts, len(codes))
+            w_full = per_class_w[codes]
+        else:
+            w_full = np.ones(n)
+        if k_real <= 2:
+            objective, k = "binary", 1
+        else:
+            objective = "multiclass"
+            k = next(b for b in (4, 8, 16, 24, MAX_MULTICLASS) if b >= k_real)
+        yv = codes.astype(np.float32)
+        kk = 2 if objective == "binary" else k
+        cw_corr = np.ones(kk, np.float32)
+        if per_class_w is not None:
+            m = min(k_real, kk)
+            cw_corr[:m] = per_class_w[:m]
+        class_valid = (np.arange(kk) < k_real).astype(np.float32)
+        y_cmp = np.zeros(n, np.float32)  # unused for classifiers
+        scale = 1.0
+    else:
+        objective, k, k_real = "regression", 1, 0
+        yv64 = pd.to_numeric(pd.Series(y_arr), errors="coerce") \
+            .to_numpy(dtype=np.float64)
+        yv = yv64.astype(np.float32)
+        w_full = np.ones(n)
+        cw_corr = np.ones(1, np.float32)
+        class_valid = np.ones(1, np.float32)
+        y_cmp = yv64.astype(np.float32)  # original-space comparison target
+        # RMS normalizer: errors are scored as (err/scale)^2 on the device
+        # and rescaled in f64 on the host
+        scale = float(np.sqrt(np.mean(yv64 ** 2))) if n else 1.0
+        if not np.isfinite(scale) or scale <= 0:
+            scale = 1.0
+
+    rng = np.random.RandomState(42)
+    order = rng.permutation(n)
+    folds = np.array_split(order, max(2, min(n_splits, n)))
+    folds = [f for f in folds if len(f)]
+
+    instances = []
+    for fold in folds:
+        train_mask = np.ones(n, dtype=bool)
+        train_mask[fold] = False
+        if is_discrete and len(np.unique(yv[train_mask])) < 2:
+            continue
+        bins = _Binner(template.max_bin).fit(Xm[train_mask]).transform(Xm)
+        log_f = False
+        yv_f = yv
+        if not is_discrete:
+            ytr = yv64[train_mask]
+            std = ytr.std()
+            skew = float(((ytr - ytr.mean()) ** 3).mean() / (std ** 3)) \
+                if std > 0 else 0.0
+            log_f = bool((ytr >= 0).all() and skew > 2.0)
+            yv_f = (np.log1p(yv64) if log_f else yv64).astype(np.float32)
+        w = np.where(train_mask, w_full, 0.0).astype(np.float32)
+        if objective == "binary":
+            pos = float((w * yv_f).sum() / max(w.sum(), 1e-9))
+            pos = min(max(pos, 1e-6), 1 - 1e-6)
+            base = np.array([np.log(pos / (1 - pos))], dtype=np.float32)
+        elif objective == "multiclass":
+            priors = np.zeros(k)
+            np.add.at(priors, yv_f.astype(np.int64), w)
+            priors = np.maximum(priors / max(priors.sum(), 1e-9), 1e-13)
+            base = np.log(priors).astype(np.float32)
+        else:
+            base = np.array(
+                [float((w * yv_f).sum() / max(w.sum(), 1e-9))], np.float32)
+        val = np.zeros(n, np.float32)
+        val[fold] = 1.0
+        instances.append(dict(bins=bins, y=yv_f, w=w, val=val, base=base,
+                              log=1.0 if log_f else 0.0))
+
+    if not instances:
+        return None
+    return dict(
+        objective=objective, k=k, k_real=k_real, n=n,
+        n_bins=template.max_bin + 1, y_cmp=y_cmp, scale=scale,
+        cw_corr=cw_corr, class_valid=class_valid, template=template,
+        is_discrete=is_discrete, instances=instances)
+
+
+def _cfg_rounds_for(cfg: dict, objective: str, k: int) -> int:
+    r = min(int(cfg.get("n_estimators", 200)), 200)
+    if objective == "multiclass":
+        r = min(r, max(40, 400 // k))
+    return r
+
+
+class _CVSlab:
+    """The device tensors of one CV launch: W instances x C configs as
+    M = W * C models (instance-major), rows and features padded to the
+    slab's largest instance."""
+
+    def __init__(self, preps: List[Optional[dict]], inst: List[Tuple[int, int]],
+                 objective: str, k: int, hyper: List[np.ndarray]) -> None:
+        self.inst = list(inst)
+        es = [preps[t]["instances"][j] for t, j in inst]
+        ps = [preps[t] for t, _ in inst]
+        C = len(hyper[0])
+        self.n_cfg = C
+        rep = lambda a: np.repeat(a, C, axis=0)  # noqa: E731
+        bins = _stack_pad([e["bins"] for e in es])
+        n = bins.shape[1]
+        self.bins = to_device(rep(bins), torch.int64)
+        self.y = to_device(rep(_stack_pad([e["y"] for e in es])))
+        self.w = to_device(rep(_stack_pad([e["w"] for e in es])))
+        self.val = to_device(rep(_stack_pad([e["val"] for e in es])))
+        self.y_cmp = to_device(rep(_stack_pad([p["y_cmp"] for p in ps])))
+        self.log = to_device(rep(np.array([e["log"] for e in es], np.float32)))
+        self.iscale = to_device(rep(np.array(
+            [1.0 / p["scale"] for p in ps], np.float32)))
+        self.cw = to_device(rep(np.stack([p["cw_corr"] for p in ps])))
+        self.valid = to_device(rep(np.stack([p["class_valid"] for p in ps])))
+        self.hyper = [to_device(np.tile(np.asarray(h, np.float32), len(es)))
+                      for h in hyper]
+        self.F = to_device(rep(np.stack(
+            [_init_margin(e["base"], n, objective, k) for e in es])))
+
+    def keep(self, rows: List[int]) -> None:
+        """Drops every instance not in ``rows`` (retired targets)."""
+        C = self.n_cfg
+        sel = to_device(np.array([r * C + c for r in rows for c in range(C)]),
+                        torch.int64)
+        for name in ("bins", "y", "w", "val", "y_cmp", "log", "iscale", "cw",
+                     "valid", "F"):
+            setattr(self, name, getattr(self, name).index_select(0, sel))
+        self.hyper = [h.index_select(0, sel) for h in self.hyper]
+        self.inst = [self.inst[r] for r in rows]
+
+
+def gbdt_cv_grid_search_multi(preps: List[Optional[dict]],
+                              configs: List[dict], timeout_s: float = 0.0,
+                              good_enough: float = _GOOD_ENOUGH_F1) \
+        -> List[Tuple[int, float, int, bool, int]]:
+    """Chunked early-stopping K-fold CV grid search over MANY targets in
+    shared launches: every (target, fold) instance whose config group
+    ((depth, rounds), objective, class bucket, bins) matches stacks with
+    every config of the group into one tree-builder call per round.
+
+    Per-target bookkeeping is the JAX package's: classifiers rank by their
+    best checkpoint with 2-chunk patience, regressors by the latest
+    horizon; a perfect or good-enough macro-F1 retires the target from ALL
+    remaining groups (its instances leave the launch). One small stats
+    tensor per launch is read back per chunk.
+
+    Returns one (best config index, mean CV score, best round count,
+    timed_out, chunk steps run) tuple per prep; a None prep yields
+    (0, -inf, 0, False, 0)."""
+    deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
+
+    T = len(preps)
+    best_by_cfg: List[Dict[int, Tuple[float, int]]] = [{} for _ in range(T)]
+    done = [p is None for p in preps]
+    timed_out = False
+    # timed is PER TARGET: a target retired or fully searched before the
+    # deadline keeps its CV-proven round count
+    timed = [False] * T
+    n_chunks = [0] * T
+    patience_chunks = 2
+    eps = 1e-12
+
+    # Work units: a (depth, rounds) config group and the static dims;
+    # targets sharing a key share its launches. Insertion order keeps each
+    # target's group order.
+    merged: Dict[Tuple, List[int]] = {}
+    for t, prep in enumerate(preps):
+        if prep is None:
+            continue
+        tgroups: Dict[Tuple[int, int], List[int]] = {}
+        for ci, cfg in enumerate(configs):
+            depth = int(cfg.get("max_depth", prep["template"].max_depth))
+            rounds = _cfg_rounds_for(cfg, prep["objective"], prep["k"])
+            tgroups.setdefault((depth, rounds), []).append(ci)
+        for (depth, rounds), cfg_idx in tgroups.items():
+            key = (depth, rounds, prep["n_bins"], prep["objective"],
+                   prep["k"], tuple(cfg_idx))
+            merged.setdefault(key, []).append(t)
+
+    for key, t_members in merged.items():
+        if timed_out:
+            break
+        g_depth, g_rounds, n_bins, objective, k, cfg_tuple = key
+        members = [t for t in t_members if not done[t]]
+        if not members:
+            continue
+        cfg_indices = list(cfg_tuple)
+        is_discrete = preps[members[0]]["is_discrete"]
+        tmpl = preps[members[0]]["template"]
+        hyper = [
+            np.array([configs[ci].get("learning_rate", 0.1)
+                      for ci in cfg_indices], np.float32),
+            np.array([configs[ci].get("reg_lambda", 1.0)
+                      for ci in cfg_indices], np.float32),
+            np.array([tmpl.min_split_gain] * len(cfg_indices), np.float32),
+            np.array([configs[ci].get("min_child_weight", 1.0)
+                      for ci in cfg_indices], np.float32)]
+        kk = 2 if objective == "binary" else k
+
+        inst = [(t, j) for t in members
+                for j in range(len(preps[t]["instances"]))]
+        slabs = [_CVSlab(preps, inst[s:s + _CV_INSTANCE_CAP], objective, k,
+                         hyper)
+                 for s in range(0, len(inst), _CV_INSTANCE_CAP)]
+
+        rounds_done = 0
+        active = {t: True for t in members}
+        no_improve = {t: 0 for t in members}
+        for chunk in round_chunks(g_rounds):
+            # the retirement check runs BEFORE the deadline check: a search
+            # that concluded naturally is not reported as timed out
+            if not any(active[t] and not done[t] for t in members):
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                timed_out = True
+                break
+            stats: Dict[Tuple[int, int], np.ndarray] = {}
+            for t in members:
+                n_chunks[t] += active[t] and not done[t]
+            for slab in slabs:
+                live = [r for r, (t, _) in enumerate(slab.inst)
+                        if active[t] and not done[t]]
+                if not live:
+                    continue
+                if len(live) < len(slab.inst):
+                    slab.keep(live)
+                lr, lam, msg, mcw = slab.hyper
+                slab.F, _ = _boost(
+                    slab.bins, slab.y, slab.w, slab.F, chunk, g_depth,
+                    n_bins, objective, k, lr, lam, msg, mcw, 0.0,
+                    use_counts=False, collect_trees=False)
+                s = _cv_stats(slab.F, slab.y, slab.val, slab.y_cmp, slab.log,
+                              slab.iscale, slab.cw, slab.valid, objective,
+                              kk).cpu().numpy()
+                counter_inc("gbdt.cv_launches")
+                if len({t for t, _ in slab.inst}) > 1:
+                    counter_inc("gbdt.cv_multi_target_launches")
+                C = slab.n_cfg
+                for r, tj in enumerate(slab.inst):
+                    stats[tj] = s[r * C:(r + 1) * C]
+            rounds_done += chunk
+
+            for t in members:
+                if done[t] or not active[t]:
+                    continue
+                prep = preps[t]
+                rows_t = [tj for tj in inst if tj[0] == t]
+                improved = False
+                for jj, ci in enumerate(cfg_indices):
+                    fold_scores = []
+                    for tj in rows_t:
+                        s = stats[tj][jj]
+                        if is_discrete:
+                            fold_scores.append(
+                                _f1_from_confusion(s, prep["k_real"]))
+                        else:
+                            # rescale the normalized SSE back in float64
+                            sse = float(s[0]) * prep["scale"] ** 2
+                            fold_scores.append(-sse / max(float(s[1]), 1.0))
+                    mean = float(np.mean(fold_scores))
+                    if is_discrete:
+                        # classifiers rank by their best checkpoint, and
+                        # the recorded round count sizes the final fit
+                        if mean > best_by_cfg[t].get(ci, (-np.inf, 0))[0] + eps:
+                            best_by_cfg[t][ci] = (mean, rounds_done)
+                            improved = True
+                    else:
+                        # regressors rank by the LATEST horizon: their
+                        # final fit trains the full round budget
+                        best_by_cfg[t][ci] = (mean, rounds_done)
+                    # a PERFECT classifier score cannot be beaten
+                    if is_discrete and fold_scores \
+                            and min(fold_scores) >= 1.0 - 1e-12:
+                        done[t] = True
+                if done[t]:
+                    continue
+                if is_discrete and any(
+                        best_by_cfg[t].get(ci, (-np.inf, 0))[0] >= good_enough
+                        for ci in cfg_indices):
+                    done[t] = True
+                    continue
+                if improved:
+                    no_improve[t] = 0
+                elif is_discrete:
+                    # patience applies to classifiers only: regressors
+                    # deploy at the full round budget and must reach it
+                    no_improve[t] += 1
+                    if no_improve[t] >= patience_chunks:
+                        active[t] = False
+
+        if timed_out:
+            # only the targets still actively improving lose their round
+            # counts: a checkpoint recorded mid-search may under-state them
+            for t in members:
+                if active[t] and not done[t]:
+                    timed[t] = True
+
+    out: List[Tuple[int, float, int, bool, int]] = []
+    for t in range(T):
+        if not best_by_cfg[t]:
+            out.append((0, -np.inf, 0, timed[t] or
+                        (timed_out and preps[t] is not None and not done[t]),
+                        n_chunks[t]))
+            continue
+        best_ci = max(best_by_cfg[t], key=lambda ci: best_by_cfg[t][ci][0])
+        best_score, best_rounds = best_by_cfg[t][best_ci]
+        out.append((best_ci, best_score, best_rounds, timed[t], n_chunks[t]))
+    return out
+
+
+def gbdt_cv_grid_search(X: np.ndarray, y: Any, is_discrete: bool,
+                        configs: List[dict], n_splits: int,
+                        class_weight: str,
+                        template: "GradientBoostedTreesModel",
+                        timeout_s: float = 0.0,
+                        good_enough: float = _GOOD_ENOUGH_F1) \
+        -> Tuple[int, float, int, bool, int]:
+    """Single-target K-fold CV grid search: a one-element call into
+    :func:`gbdt_cv_grid_search_multi`. Returns (best config index, mean CV
+    score, best round count, timed_out, chunk steps run): macro-F1 for
+    classifiers, -MSE for regressors, the round count the SMALLEST
+    checkpoint where the winning config reached its best score."""
+    prep = _cv_prepare_target(X, y, is_discrete, n_splits, class_weight,
+                              template)
+    return gbdt_cv_grid_search_multi(
+        [prep], configs, timeout_s=timeout_s, good_enough=good_enough)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +824,8 @@ class GradientBoostedTreesModel:
             -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, float]:
         """Host work before boosting: binning, label factorization, class
         weights, base margins. Returns (bins, y, w, F0, min_child_samples)
-        and sets the model's inference state."""
+        and sets the model's inference state, so the batched fit can
+        prepare each model and boost a whole group together."""
         Xm = self._as_matrix(X)
         n, d = Xm.shape
         self._binner = _Binner(self.max_bin).fit(Xm)
@@ -400,20 +890,41 @@ class GradientBoostedTreesModel:
         return (bins_np, np.asarray(yv, np.float32), np.asarray(w, np.float32),
                 F0, mcs)
 
-    def fit(self, X: Any, y: Any) -> "GradientBoostedTreesModel":
-        bins_np, yv, w, F0, mcs = self._fit_prepare(X, y)
-        _, trees = _boost(
-            to_device(bins_np, torch.int64), to_device(yv), to_device(w),
-            to_device(F0), self.n_estimators, self.max_depth,
-            self._n_bins, self._objective, max(self._k, 1),
-            float(self.learning_rate), float(self.reg_lambda),
-            float(self.min_split_gain), float(self.min_child_weight),
-            float(mcs), use_counts=mcs > 0)
+    def _set_trees(self, trees: Sequence[np.ndarray],
+                   n_rounds: Optional[int] = None) -> None:
+        """Installs boosted trees (feat, thr, leaf) stacked [rounds, class
+        trees, ...], truncated to ``n_rounds``: boosting is
+        prefix-deterministic, so a longer run truncated to r rounds IS the
+        r-round model (a batched group boosts to its max budget and each
+        model keeps its own prefix)."""
         feats, thrs, leaves = trees
-        self._trees = (feats.cpu().numpy().astype(np.int32),
-                       thrs.cpu().numpy().astype(np.int32),
-                       leaves.cpu().numpy())
+        if n_rounds is not None:
+            feats, thrs, leaves = (t[:n_rounds] for t in (feats, thrs, leaves))
+        self._trees = (np.asarray(feats, np.int32), np.asarray(thrs, np.int32),
+                       np.asarray(leaves, np.float32))
         self.n_estimators = int(self._trees[0].shape[0])
+
+    def fit(self, X: Any, y: Any) -> "GradientBoostedTreesModel":
+        return self._fit_boost_prepared(*self._fit_prepare(X, y))
+
+    def _fit_boost_prepared(self, bins_np: np.ndarray, yv: np.ndarray,
+                            w: np.ndarray, F0: np.ndarray,
+                            mcs: float) -> "GradientBoostedTreesModel":
+        """Chunked fit: the margin carry stays on the device between
+        chunks of ``_CHUNK_ROUNDS`` rounds."""
+        bins = to_device(bins_np[None], torch.int64)
+        y_d, w_d = to_device(yv[None]), to_device(w[None])
+        F = to_device(F0[None])
+        parts = []
+        for chunk in round_chunks(self.n_estimators):
+            F, trees = _boost(
+                bins, y_d, w_d, F, chunk, self.max_depth, self._n_bins,
+                self._objective, max(self._k, 1), float(self.learning_rate),
+                float(self.reg_lambda), float(self.min_split_gain),
+                float(self.min_child_weight), float(mcs), use_counts=mcs > 0)
+            parts.append(trees)
+        self._set_trees([torch.cat([p[i] for p in parts]).cpu().numpy()
+                         for i in range(3)])
         return self
 
     @classmethod
@@ -480,3 +991,60 @@ class GradientBoostedTreesModel:
         if getattr(self, "_log_target", False):
             pred = np.expm1(pred)
         return pred
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-model final fits
+# ---------------------------------------------------------------------------
+
+def gbdt_fit_batch(entries: List[Tuple[GradientBoostedTreesModel,
+                                       Any, Any]]) -> None:
+    """Fits many GBDT models in shared launches: each model is prepared on
+    the host (binning, class weights), models are grouped by their static
+    dims (depth, bins, objective, class bucket, counts channel), and each
+    group boosts to its MAX round budget in ``_FIT_BATCH_CAP``-wide chunked
+    launches; every model then keeps its own round-count prefix of the
+    stacked trees. Singleton groups take the plain chunked fit."""
+    if len(entries) <= 1:
+        for m, X, y in entries:
+            m.fit(X, y)
+        return
+
+    prepped = [(m,) + m._fit_prepare(X, y) for m, X, y in entries]
+    groups: Dict[Tuple, List[int]] = {}
+    for i, (m, _b, _y, _w, _F, mcs) in enumerate(prepped):
+        key = (m.max_depth, m._n_bins, m._objective, max(m._k, 1),
+               bool(mcs > 0))
+        groups.setdefault(key, []).append(i)
+
+    for (depth, n_bins, objective, k, use_counts), idxs in groups.items():
+        if len(idxs) == 1:
+            m, *prep = prepped[idxs[0]]
+            m._fit_boost_prepared(*prep)
+            continue
+        for s in range(0, len(idxs), _FIT_BATCH_CAP):
+            sub = [prepped[i] for i in idxs[s:s + _FIT_BATCH_CAP]]
+            models = [p[0] for p in sub]
+            bins = to_device(_stack_pad([p[1] for p in sub]), torch.int64)
+            ys = to_device(_stack_pad([p[2] for p in sub]))
+            ws = to_device(_stack_pad([p[3] for p in sub]))
+            F = to_device(_stack_pad([p[4] for p in sub]))
+            hyper = [to_device(np.array(v, np.float32)) for v in (
+                [m.learning_rate for m in models],
+                [m.reg_lambda for m in models],
+                [m.min_split_gain for m in models],
+                [m.min_child_weight for m in models],
+                [p[5] for p in sub])]
+            parts = []
+            for chunk in round_chunks(max(m.n_estimators for m in models)):
+                F, trees = _boost(bins, ys, ws, F, chunk, depth, n_bins,
+                                  objective, k, *hyper, use_counts=use_counts)
+                counter_inc("gbdt.fit_batch_launches")
+                parts.append(trees)
+            per_round = k if objective == "multiclass" else 1
+            trees_np = [torch.cat([p[i] for p in parts]).cpu().numpy()
+                        for i in range(3)]
+            for mi, m in enumerate(models):
+                rows = slice(mi * per_round, (mi + 1) * per_round)
+                m._set_trees([t[:, rows] for t in trees_np],
+                             n_rounds=m.n_estimators)

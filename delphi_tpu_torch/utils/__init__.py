@@ -170,6 +170,19 @@ def log_based_on_level(msg: Any) -> None:
 # smoke test) clear it before a run and read it after.
 phase_walls: Dict[str, float] = {}
 
+# Event counts of this process by name (batched training launches, fallbacks);
+# read and cleared the same way.
+counters: Dict[str, int] = {}
+
+# One record per repair model the latest run trained (target, model, CV
+# choice and seconds; see ``train.py``), appended by ``model.py``, which
+# clears it when phase 2 starts.
+train_reports: List[Dict[str, Any]] = []
+
+
+def counter_inc(name: str, n: int = 1) -> None:
+    counters[name] = counters.get(name, 0) + n
+
 
 class phase_span:
     """Phase-scoped timing span: logs the phase's wall time and adds it to

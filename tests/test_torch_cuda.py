@@ -165,6 +165,103 @@ def test_tree_builder_card_matches_cpu(card):
     assert torch.allclose(gl.cpu(), cl, rtol=1e-6, atol=1e-7)
 
 
+def _cv_task(seed, n, kind):
+    rng = np.random.default_rng(seed)
+    X = np.column_stack([rng.integers(0, 7, n).astype(np.float64),
+                         rng.normal(size=n), np.round(rng.uniform(0, 3, n), 1)])
+    X[rng.random(n) < 0.1, 1] = np.nan
+    # little label noise: CUDA's exp and the CPU's differ in the last ulp,
+    # and noisy labels put held-out rows on a decision boundary
+    signal = np.nan_to_num(X[:, 1]) + 0.5 * X[:, 0] + rng.normal(0, 0.05, n)
+    if kind == "multiclass":
+        y = np.array([f"c{int(v) % 4}" for v in np.clip(signal, 0, 30)],
+                     dtype=object)
+    elif kind == "binary":
+        y = np.where(signal > 1.5, "yes", "no").astype(object)
+    else:
+        y = 3.0 * signal - X[:, 2]
+    return X, y
+
+
+@pytest.mark.cuda
+def test_cv_search_and_fit_batch_card_match_cpu(card):
+    """The multi-target CV search picks the same configs, rounds and scores
+    on the card as on the CPU, and the batched final fits grow the same
+    trees (leaves within one f32 rounding of the CPU's)."""
+    from delphi_tpu_torch.utils import counters
+    grid = [dict(max_depth=3, reg_lambda=3.0, learning_rate=0.05,
+                 n_estimators=50),
+            dict(max_depth=5, reg_lambda=1.0, learning_rate=0.1,
+                 n_estimators=50)]
+    tasks = [(1, 900, "binary"), (2, 800, "multiclass"), (3, 850, "binary"),
+             (4, 700, "regression"), (5, 760, "regression")]
+
+    def model(kind, y, **cfg):
+        discrete = kind != "regression"
+        return gbdt.GradientBoostedTreesModel(
+            discrete, len(np.unique(y)) if discrete else 0, **cfg)
+
+    def search():
+        preps = []
+        for seed, n, kind in tasks:
+            X, y = _cv_task(seed, n, kind)
+            preps.append(gbdt._cv_prepare_target(
+                X, y, kind != "regression", 3, "balanced",
+                model(kind, y, **grid[0])))
+        return gbdt.gbdt_cv_grid_search_multi(preps, grid)
+
+    def fits():
+        entries = []
+        for seed, n, kind in tasks:
+            X, y = _cv_task(seed, n, kind)
+            entries.append((model(kind, y, max_depth=3, n_estimators=40),
+                            X, y))
+        gbdt.gbdt_fit_batch(entries)
+        return [m for m, _, _ in entries]
+
+    T.set_device("cpu")
+    want_cv, want_fit = search(), fits()
+    T.set_device("cuda")
+    counters.clear()
+    got_cv, got_fit = search(), fits()
+    assert counters.get("gbdt.cv_multi_target_launches", 0) > 0
+    assert counters.get("gbdt.fit_batch_launches", 0) > 0
+    for g, w in zip(got_cv, want_cv):
+        assert g[0] == w[0] and g[2] == w[2] and g[3] == w[3]
+        assert g[1] == pytest.approx(w[1], rel=1e-6)
+    for g, w in zip(got_fit, want_fit):
+        np.testing.assert_array_equal(g._trees[0], w._trees[0])
+        np.testing.assert_array_equal(g._trees[1], w._trees[1])
+        np.testing.assert_allclose(g._trees[2], w._trees[2], rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gather_logistic_head_bit_identical_on_card(card):
+    """The gather route's fixed-order backward: two fits on the card take
+    the same number of Adam steps and end at bit-identical weights."""
+    from delphi_tpu_torch.models.encoding import FeatureEncoder
+    from delphi_tpu_torch.models.linear import LogisticRegressionModel
+    rng = np.random.default_rng(6)
+    n = 5000
+    latent = rng.integers(0, 40, n)
+    df = pd.DataFrame({"a": [f"a{v // 2}" for v in latent],
+                       "b": [f"b{v % 2}" for v in latent],
+                       "x": latent + rng.normal(0, 3, n)})
+    y = pd.Series(np.where(rng.random(n) < 0.2, rng.integers(0, 40, n),
+                           latent).astype(str))
+    T.set_device("cuda")
+    fits = []
+    for _ in range(2):
+        X = FeatureEncoder(["a", "b", "x"], ["x"]).fit_transform_compact(df)
+        fits.append(LogisticRegressionModel().fit(X, y))
+    a, b = fits
+    assert a._compact is not None
+    assert a.n_steps_run_ == b.n_steps_run_
+    for pa, pb in zip(a._params, b._params):
+        np.testing.assert_array_equal(pa, pb)
+
+
 @pytest.mark.cuda
 def test_repair_card_matches_cpu(card):
     rng = np.random.RandomState(0)

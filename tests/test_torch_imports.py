@@ -57,6 +57,46 @@ print("raised")
 """
 
 
+_RUN_DEFAULTS = """
+import importlib, json, pkgutil, sys
+import numpy as np
+import pandas as pd
+import delphi_tpu_torch as T
+from delphi_tpu_torch.models.linear import LogisticRegressionModel
+from delphi_tpu_torch.utils import train_reports
+names = [m.name for m in pkgutil.walk_packages(T.__path__,
+                                               "delphi_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+rng = np.random.RandomState(0)
+n = 240
+latent = rng.randint(0, 30, n)
+df = pd.DataFrame({
+    "tid": range(n),
+    "a": [f"a{v // 2}" for v in latent],
+    "p": [f"p{v % 2}" for v in latent],
+    "w": [f"w{v}" for v in latent],
+    "b": [f"b{v % 3}" for v in latent],
+    "x": latent * 1.5 + rng.rand(n),
+})
+for col in ("w", "b", "x"):
+    df.loc[rng.rand(n) < 0.1, col] = None
+frames = [T.delphi.repair.setInput(df).setRowId("tid")
+          .setErrorDetectors([T.NullErrorDetector()])
+          .setParallelStatTrainingEnabled(batched).run()
+          for batched in (False, True)]
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({
+    "modules": len(names), "rows": len(frames[0]),
+    "same": bool(frames[0].equals(frames[1])),
+    "logistic": sorted({r["target"] for r in train_reports
+                        if isinstance(r["model"], LogisticRegressionModel)}),
+    "mods": mods}))
+"""
+
+
 def _python(code, **env_over):
     env = {k: v for k, v in os.environ.items()
            if k not in ("DELPHI_TORCH_DEVICE", "PYTHONPATH")}
@@ -72,6 +112,20 @@ def test_port_imports_and_runs_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["device"] == "cpu"
     assert out["rows"] > 0
+    assert out["mods"] == []
+
+
+def test_every_module_and_default_options_run_without_jax():
+    """Every module of the port imports, and a repair at default options
+    (CV grid search, a 30-class target on the logistic head, sequential
+    and batched training) runs, without JAX or ``delphi_tpu`` loaded."""
+    proc = _python(_RUN_DEFAULTS, DELPHI_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["modules"] >= 20
+    assert out["rows"] > 0 and out["same"]
+    assert out["logistic"] == ["w"]
     assert out["mods"] == []
 
 
