@@ -21,7 +21,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    rounds and chunk steps, and the training wall split into CV search and
    final fit. In 4b each kernel is re-run, held against its plain version
    (K1 bitwise, K2 within 1e-12 relative) and timed on the inputs that each
-   driven path (4, 4c, 4d) gave it, reported per path, and both wrappers
+   driven path (4, 4c, 4d, 4f) gave it, reported per path, and both wrappers
    are run on those inputs under ``torch.cuda.set_sync_debug_mode("error")``
    (a synchronisation fails);
    4c. the same table through batched training
@@ -31,6 +31,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    classes: it must train the logistic head and repair at least 0.85;
    4e. one boosting round of a CV step at the 1M run's shapes: ms and
    the kernels it launches;
+   4f. the constraints path, on a seeded 1,000,000-row table shaped like
+   the gauntlet's ``fd_categorical`` (``fd_table``: typos, NULLs and
+   FD-violating rewrites on state and region, outliers on amount), with
+   the NULL, regex, denial-constraint (``city->state;state->region`` and a
+   one-tuple constraint) and Gaussian-outlier detectors:
+   (a) ``detect_errors_only`` on the card, identical to the CPU's frame;
+   (b) the full run at default options as a main path (counts zeroed just
+   before, read just after): wall, phase walls, error cells before and
+   after demotion, repairs with precision and recall against the injected
+   cells, cells the one-tuple minimization reverted, the ``detect.*``
+   device steps and K1/K2 launches (each at least one);
+   (c) the default detector set, and a run given the injected cells
+   through ``setErrorCells`` (precision at least 0.9);
+   (d) 20,000 rows, CPU against card: the full-run, default-detector and
+   ``setErrorCells`` frames identical apart from logistic-head repairs
+   under the CPU's 1e-4 top-two gap;
+   (e) every constraint route on 200,000 rows, card against CPU, which
+   also reaches the rank and group-extrema steps the fd table's
+   constraints do not;
 
 5. cross-check at default options, 20,000 rows, CPU (plain versions)
    against card (kernels): identical ``missing_heavy`` repair frames; on
@@ -88,6 +107,16 @@ RUN_OPTIONS = {"error.max_attrs_to_compute_pairwise_stats": "4"}
 # top-two probability gap above which the card's and the CPU's logistic
 # repairs must agree
 NEAR_TIE = 1e-4
+# The constraints path: an fd_categorical-shaped table (fd_table) repaired
+# with NULL, regex, denial-constraint and outlier detectors
+DC_ROWS = 1_000_000
+DC_SUITE_ROWS = 200_000
+DC_TYPO_RATE, DC_NULL_RATE, DC_FD_RATE, DC_OUTLIER_RATE = 0.02, 0.03, 0.02, 0.01
+DC_TARGETS = ["state", "region", "amount"]
+# least share of right repairs when the injected cells are given
+DC_MIN_PRECISION = 0.9
+DC_CONSTRAINTS = ('city->state;state->region;'
+                  't1&EQ(t1.state,"state_00")&IQ(t1.region,"region_0")')
 
 
 def log(msg: str) -> None:
@@ -162,6 +191,365 @@ def zones_table(n: int, seed: int):
     values[rng.choice(n, int(round(NULL_RATE * n)), replace=False)] = None
     dirty["zone"] = values
     return clean, dirty
+
+
+def fd_table(n: int, seed: int):
+    """(clean, dirty, truth) in the shape of the gauntlet's fd_categorical
+    scenario: city (24 values) -> state = city % 12 -> region = state % 4,
+    a channel (3 values) and an amount that depends on the channel.
+    Disjoint cells are corrupted: DC_TYPO_RATE of the state cells get one
+    of three typos of their value (a transposition, a dropped "_", an "x"
+    for the "a"; 48 state spellings in all, so the column stays under the
+    discrete threshold at any row count), DC_NULL_RATE of the state and of
+    the region cells are blanked, DC_FD_RATE of the rows get the state of
+    one other city and the region of another, and DC_OUTLIER_RATE of the
+    amounts are scaled far out of range. ``truth`` maps each of state,
+    region and amount to the boolean mask of its corrupted cells."""
+    import pandas as pd
+    rng = np.random.RandomState(seed)
+    city = rng.randint(0, 24, size=n)
+    channel = rng.randint(0, 3, size=n)
+
+    def names(fmt, k, idx):
+        return np.array([fmt.format(i) for i in range(k)], dtype=object)[idx]
+
+    clean = pd.DataFrame({
+        "tid": np.arange(n, dtype=np.int64),
+        "city": names("city_{:02d}", 24, city),
+        "state": names("state_{:02d}", 12, city % 12),
+        "region": names("region_{}", 4, city % 12 % 4),
+        "channel": names("ch_{}", 3, channel),
+        "amount": np.round(50.0 + 40.0 * channel
+                           + rng.normal(0.0, 5.0, size=n), 2),
+    })
+    state = clean["state"].to_numpy(dtype=object).copy()
+    region = clean["region"].to_numpy(dtype=object).copy()
+    amount = clean["amount"].to_numpy().copy()
+    truth = {a: np.zeros(n, dtype=bool) for a in ("state", "region", "amount")}
+    # disjoint row blocks of one permutation: no cell is corrupted twice
+    blocks = np.split(rng.permutation(n), np.cumsum([
+        int(DC_TYPO_RATE * n), int(DC_NULL_RATE * n), int(DC_NULL_RATE * n),
+        int(DC_FD_RATE * n)]))
+    i = blocks[0]
+    typos = np.array([[f"tsate_{k:02d}", f"state{k:02d}", f"stxte_{k:02d}"]
+                      for k in range(12)], dtype=object)
+    state[i] = typos[city[i] % 12, rng.randint(3, size=len(i))]
+    truth["state"][i] = True
+    for col, attr, i in ((state, "state", blocks[1]),
+                         (region, "region", blocks[2])):
+        col[i] = None
+        truth[attr][i] = True
+    i = blocks[3]
+    for col, attr, fmt, k, mod in ((state, "state", "state_{:02d}", 12, 12),
+                                   (region, "region", "region_{}", 4, 4)):
+        other = (city[i] + rng.randint(1, 24, size=len(i))) % 24
+        vals = names(fmt, k, other % 12 % mod)
+        moved = vals != col[i]
+        col[i[moved]] = vals[moved]
+        truth[attr][i[moved]] = True
+    i = rng.choice(n, int(DC_OUTLIER_RATE * n), replace=False)
+    factor = np.array([13.0, -11.0, 47.0, 101.0])[rng.randint(4, size=len(i))]
+    shift = np.abs(amount).max() * np.where(factor > 0, 3.0, -3.0)
+    amount[i] = np.round(amount[i] * factor + shift, 2)
+    truth["amount"][i] = True
+    dirty = clean.assign(state=state, region=region, amount=amount)
+    return clean, dirty, truth
+
+
+def dc_model(T, df, detectors=True):
+    """The constraints path's repair model: DC_TARGETS, with the NULL,
+    regex, constraint and outlier detectors (or, with ``detectors``
+    False, the default detector set)."""
+    m = T.delphi.repair.setInput(df).setRowId("tid").setTargets(DC_TARGETS)
+    if detectors:
+        m = m.setErrorDetectors([
+            T.NullErrorDetector(),
+            T.RegExErrorDetector("state", "^state_[0-9]{2}$"),
+            T.ConstraintErrorDetector(constraints=DC_CONSTRAINTS),
+            T.GaussianOutlierErrorDetector()])
+    return m
+
+
+def truth_cells(truth):
+    """The corrupted (tid, attribute) cells, as setErrorCells takes them."""
+    import pandas as pd
+    return pd.concat([pd.DataFrame({"tid": np.flatnonzero(m),
+                                    "attribute": a})
+                      for a, m in truth.items()], ignore_index=True)
+
+
+def dc_scores(clean, truth, out) -> dict:
+    """Cell precision and recall of a repair frame against the injected
+    cells: a repair is right when it equals the clean value (numbers
+    within 20% or 0.5, the gauntlet's rule)."""
+    tids = out["tid"].to_numpy().astype(np.int64)
+    attrs = out["attribute"].to_numpy(dtype=object)
+    rep = out["repaired"].to_numpy(dtype=object)
+    right = np.zeros(len(out), dtype=bool)
+    for a in np.unique(attrs):
+        sel = np.flatnonzero(attrs == a)
+        want = clean[a].to_numpy()[tids[sel]]
+        hit = truth[a][tids[sel]]
+        if a == "amount":
+            got = np.array([float(v) if v is not None else np.nan
+                            for v in rep[sel]])
+            close = np.abs(got - want) <= np.maximum(0.2 * np.abs(want), 0.5)
+        else:
+            close = rep[sel].astype(str) == want.astype(str)
+        right[sel] = hit & close
+    injected = int(sum(m.sum() for m in truth.values()))
+    return {"repairs": len(out), "right": int(right.sum()),
+            "precision": float(right.mean()) if len(out) else 0.0,
+            "recall": float(right.sum() / injected), "injected": injected}
+
+
+def near_ties(T):
+    """Wraps the port's ``RepairModel._repair`` to record the (tid,
+    attribute) cells whose logistic-head top-two probability gap is under
+    NEAR_TIE; returns (that set, restore function)."""
+    from delphi_tpu_torch.model import RepairModel
+    from delphi_tpu_torch.models.linear import LogisticRegressionModel
+    ties, orig = set(), RepairModel._repair
+
+    def repair(self, models, continuous_columns, dirty_rows_df, *args):
+        for y, (m, features, transformers) in models:
+            if not isinstance(m, LogisticRegressionModel):
+                continue
+            miss = dirty_rows_df[y].isna().to_numpy()
+            if miss.any():
+                X = self._encode_features(transformers,
+                                          dirty_rows_df[features][miss])
+                p = np.sort(np.asarray(m.predict_proba(X)), axis=1)
+                rid = dirty_rows_df["tid"].to_numpy()[miss]
+                ties.update((int(r), y)
+                            for r in rid[p[:, -1] - p[:, -2] < NEAR_TIE])
+        return orig(self, models, continuous_columns, dirty_rows_df, *args)
+
+    RepairModel._repair = repair
+
+    def restore():
+        RepairModel._repair = orig
+    return ties, restore
+
+
+def frames_match(label, cpu, gpu, ties) -> int:
+    """Fails unless the CPU and card repair frames are identical once the
+    cells that differ are set aside, and every such cell is a CPU
+    logistic-head near-tie. Returns how many cells differ."""
+    import pandas as pd
+    key = ["tid", "attribute"]
+    m = cpu.merge(gpu, on=key, how="outer", suffixes=("_cpu", "_gpu"),
+                  indicator=True)
+    a = m["repaired_cpu"].to_numpy(dtype=object)
+    b = m["repaired_gpu"].to_numpy(dtype=object)
+    na, nb = pd.isna(a), pd.isna(b)
+    same = (m["_merge"] == "both").to_numpy() & (
+        (na & nb) | (~na & ~nb & (a.astype(str) == b.astype(str))))
+    differ = {(int(t), str(x)) for t, x in m.loc[~same, key].to_numpy()}
+    if not differ <= ties:
+        fail(f"{label}: CPU and card repairs differ outside the logistic "
+             f"near-ties: {sorted(differ - ties)[:20]}")
+
+    def rest(frame):
+        keep = [(int(t), str(x)) not in differ
+                for t, x in frame[key].to_numpy()]
+        return frame[keep].reset_index(drop=True)
+
+    if not rest(cpu).equals(rest(gpu)):
+        fail(f"{label}: CPU and card frames differ (order or values)")
+    return len(differ)
+
+
+def suite_table(n: int, seed: int):
+    """A table for the constraint-route suite: zip codes in groups of
+    about 12 rows, city, state, salary and rate as strings, a numeric
+    score; 5% NULLs in city, state, salary and score."""
+    import pandas as pd
+    rng = np.random.RandomState(seed)
+    df = pd.DataFrame({
+        "tid": np.arange(n),
+        "zip": rng.randint(0, max(n // 12, 2), n).astype(str),
+        "city": rng.randint(0, 30, n).astype(str),
+        "state": rng.randint(0, 8, n).astype(str),
+        "salary": rng.randint(10, 99, n).astype(str),
+        "rate": rng.randint(1, 50, n).astype(str),
+        "score": np.round(rng.normal(50, 10, n), 1),
+    })
+    for c in ("city", "state", "salary", "score"):
+        df.loc[rng.choice(n, n // 20, replace=False), c] = None
+    return df
+
+
+# every route of delphi_tpu_torch/ops/detect.py: EQ keys only, single and
+# composite keys with IQ / LT / GT residuals, all-IQ inclusion-exclusion,
+# mixed residuals, no EQ key, one-tuple
+SUITE_CONSTRAINTS = [
+    "t1&t2&EQ(t1.zip,t2.zip)&EQ(t1.state,t2.state)",
+    "t1&t2&EQ(t1.zip,t2.zip)&IQ(t1.city,t2.city)",
+    "t1&t2&EQ(t1.zip,t2.zip)&IQ(t1.city,t2.state)",
+    "t1&t2&EQ(t1.state,t2.state)&LT(t1.salary,t2.salary)",
+    "t1&t2&EQ(t1.state,t2.state)&GT(t1.rate,t2.rate)",
+    "t1&t2&EQ(t1.zip,t2.zip)&EQ(t1.state,t2.state)&IQ(t1.city,t2.city)",
+    "t1&t2&EQ(t1.zip,t2.zip)&EQ(t1.city,t2.city)&LT(t1.salary,t2.salary)",
+    "t1&t2&EQ(t1.zip,t2.zip)&IQ(t1.city,t2.city)&IQ(t1.salary,t2.salary)",
+    "t1&t2&EQ(t1.zip,t2.zip)&EQ(t1.state,t2.state)&IQ(t1.city,t2.city)"
+    "&IQ(t1.rate,t2.rate)",
+    "t1&t2&EQ(t1.city,t2.city)&LT(t1.score,t2.score)",
+    "t1&t2&EQ(t1.zip,t2.zip)&IQ(t1.city,t2.city)&GT(t1.rate,t2.rate)",
+    "t1&t2&IQ(t1.state,t2.state)&IQ(t1.zip,t2.zip)",
+    't1&EQ(t1.state,"3")&IQ(t1.city,"7")',
+]
+
+
+def constraints_path(torch, T, traced) -> dict:
+    """Phase 4f: the fd_categorical-shaped table through the NULL, regex,
+    constraint and outlier detectors (see the module docstring, 4f a-e).
+    Returns the path's summary."""
+    from delphi_tpu_torch import constraints as dc
+    from delphi_tpu_torch.ops import detect
+    from delphi_tpu_torch.table import encode_table
+    from delphi_tpu_torch.utils import counters
+
+    def timed(dev, fn):
+        T.set_device(dev)
+        counters.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(counters)
+
+    t0 = time.perf_counter()
+    clean, dirty, truth = fd_table(DC_ROWS, seed=4)
+    injected = {a: int(m.sum()) for a, m in truth.items()}
+    log(f"[constraints] generated {DC_ROWS} rows in "
+        f"{time.perf_counter() - t0:.1f} s; injected cells {injected}")
+    out = {"rows": DC_ROWS, "injected": injected}
+
+    # (a) detect_errors_only: the card's frame equals the CPU's
+    det, det_s, det_counts = timed(
+        "cuda", lambda: dc_model(T, dirty).run(detect_errors_only=True))
+    det_cpu, det_cpu_s, _ = timed(
+        "cpu", lambda: dc_model(T, dirty).run(detect_errors_only=True))
+    T.set_device("cuda")
+    if not len(det) or not det.equals(det_cpu):
+        fail("constraints (a): the card's detect_errors_only frame differs "
+             "from the CPU's (or is empty)")
+    log(f"[constraints] (a) detect_errors_only, {DC_ROWS} rows: "
+        f"{len(det)} error cells, card {det_s:.3f} s, CPU {det_cpu_s:.3f} s, "
+        f"frames identical; counters {json.dumps(det_counts)}")
+    out["detect_only"] = {"cells": len(det), "card_s": det_s,
+                          "cpu_s": det_cpu_s}
+
+    # (b) the full run at default options, traced as a main path
+    res, wall, launches, counts, walls, peak, held = traced(
+        "constraints", lambda: dc_model(T, dirty).run())
+    if list(res.columns) != ["tid", "attribute", "current_value",
+                             "repaired"] or not len(res):
+        fail(f"constraints (b): unexpected result {list(res.columns)}, "
+             f"{len(res)} rows")
+    flagged = set(zip(det["tid"].tolist(), det["attribute"].tolist()))
+    if not all(c in flagged for c in zip(res["tid"].tolist(),
+                                         res["attribute"].tolist())):
+        fail("constraints (b): a repair outside the detected error cells")
+    for name in ("detect.sorted_count", "detect.percentile"):
+        if counts.get(name, 0) < 1:
+            fail(f"constraints (b): the run made no {name} launch")
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"constraints (b): kernel {name} was not launched")
+    reverted = counts.get("repair.dc_reverted", 0)
+    if reverted < 1:
+        fail("constraints (b): the one-tuple minimization reverted nothing")
+    scores = dc_scores(clean, truth, res)
+    demoted = counts.get("domain.cells_fixed", 0)
+    log(f"[constraints] (b) full run, {DC_ROWS} rows: wall_s={wall:.3f} "
+        f"error cells {len(det) + demoted} before demotion, {len(det)} "
+        f"after; {json.dumps(scores)}; minimization reverted {reverted} "
+        f"cells; launches={launches} counters={json.dumps(counts)}")
+    log(f"[constraints] (b) phase walls (s): {json.dumps(walls)}; peak "
+        f"device memory {peak:.1f} MiB above the {held:.1f} MiB held")
+    out["run"] = {"wall_s": wall, "phase_walls": walls,
+                  "cells_before_demotion": len(det) + demoted,
+                  "cells_after_demotion": len(det), "reverted": reverted,
+                  "launches": launches, "counters": counts,
+                  "peak_mib": peak, **scores}
+
+    # (c) the default detectors, and the injected cells given by the user
+    ddet, ddet_s, _ = timed("cuda", lambda: dc_model(
+        T, dirty, detectors=False).run(detect_errors_only=True))
+    if not len(ddet) or not set(ddet["attribute"]) <= set(DC_TARGETS):
+        fail("constraints (c): default detectors found no cells (or cells "
+             "outside the targets)")
+    cells = truth_cells(truth)
+    given, given_s, _ = timed("cuda", lambda: dc_model(
+        T, dirty, detectors=False).setErrorCells(cells).run())
+    given_scores = dc_scores(clean, truth, given)
+    if given_scores["precision"] < DC_MIN_PRECISION:
+        fail(f"constraints (c): setErrorCells repairs precision "
+             f"{given_scores['precision']} below {DC_MIN_PRECISION}")
+    log(f"[constraints] (c) default detectors: {len(ddet)} cells in "
+        f"{ddet_s:.3f} s; setErrorCells with the {len(cells)} injected "
+        f"cells: {given_s:.3f} s, {json.dumps(given_scores)}")
+    out["default_detectors"] = {"cells": len(ddet), "card_s": ddet_s}
+    out["error_cells"] = {"wall_s": given_s, **given_scores}
+
+    # (d) CPU against card at CHECK_ROWS rows: three full runs each
+    t0 = time.perf_counter()
+    sclean, sdirty, struth = fd_table(CHECK_ROWS, seed=5)
+    scells = truth_cells(struth)
+    builds = {
+        "detectors": lambda: dc_model(T, sdirty),
+        "default detectors": lambda: dc_model(T, sdirty, detectors=False),
+        "error cells": lambda: dc_model(
+            T, sdirty, detectors=False).setErrorCells(scells),
+    }
+    out["cross_check"] = {}
+    for label, build in builds.items():
+        ties, restore = near_ties(T)
+        try:
+            on_cpu, _, _ = timed("cpu", lambda: build().run())
+        finally:
+            restore()
+        on_gpu, _, _ = timed("cuda", lambda: build().run())
+        if not len(on_gpu):
+            fail(f"constraints (d) {label}: no repairs")
+        differ = frames_match(f"constraints (d) {label}", on_cpu, on_gpu,
+                              ties)
+        out["cross_check"][label] = {"repairs": len(on_gpu),
+                                     "near_ties": len(ties),
+                                     "near_ties_differing": differ}
+    log(f"[constraints] (d) {CHECK_ROWS} rows, CPU against card: "
+        f"{json.dumps(out['cross_check'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (e) every constraint route on the card against the CPU
+    df = suite_table(DC_SUITE_ROWS, seed=6)
+    table = encode_table(df, "tid")
+    attrs = df.columns.tolist()
+    suite_counts = {}
+    for stmt in SUITE_CONSTRAINTS:
+        parsed = dc.parse_and_verify_constraints([stmt], "suite", attrs)
+        got, _, c = timed("cuda", lambda: detect.detect_constraint_violations(
+            table, parsed, attrs))
+        want, _, _ = timed("cpu", lambda: detect.detect_constraint_violations(
+            table, parsed, attrs))
+        if not got or [(a, r.tolist()) for r, a in got] \
+                != [(a, r.tolist()) for r, a in want]:
+            fail(f"constraints (e): {stmt} differs between CPU and card")
+        for k, v in c.items():
+            suite_counts[k] = suite_counts.get(k, 0) + v
+    T.set_device("cuda")
+    for name in ("detect.sorted_count", "detect.rank",
+                 "detect.group_extrema"):
+        if suite_counts.get(name, 0) < 1:
+            fail(f"constraints (e): the suite made no {name} launch")
+    log(f"[constraints] (e) {len(SUITE_CONSTRAINTS)} constraint routes, "
+        f"{DC_SUITE_ROWS} rows: card cells identical to the CPU's; device "
+        f"steps {json.dumps(suite_counts)}")
+    out["suite_counters"] = suite_counts
+    log(f"[constraints] summary {json.dumps(out)}")
+    return out
 
 
 def repair_accuracy(clean, out) -> float:
@@ -606,26 +994,25 @@ def main() -> None:
     clean, dirty = missing_heavy(E2E_ROWS, seed=0)
     log(f"[e2e] generated {E2E_ROWS} rows in {time.perf_counter() - t0:.1f} s")
     # each driven path's K1 and K2 inputs, by path label, for 4b
-    recorded, recording = {}, {"into": None}
-    path_launches = {}
+    recorded, path_launches = {}, {}
     orig_pc, orig_et = k_pair.pair_counts, k_entropy.entropy_terms
 
-    def rec_pair_counts(codes, pairs, vocab):
-        recording["into"]["pair_counts"].append(
-            (codes, list(pairs), list(vocab)))
-        return orig_pc(codes, pairs, vocab)
+    def traced(label, fn):
+        """Runs ``fn()`` as one main path: every count zeroed just before
+        and read just after, its K1 and K2 inputs recorded under
+        ``label``. Returns (result, wall s, launches, counters, phase
+        walls, peak device MiB above what was held, MiB held)."""
+        rec = recorded[label] = {"pair_counts": [], "entropy_terms": []}
 
-    def rec_entropy_terms(counts, offsets, n_rows):
-        recording["into"]["entropy_terms"].append(
-            (counts, np.asarray(offsets, dtype=np.int64), n_rows))
-        return orig_et(counts, offsets, n_rows)
+        def rec_pair_counts(codes, pairs, vocab):
+            rec["pair_counts"].append((codes, list(pairs), list(vocab)))
+            return orig_pc(codes, pairs, vocab)
 
-    def drive(label, df, clean_df, cells, batched=False):
-        """One main path: every count zeroed just before the run and read
-        just after; its K1 and K2 inputs recorded under ``label``; phase
-        walls, training summary, accuracy, memory."""
-        recording["into"] = recorded[label] = {"pair_counts": [],
-                                               "entropy_terms": []}
+        def rec_entropy_terms(counts, offsets, n_rows):
+            rec["entropy_terms"].append(
+                (counts, np.asarray(offsets, dtype=np.int64), n_rows))
+            return orig_et(counts, offsets, n_rows)
+
         phase_walls.clear()
         counters.clear()
         train_reports.clear()
@@ -634,18 +1021,29 @@ def main() -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        res = repair(T, df, batched=batched)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        k_pair.pair_counts = rec_pair_counts
+        k_entropy.entropy_terms = rec_entropy_terms
+        try:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            k_pair.pair_counts, k_entropy.entropy_terms = orig_pc, orig_et
         launches = {"pair_counts": k_pair.launches,
                     "entropy_terms": k_entropy.launches}
-        recording["into"] = None
         path_launches[label] = launches
-        counts = dict(counters)
+        walls = {k: round(v, 3) for k, v in phase_walls.items()}
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        return res, wall, launches, dict(counters), walls, peak, held / 2**20
+
+    def drive(label, df, clean_df, cells, batched=False):
+        """One main path of the NULL repair (``traced``); phase walls,
+        training summary, accuracy, memory."""
+        res, wall, launches, counts, walls, peak, held = traced(
+            label, lambda: repair(T, df, batched=batched))
         summary = training_summary(train_reports)
         models = {r["target"]: r["model"] for r in train_reports}
-        walls = {k: round(v, 3) for k, v in phase_walls.items()}
         n_err = int(df[cells].isna().to_numpy().sum())
         if list(res.columns) != ["tid", "attribute", "current_value",
                                  "repaired"]:
@@ -655,8 +1053,8 @@ def main() -> None:
             f"repairs={len(res)} accuracy={acc:.6f} launches={launches} "
             f"counters={json.dumps(counts)}")
         log(f"[{label}] phase walls (s): {json.dumps(walls)}; peak device "
-            f"memory {(torch.cuda.max_memory_allocated() - held) / 2**20:.1f}"
-            f" MiB above the {held / 2**20:.1f} MiB held before the run")
+            f"memory {peak:.1f} MiB above the {held:.1f} MiB held before "
+            "the run")
         log(f"[{label}] training: CV search {summary['cv_search_s']:.3f} s, "
             f"final fit {summary['final_fit_s']:.3f} s")
         for target, t in summary["targets"].items():
@@ -671,8 +1069,6 @@ def main() -> None:
         return res, launches, counts, models, wall
 
     # the main path: sequential training at default options
-    k_pair.pair_counts = rec_pair_counts
-    k_entropy.entropy_terms = rec_entropy_terms
     cells = ["tier", "band", "grade"]
     out, launches, _, _, wall = drive("e2e", dirty, clean, cells)
 
@@ -691,7 +1087,6 @@ def main() -> None:
     # -- 4d. the logistic head -----------------------------------------------
     zclean, zdirty = zones_table(LOGISTIC_ROWS, seed=2)
     _, _, _, zmodels, _ = drive("logistic", zdirty, zclean, ["zone"])
-    k_pair.pair_counts, k_entropy.entropy_terms = orig_pc, orig_et
     if not isinstance(zmodels.get("zone"), LogisticRegressionModel):
         fail(f"zone trained {type(zmodels.get('zone')).__name__}, not the "
              "logistic head")
@@ -721,6 +1116,9 @@ def main() -> None:
                                    "kernels_per_round": kernels}
     log(f"[train-profile] one CV step of a 6-class target (3 folds x 8 "
         f"class trees, 10,000 rows, 4 features): {json.dumps(rounds)}")
+
+    # -- 4f. the constraints path ---------------------------------------------
+    constraints_path(torch, T, traced)
 
     # -- 4b. each kernel on the inputs each path gave it ---------------------
     def main_path(rows):

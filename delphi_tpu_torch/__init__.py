@@ -2,11 +2,13 @@
 
 The same public surface as the JAX package, for the paths ported so far:
 
-    from delphi_tpu_torch import delphi, NullErrorDetector
+    from delphi_tpu_torch import (delphi, ConstraintErrorDetector,
+                                  NullErrorDetector)
     repaired = delphi.repair \\
         .setInput(df).setRowId("tid") \\
-        .setErrorDetectors([NullErrorDetector()]) \\
-        .option("model.hp.max_evals", "1") \\
+        .setErrorDetectors([
+            NullErrorDetector(),
+            ConstraintErrorDetector(constraints="city->state")]) \\
         .run()
 
 Tensors live on the port's device (:mod:`delphi_tpu_torch.device`):
@@ -18,7 +20,11 @@ any module of ``delphi_tpu``.
 
 from delphi_tpu_torch.api import Delphi
 from delphi_tpu_torch.device import get_device, set_device
-from delphi_tpu_torch.errors import ErrorDetector, NullErrorDetector
+from delphi_tpu_torch.errors import (
+    ConstraintErrorDetector, DomainValues, ErrorDetector,
+    GaussianOutlierErrorDetector, LOFOutlierErrorDetector, NullErrorDetector,
+    RegExErrorDetector, ScikitLearnBackedErrorDetector,
+    ScikitLearnBasedErrorDetector)
 from delphi_tpu_torch.model import PoorModel, RepairModel
 
 delphi = Delphi.getOrCreate()
@@ -27,5 +33,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Delphi", "delphi", "RepairModel", "PoorModel", "ErrorDetector",
-    "NullErrorDetector", "get_device", "set_device",
+    "NullErrorDetector", "DomainValues", "RegExErrorDetector",
+    "ConstraintErrorDetector", "GaussianOutlierErrorDetector",
+    "ScikitLearnBasedErrorDetector", "ScikitLearnBackedErrorDetector",
+    "LOFOutlierErrorDetector", "get_device", "set_device",
 ]

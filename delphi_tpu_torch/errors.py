@@ -1,24 +1,31 @@
 """Error detectors and the error-detection sub-pipeline.
 
-The port of the JAX package's ``errors.py`` for this slice:
-:class:`NullErrorDetector` and :class:`ErrorModel` (run detectors ->
-resolve current values -> discretize -> frequency & pairwise-entropy stats
--> weak-label demotion). The other detector classes (domain values, regex,
-constraints, outliers, scikit-learn) are ported in a later slice.
+The port of the JAX package's ``errors.py``: the detectors
+(:class:`NullErrorDetector`, :class:`DomainValues`,
+:class:`RegExErrorDetector`, :class:`ConstraintErrorDetector`,
+:class:`GaussianOutlierErrorDetector`, the scikit-learn-style
+:class:`ScikitLearnBackedErrorDetector` and :class:`LOFOutlierErrorDetector`)
+and :class:`ErrorModel` (run detectors, or take user-supplied error cells
+-> resolve current values -> discretize -> frequency & pairwise-entropy
+stats -> weak-label demotion).
 
 Error-cell frames are pandas DataFrames with columns ``[<row_id>,
 'attribute']`` (plus ``'current_value'`` once resolved); an internal
 ``__row_idx__`` column carries positional indices between stages.
 """
 
+import os
 from abc import ABCMeta, abstractmethod
 from collections import namedtuple
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
+import torch
 
+from delphi_tpu_torch import constraints as dc
 from delphi_tpu_torch.ops import detect as detect_ops
+from delphi_tpu_torch.ops import xfer
 from delphi_tpu_torch.ops.domain import compute_weak_label_mask
 from delphi_tpu_torch.ops.entropy import (compute_pairwise_stats,
                                           select_candidate_pairs)
@@ -27,9 +34,9 @@ from delphi_tpu_torch.ops.freq import (FreqStats, PairDistinctCounter,
 from delphi_tpu_torch.session import get_session
 from delphi_tpu_torch.table import (DiscretizedTable, EncodedTable,
                                     discretize_table)
-from delphi_tpu_torch.utils import (get_option_value, job_phase,
-                                    log_based_on_level, setup_logger,
-                                    to_list_str)
+from delphi_tpu_torch.utils import (counter_inc, get_option_value,
+                                    job_phase, log_based_on_level,
+                                    setup_logger, to_list_str)
 
 _logger = setup_logger()
 
@@ -90,6 +97,10 @@ class ErrorDetector(metaclass=ABCMeta):
     def _detect_impl(self) -> pd.DataFrame:
         pass
 
+    def _empty_dataframe(self) -> pd.DataFrame:
+        assert self.row_id is not None
+        return pd.DataFrame(columns=[self.row_id, "attribute", ROW_IDX])
+
     def _frame(self, cells: List[Tuple[np.ndarray, str]]) -> pd.DataFrame:
         assert self._table is not None and self.row_id is not None
         return _cells_to_frame(self.row_id, self._table.row_id_values, cells)
@@ -115,10 +126,221 @@ class NullErrorDetector(ErrorDetector):
         return self._frame(detect_ops.detect_null_cells(self._table, self._targets))
 
 
+class DomainValues(ErrorDetector):
+    """Flags values outside a (possibly auto-filled) domain list.
+    Partial-match regex semantics preserved; the values go into the regex
+    unescaped, as in the JAX package."""
+
+    def __init__(self, attr: str, values: List[str] = [], autofill: bool = False,
+                 min_count_thres: int = 12) -> None:
+        ErrorDetector.__init__(self)
+        self.attr = attr
+        self.values = values if not autofill else []
+        self.autofill = autofill
+        self.min_count_thres = min_count_thres
+
+    def __str__(self) -> str:
+        args = f'attr="{self.attr}",size={len(self.values)},autofill={self.autofill},' \
+            f'min_count_thres={self.min_count_thres}'
+        return f"{self.__class__.__name__}({args})"
+
+    def _detect_impl(self) -> pd.DataFrame:
+        assert self._table is not None
+        if self.attr in self.continous_cols:
+            return self._empty_dataframe()
+
+        domain_values = self.values
+        if self.autofill and self._table.has_column(self.attr):
+            col = self._table.column(self.attr)
+            codes = xfer.device_codes(col)
+            counts = torch.bincount(codes[codes >= 0].long(),
+                                    minlength=col.domain_size).cpu().numpy()
+            domain_values = [str(v) for v, c in zip(col.vocab, counts)
+                             if c > self.min_count_thres]
+
+        regex = "({})".format("|".join(domain_values)) if domain_values else "$^"
+        return self._frame(
+            detect_ops.detect_regex_errors(self._table, self.attr, regex, self._targets))
+
+
+class RegExErrorDetector(ErrorDetector):
+    """Flags values not matching a regex (partial match), and NULLs."""
+
+    def __init__(self, attr: str, regex: str) -> None:
+        ErrorDetector.__init__(self)
+        self.attr = attr
+        self.regex = regex
+
+    def __str__(self) -> str:
+        return f'{self.__class__.__name__}(pattern="{self.regex}")'
+
+    def _detect_impl(self) -> pd.DataFrame:
+        assert self._table is not None
+        return self._frame(
+            detect_ops.detect_regex_errors(self._table, self.attr, self.regex, self._targets))
+
+
+class ConstraintErrorDetector(ErrorDetector):
+    """Denial-constraint violations: every referenced target attribute of
+    every violating row (left tuple)."""
+
+    def __init__(self, constraint_path: str = "", constraints: str = "",
+                 targets: List[str] = []) -> None:
+        ErrorDetector.__init__(self, targets)
+        if not constraint_path and not constraints:
+            raise ValueError(
+                "At least one of `constraint_path` or `constraints` should be specified")
+        self.constraint_path = constraint_path
+        self.constraints = constraints
+
+    def __str__(self) -> str:
+        params = []
+        if self.constraint_path:
+            params.append(f"constraint_path={self.constraint_path}")
+        if self.constraints:
+            params.append(f"constraints={self.constraints}")
+        if self.targets:
+            params.append(f'targets={",".join(self.targets)}')
+        return f'{self.__class__.__name__}({",".join(params)})'
+
+    def parsed_constraints(self, table: EncodedTable, input_name: str) -> dc.DenialConstraints:
+        stmts = dc.load_constraint_stmts_from_file(self.constraint_path) \
+            + dc.load_constraint_stmts_from_string(self.constraints)
+        return dc.parse_and_verify_constraints(stmts, input_name, table.column_names)
+
+    def _detect_impl(self) -> pd.DataFrame:
+        assert self._table is not None
+        parsed = self.parsed_constraints(self._table, str(self.qualified_input_name))
+        if parsed.is_empty:
+            return self._empty_dataframe()
+        cells = detect_ops.detect_constraint_violations(self._table, parsed, self._targets)
+        return self._frame(cells)
+
+
+class GaussianOutlierErrorDetector(ErrorDetector):
+    """IQR (box-whisker) outliers on continuous attributes. With
+    ``approx_enabled`` the quartiles of a column over 100,000 values come
+    from a seeded with-replacement sample of that size; the fences then
+    apply to every row."""
+
+    def __init__(self, approx_enabled: bool = False) -> None:
+        ErrorDetector.__init__(self)
+        self.approx_enabled = approx_enabled
+
+    def __str__(self) -> str:
+        return f"{self.__class__.__name__}(approx_enabled={self.approx_enabled})"
+
+    def _detect_impl(self) -> pd.DataFrame:
+        assert self._table is not None
+        return self._frame(
+            detect_ops.detect_outliers(self._table, self.continous_cols,
+                                       self._targets,
+                                       approx=self.approx_enabled))
+
+
+class ScikitLearnBasedErrorDetector(ErrorDetector):
+    """Runs a scikit-learn-style ``fit_predict`` outlier model per continuous
+    column on the host; NaNs are median-filled first. Above
+    ``parallel_mode_threshold`` rows the per-column detectors run on a
+    thread pool of ``num_parallelism`` workers (default: one per core, at
+    most one per column); below it they run inline."""
+
+    def __init__(self, parallel_mode_threshold: int = 10000,
+                 num_parallelism: Optional[int] = None) -> None:
+        ErrorDetector.__init__(self)
+        if num_parallelism is not None and int(num_parallelism) <= 0:
+            raise ValueError(f"`num_parallelism` must be positive, got {num_parallelism}")
+        self.parallel_mode_threshold = parallel_mode_threshold
+        self.num_parallelism = num_parallelism
+
+    def __str__(self) -> str:
+        return f"{self.__class__.__name__}()"
+
+    @abstractmethod
+    def _outlier_detector_impl(self) -> Any:
+        pass
+
+    def _detect_column(self, c: str) -> Optional[Tuple[np.ndarray, str]]:
+        assert self._table is not None
+        col = self._table.column(c)
+        assert col.numeric is not None
+        values = col.numeric
+        valid = ~np.isnan(values)
+        if not valid.any():
+            return None
+        median = float(np.median(values[valid]))
+        filled = np.where(valid, values, median).reshape(-1, 1)
+        # a fresh detector instance per column: safe to run concurrently
+        predicted = np.asarray(self._outlier_detector_impl().fit_predict(filled))
+        rows = np.nonzero(predicted < 0)[0]
+        return (rows, c) if rows.size else None
+
+    def _detect_impl(self) -> pd.DataFrame:
+        assert self._table is not None
+        columns = [c for c in self.continous_cols if c in self._targets] \
+            if self._targets else self.continous_cols
+        if not columns:
+            return self._empty_dataframe()
+
+        run_parallel = self._table.n_rows > int(self.parallel_mode_threshold) \
+            and len(columns) > 1
+        if run_parallel:
+            from concurrent.futures import ThreadPoolExecutor
+            workers = int(self.num_parallelism) if self.num_parallelism \
+                else min(len(columns), os.cpu_count() or 1)
+            _logger.info(
+                f"{self}: running {len(columns)} column detectors on "
+                f"{workers} threads (rows > {self.parallel_mode_threshold})")
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                results = list(ex.map(self._detect_column, columns))
+        else:
+            results = [self._detect_column(c) for c in columns]
+        cells = [r for r in results if r is not None]
+        return self._frame(cells)
+
+
+class ScikitLearnBackedErrorDetector(ScikitLearnBasedErrorDetector):
+    """Wraps a user-supplied detector factory (anything whose instances
+    have ``fit_predict``; -1 marks an outlier)."""
+
+    def __init__(self, error_detector_cls: Callable[[], Any],
+                 parallel_mode_threshold: int = 10000,
+                 num_parallelism: Optional[int] = None) -> None:
+        ScikitLearnBasedErrorDetector.__init__(self, parallel_mode_threshold, num_parallelism)
+        if not hasattr(error_detector_cls, "__call__"):
+            raise ValueError("`error_detector_cls` should be callable")
+        if not hasattr(error_detector_cls(), "fit_predict"):
+            raise ValueError(
+                "An instance that `error_detector_cls` returns should have a `fit_predict` method")
+        self.error_detector_cls = error_detector_cls
+
+    def __str__(self) -> str:
+        return f"{self.__class__.__name__}()"
+
+    def _outlier_detector_impl(self) -> Any:
+        return self.error_detector_cls()
+
+
+class LOFOutlierErrorDetector(ScikitLearnBasedErrorDetector):
+    """Local-outlier-factor detector (scikit-learn, imported when a column
+    is scanned: the package itself does not need scikit-learn)."""
+
+    def __init__(self, parallel_mode_threshold: int = 10000,
+                 num_parallelism: Optional[int] = None) -> None:
+        ScikitLearnBasedErrorDetector.__init__(self, parallel_mode_threshold, num_parallelism)
+
+    def __str__(self) -> str:
+        return f"{self.__class__.__name__}()"
+
+    def _outlier_detector_impl(self) -> Any:
+        from sklearn.neighbors import LocalOutlierFactor
+        return LocalOutlierFactor(novelty=False)
+
+
 class ErrorModel:
-    """The error-detection sub-pipeline: run detectors -> resolve current
-    values -> discretize -> frequency & pairwise-entropy stats -> weak-label
-    demotion."""
+    """The error-detection sub-pipeline: run detectors (or take the
+    user-supplied error cells) -> resolve current values -> discretize ->
+    frequency & pairwise-entropy stats -> weak-label demotion."""
 
     _option = namedtuple("_option", "key default_value type_class validator err_msg")
 
@@ -151,17 +373,32 @@ class ErrorModel:
 
     def __init__(self, row_id: str, targets: List[str], discrete_thres: int,
                  error_detectors: List[ErrorDetector],
+                 error_cells: Optional[Any],
                  opts: Dict[str, str]) -> None:
         self.row_id = str(row_id)
         self.targets = targets
         self.discrete_thres = discrete_thres
         self.error_detectors = error_detectors
+        self.error_cells = error_cells
         self.opts = opts
+        self._session = get_session()
         self.discretized: Optional[DiscretizedTable] = None
         self.freq_stats: Optional[FreqStats] = None
+        # Per-detector cell frames of NON-constraint detectors, captured in
+        # phase 1 so the one-tuple DC repair minimization can protect those
+        # cells without re-running detection (None unless a constraint
+        # detector ran).
+        self._non_constraint_frames: Optional[List[pd.DataFrame]] = None
 
     def _get_option_value(self, *args) -> Any:  # type: ignore
         return get_option_value(self.opts, *args)
+
+    def _get_default_error_detectors(self, table: EncodedTable) -> List[ErrorDetector]:
+        detectors: List[ErrorDetector] = [NullErrorDetector()]
+        targets = self.targets if self.targets else table.column_names
+        for c in targets:
+            detectors.append(DomainValues(attr=c, autofill=True, min_count_thres=4))
+        return detectors
 
     def _target_attrs(self, input_columns: List[str]) -> List[str]:
         target_attrs = [c for c in input_columns if c != self.row_id]
@@ -171,24 +408,33 @@ class ErrorModel:
 
     def _detect_error_cells(self, table: EncodedTable, input_name: str,
                             continuous_columns: List[str]) -> pd.DataFrame:
-        detectors = self.error_detectors
-        if not detectors:
-            raise NotImplementedError(
-                "the default detectors (NULL + DomainValues autofill) come "
-                "with the later slice that ports the other detector "
-                "classes; pass setErrorDetectors([NullErrorDetector()])")
+        detectors = self.error_detectors or self._get_default_error_detectors(table)
         _logger.info(
             f"[Error Detection Phase] Used error detectors: {to_list_str(detectors)}")
         target_attrs = self._target_attrs([self.row_id] + table.column_names)
 
         frames = []
+        # the capture only feeds the one-tuple DC repair minimization, so it
+        # is kept only when a constraint detector is present
+        keep_capture = any(isinstance(d, ConstraintErrorDetector)
+                           for d in detectors)
+        self._non_constraint_frames = [] if keep_capture else None
         for d in detectors:
             d.setUp(self.row_id, input_name, continuous_columns, target_attrs,
                     encoded_table=table)
-            frames.append(d.detect())
-        if len(frames) == 1:
+            cells = d.detect()
+            frames.append(cells)
+            if keep_capture and len(cells) \
+                    and not isinstance(d, ConstraintErrorDetector):
+                assert self._non_constraint_frames is not None
+                self._non_constraint_frames.append(cells)
+        if not frames:
+            return pd.DataFrame(columns=[self.row_id, "attribute", ROW_IDX])
+        if len(frames) == 1 and not isinstance(
+                detectors[0], ConstraintErrorDetector):
             # a single non-constraint detector emits each (row, attribute)
-            # at most once
+            # at most once (constraint detectors repeat a cell once per
+            # violated constraint, so they still need the dedup below)
             return frames[0].reset_index(drop=True)
         merged = pd.concat(frames, ignore_index=True)
         # dedup on the fused (row position, attribute code) int key,
@@ -199,6 +445,38 @@ class ErrorModel:
             * max(len(attr_uniques), 1) + attr_codes
         dup = pd.Series(key).duplicated().to_numpy()
         return merged[~dup].reset_index(drop=True)
+
+    def _resolve_error_cells_input(self, table: EncodedTable) -> pd.DataFrame:
+        """Maps a user-provided error-cell frame/view to the internal format
+        (adds __row_idx__, drops cells for unknown rows/columns)."""
+        df = self.error_cells
+        if isinstance(df, str):
+            df = self._session.table(df)
+        assert isinstance(df, pd.DataFrame)
+        df = df[[self.row_id, "attribute"]].copy()
+
+        if len(self.targets) == 0:
+            df = df[df["attribute"].isin(table.column_names)]
+        else:
+            df = df[df["attribute"].isin(self.targets)]
+
+        # hash join from row ids to row positions; the dtype-coercion
+        # fallback (e.g. str vs int ids) runs over DISTINCT unmatched ids
+        # only. Row ids are unique (check_input_table), so get_indexer is
+        # total.
+        index = pd.Index(table.row_id_values)
+        raw = df[self.row_id].to_numpy()
+        idx = index.get_indexer(raw)
+        if (idx < 0).any():
+            row_index = table.row_index()
+            miss_codes, miss_uniques = pd.factorize(raw, use_na_sentinel=False)
+            lut = np.fromiter(
+                (row_index.get(_coerce_like(r, table.row_id_values), -1)
+                 for r in miss_uniques), dtype=np.int64,
+                count=len(miss_uniques))
+            idx = np.where(idx >= 0, idx, lut[miss_codes])
+        df = df.assign(**{ROW_IDX: idx})
+        return df[df[ROW_IDX] >= 0].reset_index(drop=True)
 
     def _with_current_values(self, table: EncodedTable, cells_df: pd.DataFrame,
                              factorized=None) -> pd.DataFrame:
@@ -226,7 +504,12 @@ class ErrorModel:
     @job_phase(name="error detection")
     def _detect_errors(self, table: EncodedTable, input_name: str,
                        continuous_columns: List[str]) -> Tuple[pd.DataFrame, List[str]]:
-        noisy_cells_df = self._detect_error_cells(table, input_name, continuous_columns)
+        if self.error_cells is not None:
+            noisy_cells_df = self._resolve_error_cells_input(table)
+            _logger.info(
+                f"[Error Detection Phase] Error cells provided by `{self.error_cells}`")
+        else:
+            noisy_cells_df = self._detect_error_cells(table, input_name, continuous_columns)
         noisy_columns: List[str] = []
         if len(noisy_cells_df) > 0:
             factorized = pd.factorize(
@@ -289,6 +572,7 @@ class ErrorModel:
         fixed = int(demote.sum())
         error_cells_df = noisy_cells_df[~demote].reset_index(drop=True)
         assert len(noisy_cells_df) == len(error_cells_df) + fixed
+        counter_inc("domain.cells_fixed", fixed)
         _logger.info(
             f"[Error Detection Phase] {fixed} noisy cells fixed and "
             f"{len(error_cells_df)} error cells remaining...")
@@ -316,7 +600,25 @@ class ErrorModel:
         freq, pairwise = self._compute_attr_stats(disc, target_columns, domain_stats)
         self.freq_stats = freq
 
-        error_cells_df = self._extract_error_cells_from(
-            noisy_cells_df, disc, continuous_columns, target_columns,
-            pairwise, freq, domain_stats)
+        error_cells_df = noisy_cells_df
+        if self.error_cells is None:
+            error_cells_df = self._extract_error_cells_from(
+                noisy_cells_df, disc, continuous_columns, target_columns,
+                pairwise, freq, domain_stats)
         return error_cells_df, target_columns, pairwise, domain_stats
+
+
+def _coerce_like(value: Any, reference_values: np.ndarray) -> Any:
+    """Best-effort coercion of a user-provided row id to the table's dtype."""
+    try:
+        sample = reference_values[0]
+    except IndexError:
+        return value
+    try:
+        if isinstance(sample, (int, np.integer)):
+            return int(value)
+        if isinstance(sample, (float, np.floating)):
+            return float(value)
+        return str(value)
+    except (TypeError, ValueError):
+        return value

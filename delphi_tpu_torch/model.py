@@ -1,15 +1,17 @@
 """RepairModel: the 3-phase repair pipeline (detect -> train -> repair).
 
 The port of the JAX package's ``model.py`` for the slices so far: the
-fluent setters and option keys, error detection
-(:mod:`delphi_tpu_torch.errors`), per-attribute training on rows whose
-target is clean (sequential, or batched behind
-``setParallelStatTrainingEnabled(True)``), and one-shot batched repair
-inference over the dirty rows. Paths of the reference that the port does
-not have yet raise ``NotImplementedError`` naming what is missing: the
-PMF / score / maximal-likelihood modes, user-supplied error cells, rule
-repairs (regex, nearest values, FD rules), constraints, chunked repair,
-repair validation, escalation, incremental runs and checkpoints.
+fluent setters and option keys, error detection with any detector mix or
+user-supplied error cells (:mod:`delphi_tpu_torch.errors`), per-attribute
+training on rows whose target is clean (sequential, or batched behind
+``setParallelStatTrainingEnabled(True)``), one-shot batched repair
+inference over the dirty rows, the one-tuple denial-constraint repair
+minimization, and repair validation against the constraints. Paths of the
+reference that the port does not have yet raise ``NotImplementedError``
+naming the slice that brings them: the PMF / score / maximal-likelihood
+modes, rule repairs (regex, nearest values, FD rules), chunked repair and
+checkpoints (queue 1 item 5 of ``ROADMAP.md``), escalation and incremental
+runs (item 7).
 
 DataFrames in and out are pandas.
 """
@@ -22,21 +24,31 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import pandas as pd
 
-from delphi_tpu_torch.errors import ROW_IDX, ErrorDetector, ErrorModel
+from delphi_tpu_torch.constraints import Constant
+from delphi_tpu_torch.errors import (ROW_IDX, ConstraintErrorDetector,
+                                     ErrorDetector, ErrorModel)
 from delphi_tpu_torch.models.encoding import FeatureEncoder, OrdinalEncoder
 from delphi_tpu_torch.session import get_session
-from delphi_tpu_torch.table import KIND_INTEGRAL, EncodedTable, check_input_table
+from delphi_tpu_torch.ops.detect import (_one_tuple_violations,
+                                         detect_constraint_violations)
+from delphi_tpu_torch.table import (KIND_FRACTIONAL, KIND_INTEGRAL,
+                                    EncodedTable, check_input_table,
+                                    encode_table)
 from delphi_tpu_torch.train import (build_model, build_models_batched,
                                     rebalance_training_data,
                                     train_option_keys)
-from delphi_tpu_torch.utils import (argtype_check, elapsed_time,
-                                    get_option_value, job_phase,
-                                    log_based_on_level, phase_span,
-                                    setup_logger, to_list_str, train_reports)
+from delphi_tpu_torch.utils import (argtype_check, counter_inc,
+                                    elapsed_time, get_option_value,
+                                    job_phase, log_based_on_level,
+                                    phase_span, setup_logger, to_list_str,
+                                    train_reports)
 
 _logger = setup_logger()
 
 _TRUTHY = ("1", "true", "yes", "on")
+
+# The slice that brings the model.py paths run() still rejects
+_NEXT_SLICE = "the next slice, queue 1 item 5 of ROADMAP.md"
 
 
 class PoorModel:
@@ -151,6 +163,10 @@ class RepairModel:
 
         self.opts: Dict[str, str] = {}
         self._session = get_session()
+        # phase 1's non-constraint detector frames (see `_detect_errors`)
+        self._phase1_non_constraint_frames: Optional[List[pd.DataFrame]] = None
+        # the cells the last one-tuple DC minimization reverted
+        self._dc_reverted: set = set()
 
     # -- fluent setters ------------------------------------------------------
 
@@ -241,8 +257,8 @@ class RepairModel:
 
     @argtype_check  # type: ignore
     def setRepairByRules(self, enabled: bool) -> "RepairModel":
-        """Enables rule-based repairs before model training (a later
-        slice)."""
+        """Enables rule-based repairs before model training (not ported
+        yet: ``run()`` raises)."""
         self.repair_by_rules = enabled
         return self
 
@@ -256,8 +272,8 @@ class RepairModel:
 
     def setUpdateCostFunction(self, cf: Any) -> "RepairModel":
         raise NotImplementedError(
-            "update cost functions (costs.py) come with the slice that ports "
-            "the PMF and maximal-likelihood repair modes")
+            "update cost functions (costs.py) are not ported to "
+            f"delphi_tpu_torch yet ({_NEXT_SLICE})")
 
     @argtype_check  # type: ignore
     def option(self, key: str, value: str) -> "RepairModel":
@@ -284,6 +300,14 @@ class RepairModel:
         name = self._session.qualified_name(self.db_name, str(self.input))
         return self._session.table(name), name
 
+    @property
+    def _error_cells_frame(self) -> Optional[pd.DataFrame]:
+        if self.error_cells is None:
+            return None
+        df = self.error_cells if type(self.error_cells) is pd.DataFrame \
+            else self._session.table(str(self.error_cells))
+        return df[[self._row_id, "attribute"]]
+
     def _filter_columns_from(self, df: pd.DataFrame, targets: List[str],
                              negate: bool = False) -> pd.DataFrame:
         mask = df["attribute"].isin(targets)
@@ -296,22 +320,17 @@ class RepairModel:
             raise NotImplementedError(
                 f"{what} is not ported to delphi_tpu_torch yet ({later})")
 
-        if self.error_cells is not None:
-            unported("setErrorCells (user-supplied error cells)",
-                     "comes with the detector slice")
         for key in (self._opt_checkpoint_path.key, self._opt_snapshot_dir.key):
             if self.opts.get(key):
-                unported(f"option {key} (checkpoints)", "a later slice")
+                unported(f"option {key} (checkpoints)", _NEXT_SLICE)
         for key in (self._opt_incremental.key, self._opt_escalate.key):
             if str(self.opts.get(key, "")).strip().lower() in _TRUTHY:
-                unported(f"option {key}", "a later slice")
+                unported(f"option {key}", "queue 1 item 7 of ROADMAP.md")
         if detect_errors_only:
             return
         if self.repair_by_rules:
             unported("setRepairByRules (regex / nearest-value / FD rule "
-                     "repairs)", "comes with constraints in a later slice")
-        if self.repair_validation_enabled:
-            unported("repair validation", "comes with constraints")
+                     "repairs)", _NEXT_SLICE)
 
     # -- phase 1: error detection --------------------------------------------
 
@@ -322,8 +341,15 @@ class RepairModel:
             targets=self.targets,
             discrete_thres=self.discrete_thres,
             error_detectors=self.error_detectors,
+            error_cells=self._error_cells_frame,
             opts=self.opts)
-        return error_model.detect(table, input_name, continuous_columns)
+        result = error_model.detect(table, input_name, continuous_columns)
+        # keep ONLY phase 1's per-detector cell frames (not the whole
+        # ErrorModel with its discretized table and stats) so the one-tuple
+        # DC repair minimization never re-runs detection; they are None
+        # unless a constraint detector ran
+        self._phase1_non_constraint_frames = error_model._non_constraint_frames
+        return result
 
     # -- phase 2: model training ----------------------------------------------
 
@@ -518,8 +544,8 @@ class RepairModel:
                              continuous_columns: List[str],
                              pairwise_attr_stats: Dict[str, Any]) -> List[Any]:
         """SCARE-style per-attribute conditional models P(e_y | clean attrs)
-        trained on the rows whose y is clean. (FD rule models need a
-        constraint detector, which a later slice ports.)"""
+        trained on the rows whose y is clean. (FD rule models come with
+        ``setRepairByRules``, which is not ported yet.)"""
         train_columns = masked.column_names
         _logger.info(
             "[Repair Model Training Phase] Building {} models to repair the cells "
@@ -602,6 +628,329 @@ class RepairModel:
             filled.iloc[miss_idx] = vals
             pdf[y] = filled
         return pdf
+
+    def _one_tuple_dc_plan(self, table: EncodedTable,
+                           error_cells_df: pd.DataFrame) -> Optional[Dict[str, Any]]:
+        """Precomputes what the one-tuple DC minimization needs, once per
+        run: the parsed all-constant constraints, their violating rows, the
+        flagged cells' current values, and the cells any NON-constraint
+        detector also flagged (those repairs are never reverted; the set is
+        captured during phase 1, never re-detected). Returns None when
+        minimization does not apply: no ConstraintErrorDetector, no
+        one-tuple DCs, or user-supplied error cells (ground truth is not
+        ours to second-guess)."""
+        if self.error_cells is not None:
+            return None
+        detectors = [d for d in self.error_detectors
+                     if isinstance(d, ConstraintErrorDetector)]
+        if not detectors:
+            return None
+
+        one_tuple = []
+        for d in detectors:
+            try:
+                parsed = d.parsed_constraints(table, str(self.input))
+            except Exception:
+                continue
+            one_tuple += [preds for preds in parsed.predicates
+                          if all(isinstance(p.right, Constant) for p in preds)]
+        if not one_tuple:
+            return None
+
+        frames = self._phase1_non_constraint_frames
+        if frames is None:
+            _logger.warning(
+                "Skipping one-tuple DC minimization (phase-1 detector "
+                "capture unavailable)")
+            return None
+        protected: set = set()
+        for f in frames:
+            protected |= set(zip(f[ROW_IDX].astype(int), f["attribute"]))
+
+        flagged: Dict[int, Dict[str, Any]] = {}
+        for r, a, cur in zip(error_cells_df[ROW_IDX].astype(int),
+                             error_cells_df["attribute"],
+                             error_cells_df["current_value"]):
+            flagged.setdefault(int(r), {})[a] = cur
+
+        plans = []
+        for preds in one_tuple:
+            viol = np.nonzero(_one_tuple_violations(table, preds))[0]
+            if viol.size:
+                plans.append((preds, viol))
+        if not plans:
+            return None
+        return {"plans": plans, "flagged": flagged, "protected": protected,
+                "kinds": {c.name: c.kind for c in table.columns}}
+
+    def _minimize_one_tuple_dc_repairs(
+            self, table: EncodedTable, plan: Optional[Dict[str, Any]],
+            pos: np.ndarray, repaired_rows_df: pd.DataFrame,
+            models: List[Any]) -> pd.DataFrame:
+        """Constraint-aware minimal repair for one-tuple denial constraints.
+
+        A one-tuple DC (all-constant predicates, e.g. Sex=Female &
+        Relationship=Husband) flags EVERY referenced attribute of a violating
+        row, and the models then repair each flagged cell independently —
+        even though changing any ONE of them already satisfies the
+        constraint. When several flagged cells of a row would individually
+        satisfy the DC, keep only the repair the models are most confident
+        in and revert the others to their (non-NULL) current values. Cells
+        the constraint still needs, cells with NULL currents, and cells
+        another detector flagged keep their repairs; rows where model
+        confidence is unavailable for every option are left untouched.
+        The reverted (row id, attribute) cells are kept in
+        ``_dc_reverted``, their count in ``utils.counters``
+        (``repair.dc_reverted``)."""
+        if plan is None or not len(repaired_rows_df):
+            return repaired_rows_df
+
+        flagged = plan["flagged"]
+        protected = plan["protected"]
+        kinds = plan["kinds"]
+        pos_index = {int(p): i for i, p in enumerate(pos)}
+
+        def spell(attr: str, value: Any) -> Optional[str]:
+            """The vocab spelling of a value — what _one_tuple_violations
+            compares against the literal (str(int)/str(float) for numeric
+            kinds, the raw string otherwise)."""
+            if _is_null(value):
+                return None
+            kind = kinds.get(attr)
+            try:
+                if kind == KIND_INTEGRAL:
+                    return str(int(float(value)))
+                if kind == KIND_FRACTIONAL:
+                    return str(float(value))
+            except (TypeError, ValueError):
+                pass
+            return str(value)
+
+        def pred_holds(p: Any, attr: str, value: Any) -> bool:
+            s = spell(attr, value)
+            lit = p.right.literal
+            if s is None:
+                # NULL <=> const is false; NOT(...) true; orders false
+                return p.sign == "IQ"
+            if p.sign == "EQ":
+                return s == lit
+            if p.sign == "IQ":
+                return s != lit
+            if kinds.get(attr) in (KIND_INTEGRAL, KIND_FRACTIONAL):
+                try:
+                    lv, rv = float(s), float(lit)
+                except ValueError:
+                    return False
+                return lv < rv if p.sign == "LT" else lv > rv
+            return s < lit if p.sign == "LT" else s > lit
+
+        def batch_confidence(attr: str, row_is: List[int]) -> Optional[np.ndarray]:
+            """P(model predicts the repaired value) for many rows in one
+            predict_proba call; None disables minimization for these rows
+            (a failed confidence must not degrade into an arbitrary pick)."""
+            for y, (model, features, transformers) in models:
+                if y != attr:
+                    continue
+                try:
+                    X: Any = repaired_rows_df[features].iloc[row_is]
+                    if transformers:
+                        X = self._encode_features(transformers, X)
+                    probs = np.asarray(model.predict_proba(X))
+                    classes = [str(c) for c in model.classes_.tolist()]
+                    vals = [str(repaired_rows_df.at[repaired_rows_df.index[i],
+                                                    attr]) for i in row_is]
+                    idx = [classes.index(v) if v in classes else -1
+                           for v in vals]
+                    return np.asarray(
+                        [probs[j, k] if k >= 0 else np.nan
+                         for j, k in enumerate(idx)], dtype=np.float64)
+                except Exception:
+                    return None
+            return None
+
+        out = repaired_rows_df
+        # (frame position, attr) -> the ORIGINAL model repair, recorded the
+        # first time any plan reverts that cell (later plans reverting the
+        # same cell see the already-reverted value, which is not a repair) —
+        # the post-pass below undoes reverts that overlapping-attribute
+        # plans invalidated
+        revert_log: Dict[Tuple[int, str], Any] = {}
+        for preds, viol_rows in plan["plans"]:
+            dc_attrs = [a for p in preds for a in p.references]
+            # only this block's rows (the plan's rows are global)
+            in_chunk = viol_rows[np.isin(viol_rows, pos)] \
+                if len(viol_rows) > len(pos_index) // 4 else \
+                [r for r in viol_rows if int(r) in pos_index]
+            candidates = []  # (i, row, row_flagged, fixable, options)
+            need_conf: Dict[str, List[int]] = {}
+            for r in in_chunk:
+                i = pos_index.get(int(r))
+                if i is None:
+                    continue
+                row_flagged = flagged.get(int(r), {})
+                fixable = [a for a in dc_attrs
+                           if a in row_flagged and a in out.columns
+                           and (int(r), a) not in protected
+                           and not _is_null(row_flagged[a])]
+                if len(fixable) < 2:
+                    continue
+                fixable_set = set(fixable)
+
+                def satisfied_by(only: str) -> bool:
+                    # `only` takes its repair, other revertible flagged cells
+                    # take their current values; everything else (unflagged
+                    # attrs, must-keep repairs) reads the repaired frame
+                    def val(a: str) -> Any:
+                        if a != only and a in fixable_set:
+                            return row_flagged[a]
+                        return out.at[out.index[i], a]
+                    return not all(pred_holds(p, p.references[0],
+                                              val(p.references[0]))
+                                   for p in preds)
+
+                options = [a for a in fixable if satisfied_by(a)]
+                if len(options) < 1:
+                    continue
+                candidates.append((i, int(r), row_flagged, fixable, options))
+                for a in options:
+                    need_conf.setdefault(a, []).append(i)
+
+            conf: Dict[Tuple[str, int], float] = {}
+            usable = True
+            for a, row_is in need_conf.items():
+                scores = batch_confidence(a, row_is)
+                if scores is None:
+                    usable = False
+                    break
+                for i, sc in zip(row_is, scores):
+                    conf[(a, i)] = float(sc)
+            if not usable:
+                continue
+
+            for i, r, row_flagged, fixable, options in candidates:
+                scored = [(conf.get((a, i), np.nan), a) for a in options]
+                if any(np.isnan(sc) for sc, _ in scored):
+                    continue  # confidence unavailable -> keep all repairs
+                best = max(scored)[1]
+                reverted = []
+                for a in fixable:
+                    if a != best:
+                        revert_log.setdefault(
+                            (i, a), out.at[out.index[i], a])
+                        out.at[out.index[i], a] = row_flagged[a]
+                        reverted.append(a)
+                if reverted:
+                    _logger.info(
+                        "[Repairing Phase] one-tuple DC on row {}: keeping "
+                        "the '{}' repair and reverting {} (constraint "
+                        "satisfied by a single change)".format(
+                            table.row_id_values[r], best,
+                            to_list_str(reverted, quote=True)))
+
+        # Plans apply sequentially against the mutated frame, so with two
+        # DCs sharing an attribute a later plan's revert can re-violate an
+        # earlier constraint. Fixpoint pass: re-evaluate every processed
+        # constraint on the FINAL row state; a still-violated constraint
+        # gets ALL reverted cells among its referenced attributes restored
+        # to their original model repairs. Each (row, cell) restores at most
+        # once and restores only move the row toward the all-repairs state,
+        # so the loop is monotone and terminates.
+        if revert_log:
+            touched_rows = {i for i, _ in revert_log}
+            for _ in range(len(plan["plans"]) + 1):
+                changed = False
+                for preds, _ in plan["plans"]:
+                    attrs = {a for p in preds for a in p.references}
+                    for i in touched_rows:
+                        restorable = [a for a in attrs
+                                      if (i, a) in revert_log]
+                        if not restorable:
+                            continue
+                        violated = all(
+                            pred_holds(p, p.references[0],
+                                       out.at[out.index[i],
+                                              p.references[0]])
+                            for p in preds)
+                        if violated:
+                            for a in restorable:
+                                out.at[out.index[i], a] = \
+                                    revert_log.pop((i, a))
+                            changed = True
+                if not changed:
+                    break
+        self._dc_reverted = {(table.row_id_values[pos[i]], a)
+                             for i, a in revert_log}
+        counter_inc("repair.dc_reverted", len(revert_log))
+        return out
+
+    @job_phase(name="validating")
+    def _validate_repairs(self, repair_candidates: pd.DataFrame,
+                          repaired_rows: pd.DataFrame,
+                          clean_rows: pd.DataFrame,
+                          original_rows: Optional[pd.DataFrame] = None
+                          ) -> pd.DataFrame:
+        """Post-repair constraint validation: the repaired dirty rows
+        re-encode together with the clean context, every
+        ConstraintErrorDetector's denial constraints re-evaluate over the
+        result (the same device scans phase 1 uses), and candidates whose
+        repaired cell introduces a violation are dropped — the cell stays
+        unrepaired rather than swapping one violation for another.
+
+        With ``original_rows`` (the UNMASKED dirty rows), a candidate is
+        dropped only if its cell violates AFTER the repair and did NOT
+        already violate BEFORE it."""
+        _logger.info("[Validation Phase] Validating {} repair candidates...".format(
+            len(repair_candidates)))
+        detectors = [d for d in self.error_detectors
+                     if isinstance(d, ConstraintErrorDetector)]
+        if not detectors or not len(repair_candidates):
+            return repair_candidates
+
+        candidate_attrs = sorted(set(repair_candidates["attribute"]))
+
+        def violating_cells(dirty_block: pd.DataFrame) -> Optional[set]:
+            full = pd.concat([clean_rows, dirty_block], ignore_index=True)
+            try:
+                encoded = encode_table(full, self._row_id)
+            except Exception as e:  # never fail the run on a validation error
+                _logger.warning(
+                    f"Repair validation skipped: {e.__class__}: {e}")
+                return None
+            cells: set = set()
+            rid_vals = full[self._row_id].to_numpy()
+            for d in detectors:
+                try:
+                    parsed = d.parsed_constraints(encoded, str(self.input))
+                except Exception as e:
+                    _logger.warning(
+                        f"Repair validation skipped for {d}: {e}")
+                    continue
+                if parsed.is_empty:
+                    continue
+                for rows, attr in detect_constraint_violations(
+                        encoded, parsed, candidate_attrs):
+                    cells.update(
+                        (rid, attr) for rid in rid_vals[rows].tolist())
+            return cells
+
+        after = violating_cells(repaired_rows)
+        if after is None or not after:
+            return repair_candidates
+        before = violating_cells(original_rows) \
+            if original_rows is not None else set()
+        violating = after - (before or set())
+
+        if not violating:
+            return repair_candidates
+        keys = list(zip(repair_candidates[self._row_id].tolist(),
+                        repair_candidates["attribute"].tolist()))
+        keep = np.array([k not in violating for k in keys])
+        dropped = int((~keep).sum())
+        if dropped:
+            _logger.info(
+                f"[Validation Phase] Dropped {dropped}/{len(keys)} repairs "
+                "that introduce integrity-constraint violations")
+        return repair_candidates[keep].reset_index(drop=True)
 
     def _extract_repair_candidates(self, repaired_rows_df: pd.DataFrame,
                                    error_cells_df: pd.DataFrame,
@@ -708,10 +1057,12 @@ class RepairModel:
         error_row_pos = np.unique(
             error_cells_df[ROW_IDX].to_numpy().astype(np.int64))
         chunk_rows = int(os.environ.get("DELPHI_REPAIR_CHUNK_ROWS", "2000000"))
-        if not repair_data and 0 < chunk_rows < len(error_row_pos):
+        if not (repair_data or self.repair_validation_enabled) \
+                and 0 < chunk_rows < len(error_row_pos):
             raise NotImplementedError(
                 f"chunked repair ({len(error_row_pos)} dirty rows > "
-                f"{chunk_rows}) is not ported to delphi_tpu_torch yet")
+                f"{chunk_rows}) is not ported to delphi_tpu_torch yet "
+                f"({_NEXT_SLICE})")
 
         models = self._build_repair_models(
             masked, float_cols, target_columns, continuous_columns,
@@ -720,10 +1071,13 @@ class RepairModel:
         #######################################################################
         # 3. Repair Phase
         #######################################################################
+        dc_plan = self._one_tuple_dc_plan(table, error_cells_df)
         dirty_rows_df = masked.to_pandas(
             rows=error_row_pos, integral_as_float=float_cols)
         repaired_rows_df = self._repair(
             models, continuous_columns, dirty_rows_df, error_cells_df)
+        repaired_rows_df = self._minimize_one_tuple_dc_repairs(
+            table, dc_plan, error_row_pos, repaired_rows_df, models)
 
         if repair_data:
             clean_pos = np.setdiff1d(
@@ -735,8 +1089,23 @@ class RepairModel:
             assert len(clean_df) == table.n_rows
             return clean_df
 
-        return self._extract_repair_candidates(
+        repair_candidates_df = self._extract_repair_candidates(
             repaired_rows_df, error_cells_df, target_columns, error_row_pos)
+        if self.repair_validation_enabled:
+            clean_pos = np.setdiff1d(
+                np.arange(table.n_rows, dtype=np.int64), error_row_pos,
+                assume_unique=True)
+            clean_rows_df = masked.to_pandas(
+                rows=clean_pos, integral_as_float=float_cols)
+            # the UNMASKED dirty rows: the before-frame of the validation
+            # diff, so a cell that already violated pre-repair can't get a
+            # correct repair dropped for a violation it didn't introduce
+            original_rows_df = table.to_pandas(
+                rows=error_row_pos, integral_as_float=float_cols)
+            repair_candidates_df = self._validate_repairs(
+                repair_candidates_df, repaired_rows_df, clean_rows_df,
+                original_rows_df)
+        return repair_candidates_df
 
     def run(self, detect_errors_only: bool = False,
             compute_repair_candidate_prob: bool = False,
@@ -767,7 +1136,7 @@ class RepairModel:
                 or compute_repair_score or maximal_likelihood_repair:
             raise NotImplementedError(
                 "the PMF / score / maximal-likelihood repair modes are not "
-                "ported to delphi_tpu_torch yet (a later slice)")
+                f"ported to delphi_tpu_torch yet ({_NEXT_SLICE})")
         self._reject_unported(detect_errors_only)
 
         with phase_span("input validation"):

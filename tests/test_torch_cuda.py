@@ -293,3 +293,132 @@ def test_repair_card_matches_cpu(card):
     assert k_pair.launches > before[0] and k_entropy.launches > before[1]
     pd.testing.assert_frame_equal(got, want)
     assert len(got) == 2 * (n // 5)
+
+
+def _constraint_table(n, seed=3):
+    rng = np.random.RandomState(seed)
+    df = pd.DataFrame({
+        "tid": np.arange(n),
+        "zip": rng.randint(0, max(n // 12, 2), n).astype(str),
+        "city": rng.randint(0, 30, n).astype(str),
+        "state": rng.randint(0, 8, n).astype(str),
+        "salary": rng.randint(10, 99, n).astype(str),
+        "rate": rng.randint(1, 50, n).astype(str),
+        "score": np.round(rng.normal(50, 10, n), 1),
+    })
+    for c in ("city", "state", "salary", "score"):
+        df.loc[rng.choice(n, n // 20, replace=False), c] = None
+    return df
+
+
+# every constraint route of ops/detect.py: EQ keys only, single and
+# composite keys with IQ / LT / GT residuals, all-IQ inclusion-exclusion,
+# mixed residuals, no EQ key, one-tuple
+CONSTRAINT_SUITE = [
+    "t1&t2&EQ(t1.zip,t2.zip)&EQ(t1.state,t2.state)",
+    "t1&t2&EQ(t1.zip,t2.zip)&IQ(t1.city,t2.city)",
+    "t1&t2&EQ(t1.zip,t2.zip)&IQ(t1.city,t2.state)",
+    "t1&t2&EQ(t1.state,t2.state)&LT(t1.salary,t2.salary)",
+    "t1&t2&EQ(t1.state,t2.state)&GT(t1.rate,t2.rate)",
+    "t1&t2&EQ(t1.zip,t2.zip)&EQ(t1.state,t2.state)&IQ(t1.city,t2.city)",
+    "t1&t2&EQ(t1.zip,t2.zip)&EQ(t1.city,t2.city)&LT(t1.salary,t2.salary)",
+    "t1&t2&EQ(t1.zip,t2.zip)&IQ(t1.city,t2.city)&IQ(t1.salary,t2.salary)",
+    "t1&t2&EQ(t1.zip,t2.zip)&EQ(t1.state,t2.state)&IQ(t1.city,t2.city)"
+    "&IQ(t1.rate,t2.rate)",
+    "t1&t2&EQ(t1.city,t2.city)&LT(t1.score,t2.score)",
+    "t1&t2&EQ(t1.zip,t2.zip)&IQ(t1.city,t2.city)&GT(t1.rate,t2.rate)",
+    "t1&t2&IQ(t1.state,t2.state)&IQ(t1.zip,t2.zip)",
+    't1&EQ(t1.state,"3")&IQ(t1.city,"7")',
+]
+
+
+@pytest.mark.cuda
+def test_constraint_suite_card_matches_cpu(card):
+    """Every constraint route gives the same violation cells on the card
+    as on the CPU, and the card route counts its device steps."""
+    from delphi_tpu_torch import constraints as dc
+    from delphi_tpu_torch.ops import detect
+    from delphi_tpu_torch.table import encode_table
+    from delphi_tpu_torch.utils import counters
+
+    df = _constraint_table(20_000)
+    table = encode_table(df, "tid")
+    attrs = df.columns.tolist()
+    for stmt in CONSTRAINT_SUITE:
+        parsed = dc.parse_and_verify_constraints([stmt], "t", attrs)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            T.set_device(dev)
+            counters.clear()
+            cells = detect.detect_constraint_violations(table, parsed, attrs)
+            out[dev] = [(a, rows.tolist()) for rows, a in cells]
+        assert out["cuda"] == out["cpu"], stmt
+        assert out["cuda"], stmt
+    for name in ("detect.sorted_count", "detect.rank",
+                 "detect.group_extrema"):
+        T.set_device("cuda")
+        counters.clear()
+        detect.detect_constraint_violations(
+            table, dc.parse_and_verify_constraints(CONSTRAINT_SUITE, "t",
+                                                   attrs), attrs)
+        assert counters.get(name, 0) > 0, name
+
+
+@pytest.mark.cuda
+def test_percentiles_and_outliers_card_match_cpu(card):
+    """The card's batched quartiles equal np.percentile bit for bit (with
+    pools of 1 and 2 values, duplicates and 1M values), and the outlier
+    cells equal the CPU run's."""
+    from delphi_tpu_torch.ops import detect
+    from delphi_tpu_torch.table import encode_table
+
+    rng = np.random.RandomState(0)
+    pools = [rng.normal(0, 1, 1_000_000), np.round(rng.normal(0, 3, 999)),
+             np.array([2.5]), np.array([1.0, 4.0])]
+    got = detect.percentile_batch(
+        [torch.from_numpy(p).to(card) for p in pools], (25.0, 75.0)).cpu()
+    want = np.stack([np.percentile(p, [25.0, 75.0]) for p in pools])
+    np.testing.assert_array_equal(got.numpy().view(np.int64),
+                                  want.view(np.int64))
+
+    n = 200_000
+    df = pd.DataFrame({"tid": np.arange(n),
+                       "a": rng.normal(0, 1, n), "b": rng.exponential(1, n)})
+    df.loc[rng.choice(n, 1000, replace=False), "a"] = np.nan
+    table = encode_table(df, "tid")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        for approx in (False, True):
+            out[dev, approx] = [
+                (a, rows.tolist()) for rows, a in detect.detect_outliers(
+                    table, ["a", "b"], ["a", "b"], approx=approx)]
+    for approx in (False, True):
+        assert out["cuda", approx] == out["cpu", approx]
+        assert len(out["cuda", approx]) == 2
+
+
+@pytest.mark.cuda
+def test_detect_errors_only_card_matches_cpu(card):
+    """Every detector kind of a run, on the card and on the CPU: the same
+    detect_errors_only frame."""
+    df = _constraint_table(20_000, seed=5)
+    df.loc[::997, "score"] = 1e4
+
+    def run():
+        return T.delphi.repair.setInput(df).setRowId("tid") \
+            .setErrorDetectors([
+                T.NullErrorDetector(),
+                T.RegExErrorDetector("salary", "^[1-8][0-9]$"),
+                T.DomainValues("state", autofill=True, min_count_thres=2200),
+                T.ConstraintErrorDetector(
+                    constraints=";".join(CONSTRAINT_SUITE[:2])),
+                T.GaussianOutlierErrorDetector()]) \
+            .run(detect_errors_only=True)
+
+    T.set_device("cpu")
+    want = run()
+    T.set_device("cuda")
+    got = run()
+    assert len(got) > 0
+    pd.testing.assert_frame_equal(got, want)

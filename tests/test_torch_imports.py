@@ -1,7 +1,8 @@
 """The port stands alone: importing it and running a repair on the CPU
-loads neither JAX nor any module of ``delphi_tpu``, and asking for the
-default device (``cuda``) where there is no card raises instead of running
-on the CPU.
+loads neither JAX nor any module of ``delphi_tpu`` (nor scikit-learn,
+which only ``LOFOutlierErrorDetector`` imports, when it scans), and asking
+for the default device (``cuda``) where there is no card raises instead of
+running on the CPU.
 """
 
 import json
@@ -97,6 +98,55 @@ print(json.dumps({
 """
 
 
+_RUN_DETECTORS = """
+import json, sys
+import numpy as np
+import pandas as pd
+import delphi_tpu_torch as T
+rng = np.random.RandomState(0)
+n = 300
+city = rng.randint(0, 12, n)
+df = pd.DataFrame({
+    "tid": range(n),
+    "city": [f"c{v}" for v in city],
+    "state": [None if i % 17 == 0 else f"s{v % 6}"
+              for i, v in enumerate(city)],
+    "channel": [f"h{v}" for v in rng.randint(0, 3, n)],
+    "amount": np.round(city * 10.0 + rng.normal(0, 1, n), 2),
+})
+df.loc[5, "amount"] = 1e5
+
+
+class ZScore:
+    def fit_predict(self, X):
+        x = np.asarray(X)[:, 0]
+        return np.where(np.abs(x - x.mean()) > 3 * x.std(), -1, 1)
+
+
+dets = [T.NullErrorDetector(), T.RegExErrorDetector("state", "^s[0-9]$"),
+        T.DomainValues("channel", autofill=True),
+        T.ConstraintErrorDetector(
+            constraints='city->state;t1&EQ(t1.state,"s0")&EQ(t1.channel,"h2")'),
+        T.GaussianOutlierErrorDetector(),
+        T.ScikitLearnBackedErrorDetector(ZScore),
+        T.LOFOutlierErrorDetector()]
+lof = dets.pop()  # constructed, never run: no scikit-learn import
+m = T.delphi.repair.setInput(df).setRowId("tid").setErrorDetectors(dets) \\
+    .option("model.hp.max_evals", "1")
+cells = m.run(detect_errors_only=True)
+out = m.run()
+given = T.delphi.repair.setInput(df).setRowId("tid") \\
+    .setErrorCells(cells[["tid", "attribute"]]) \\
+    .option("model.hp.max_evals", "1").run()
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib", "sklearn"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({"cells": len(cells), "repairs": len(out),
+                  "given": len(given),
+                  "attrs": sorted(set(cells["attribute"])), "mods": mods}))
+"""
+
+
 def _python(code, **env_over):
     env = {k: v for k, v in os.environ.items()
            if k not in ("DELPHI_TORCH_DEVICE", "PYTHONPATH")}
@@ -126,6 +176,20 @@ def test_every_module_and_default_options_run_without_jax():
     assert out["modules"] >= 20
     assert out["rows"] > 0 and out["same"]
     assert out["logistic"] == ["w"]
+    assert out["mods"] == []
+
+
+def test_every_detector_runs_without_jax_or_sklearn():
+    """NULL, regex, domain values, constraints (FD sugar and a one-tuple
+    constraint), Gaussian outliers and a scikit-learn-style detector, then
+    the same cells given back through setErrorCells: every step runs on
+    the CPU without JAX, ``delphi_tpu`` or scikit-learn loaded."""
+    proc = _python(_RUN_DETECTORS, DELPHI_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["cells"] > 0 and out["repairs"] > 0 and out["given"] > 0
+    assert out["attrs"] == ["amount", "channel", "city", "state"]
     assert out["mods"] == []
 
 

@@ -214,13 +214,18 @@ PORTED = {
     "cv grid search": (lambda m: m, {}),
     "batched training": (lambda m: m.option("model.hp.max_evals", "1")
                          .setParallelStatTrainingEnabled(True), {}),
+    "user error cells": (
+        lambda m: m.setErrorCells(pd.DataFrame({
+            "tid": [1, 9, 18, 30], "attribute": ["a", "b", "c", "b"]})),
+        {}),
+    "default detectors": (lambda m: m.setErrorDetectors([]), {}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PORTED))
 def test_formerly_unported_paths_match_jax(case):
-    """Paths that raised NotImplementedError before this slice now run and
-    return the JAX package's frame."""
+    """Paths that raised NotImplementedError in an earlier slice now run
+    and return the JAX package's frame."""
     setup, run_kw = PORTED[case]
 
     def run(lib):
@@ -233,28 +238,34 @@ def test_formerly_unported_paths_match_jax(case):
     pd.testing.assert_frame_equal(got, want)
 
 
+# case -> (model setup, run() arguments, words of the message, environment)
 UNPORTED = {
-    "pmf mode": (lambda m: m, {"compute_repair_prob": True}, "PMF"),
+    "pmf mode": (lambda m: m, {"compute_repair_prob": True}, "PMF", {}),
+    "score mode": (lambda m: m, {"compute_repair_score": True}, "score", {}),
+    "maximal likelihood": (lambda m: m, {"maximal_likelihood_repair": True},
+                           "maximal-likelihood", {}),
     "rule repairs": (lambda m: m.setRepairByRules(True), {},
-                     "setRepairByRules"),
-    "user error cells": (
-        lambda m: m.setErrorCells(pd.DataFrame({"tid": [1],
-                                                "attribute": ["a"]})),
-        {}, "setErrorCells"),
-    "default detectors": (lambda m: m.setErrorDetectors([]), {},
-                          "NullErrorDetector"),
+                     "setRepairByRules", {}),
+    "checkpoints": (lambda m: m.option("model.checkpoint_path", "ckpt"), {},
+                    "checkpoints", {}),
+    "chunked repair": (lambda m: m, {}, "chunked repair",
+                       {"DELPHI_REPAIR_CHUNK_ROWS": "2"}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unported_paths_raise(case):
+def test_unported_paths_raise(case, monkeypatch):
     """Paths outside the port raise NotImplementedError naming what is
-    missing; none silently runs a different model than the JAX package."""
-    setup, run_kw, words = UNPORTED[case]
+    missing and the slice that brings it; none silently runs a different
+    model than the JAX package."""
+    setup, run_kw, words, env = UNPORTED[case]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     m = T.delphi.repair.setInput(_tiny()).setRowId("tid") \
         .setErrorDetectors([T.NullErrorDetector()])
-    with pytest.raises(NotImplementedError, match=words):
+    with pytest.raises(NotImplementedError, match=words) as exc:
         setup(m).run(**run_kw)
+    assert "queue 1 item 5 of ROADMAP.md" in str(exc.value)
 
 
 def test_logistic_head_trains_on_the_factored_design():
