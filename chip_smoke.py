@@ -21,7 +21,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    rounds and chunk steps, and the training wall split into CV search and
    final fit. In 4b each kernel is re-run, held against its plain version
    (K1 bitwise, K2 within 1e-12 relative) and timed on the inputs that each
-   driven path (4, 4c, 4d, 4f) gave it, reported per path, and both wrappers
+   driven path (4, 4c, 4d, 4f, 4g, 4h) gave it, reported per path, and both
+   wrappers
    are run on those inputs under ``torch.cuda.set_sync_debug_mode("error")``
    (a synchronisation fails);
    4c. the same table through batched training
@@ -50,6 +51,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    (e) every constraint route on 200,000 rows, card against CPU, which
    also reaches the rank and group-extrema steps the fd table's
    constraints do not;
+   4g. rules and PMF: (a) ``fd_table`` at 200,000 rows through the
+   NULL, regex (state) and FD-constraint (``city->state;state->region``)
+   detectors with ``setRepairByRules(True)``, the regex and nearest-value
+   rules on and a Levenshtein cost on state, as a main path ("rules"):
+   wall, phase walls, the FD ``y <- x`` rules chosen (at least one), the
+   cells each rule repaired, precision and recall against the injected
+   cells, K1/K2 launches; (b) the 200,000-row missing_heavy table through
+   ``compute_repair_candidate_prob`` (a main path, "pmf"),
+   ``compute_repair_prob``, ``compute_repair_score`` and
+   ``maximal_likelihood_repair`` (Levenshtein, delta 20,000), each run
+   again in blocks of 50,000 dirty rows: the same frame; (c) 20,000
+   rows, CPU against card: rule repairs identical, PMF probabilities
+   within 1e-4, maximal-likelihood selections equal off the percentile;
+   4h. misc and CLI: (a) ``generateDepGraph`` on 200,000 rows of
+   ``fd_table`` as a main path ("depgraph"), and its dot text at 20,000
+   rows equal on the CPU and the card; (b) ``splitInputTable`` at 200,000
+   rows, bisecting and k-means++ at k = 4, labels equal to the CPU's, and
+   one Lloyd iteration at 200,000 x 1024, k = 2, timed; (c) ``python -m
+   delphi_tpu_torch.main --constraints`` on 200,000 rows in a subprocess,
+   its CSV equal to the in-process run's;
 
 5. cross-check at default options, 20,000 rows, CPU (plain versions)
    against card (kernels): identical ``missing_heavy`` repair frames; on
@@ -117,6 +138,31 @@ DC_TARGETS = ["state", "region", "amount"]
 DC_MIN_PRECISION = 0.9
 DC_CONSTRAINTS = ('city->state;state->region;'
                   't1&EQ(t1.state,"state_00")&IQ(t1.region,"region_0")')
+# 4g's and 4h's tables were 1,000,000 rows at first; the script then ran
+# past 480 s (PERF.md §4), so those runs were cut to 200,000 rows.
+# 4g: rule repairs on fd_table, with the regex and nearest-value rules on
+# (an option string turns a rule off when non-empty)
+RULES_ROWS = 200_000
+RULES_TARGETS = ["state", "region"]
+RULES_CONSTRAINTS = "city->state;state->region"
+RULES_ON = {"model.rule.repair_by_regex.disabled": "",
+            "model.rule.repair_by_nearest_values.disabled": ""}
+# 4g: the PMF, score and maximal-likelihood modes on missing_heavy, whole
+# and in blocks of PMF_CHUNK_ROWS dirty rows
+PMF_ROWS = 200_000
+PMF_CHUNK_ROWS = 50_000
+# repairs the maximal-likelihood mode keeps per PMF_ROWS rows (it must not
+# exceed the error cells: the percentile would leave [0, 100])
+PMF_DELTA = 20_000
+PMF_MODES = ["compute_repair_candidate_prob", "compute_repair_prob",
+             "compute_repair_score", "maximal_likelihood_repair"]
+# the CPU tests' tolerance on PMF probabilities
+PROB_TOL = 1e-4
+# 4h: the dependency graph, input splitting (k clusters) and the CLI
+DEPGRAPH_ROWS = 200_000
+SPLIT_ROWS = 200_000
+SPLIT_K = 4
+CLI_ROWS = 200_000
 
 
 def log(msg: str) -> None:
@@ -549,6 +595,340 @@ def constraints_path(torch, T, traced) -> dict:
         f"steps {json.dumps(suite_counts)}")
     out["suite_counters"] = suite_counts
     log(f"[constraints] summary {json.dumps(out)}")
+    return out
+
+
+def rules_model(T, df):
+    """4g(a): NULL, regex and FD-constraint detectors with every rule
+    repair on: regex structure, nearest values under a Levenshtein cost on
+    state, FD rule models."""
+    m = T.delphi.repair.setInput(df).setRowId("tid") \
+        .setTargets(RULES_TARGETS).setErrorDetectors([
+            T.NullErrorDetector(),
+            T.RegExErrorDetector("state", "^state_[0-9]{2}$"),
+            T.ConstraintErrorDetector(constraints=RULES_CONSTRAINTS)]) \
+        .setRepairByRules(True) \
+        .setUpdateCostFunction(T.Levenshtein(targets=["state"]))
+    for k, v in RULES_ON.items():
+        m = m.option(k, v)
+    return m
+
+
+def pmf_model(T, df):
+    """4g(b): NULL detection on missing_heavy with a Levenshtein cost and
+    a repair delta (PMF_DELTA per PMF_ROWS rows), for every PMF, score and
+    maximal-likelihood mode."""
+    m = T.delphi.repair.setInput(df).setRowId("tid") \
+        .setErrorDetectors([T.NullErrorDetector()]) \
+        .setUpdateCostFunction(T.Levenshtein()) \
+        .setRepairDelta(PMF_DELTA * len(df) // PMF_ROWS)
+    for k, v in RUN_OPTIONS.items():
+        m = m.option(k, v)
+    return m
+
+
+def fd_rules_chosen(T):
+    """Wraps the port's model building to record each FD rule model as
+    y -> x; returns (that dict, restore function)."""
+    from delphi_tpu_torch.model import FunctionalDepModel, RepairModel
+    chosen, orig = {}, RepairModel._build_repair_models
+
+    def build(self, *args, **kwargs):
+        models = orig(self, *args, **kwargs)
+        chosen.update({y: m.x for y, (m, _, _) in models
+                       if isinstance(m, FunctionalDepModel)})
+        return models
+
+    RepairModel._build_repair_models = build
+
+    def restore():
+        RepairModel._build_repair_models = orig
+    return chosen, restore
+
+
+def records(frame):
+    """A frame's rows as dicts with every NULL as None, for exact
+    comparison across frames built by different routes."""
+    return frame.astype(object).where(frame.notna(), None).to_dict("records")
+
+
+def pmf_gaps_and_check(label, cpu, gpu) -> int:
+    """Fails unless two candidate-PMF frames hold the same cells, classes
+    and probabilities within PROB_TOL, class orders equal wherever adjacent
+    CPU probabilities differ by more; returns how many cells' lists differ
+    in length (on the ``P > threshold`` cut)."""
+    if records(cpu[["tid", "attribute", "current_value"]]) != records(
+            gpu[["tid", "attribute", "current_value"]]):
+        fail(f"{label}: the CPU and card PMF frames hold different cells")
+    on_cut, worst = 0, 0.0
+    for c, g in zip(cpu["pmf"], gpu["pmf"]):
+        if len(c) != len(g):
+            on_cut += 1
+            continue
+        by_class = {e["class"]: e["prob"] for e in g}
+        for j, e in enumerate(c):
+            if e["class"] not in by_class:
+                fail(f"{label}: class {e['class']} missing on the card")
+            worst = max(worst, abs(by_class[e["class"]] - e["prob"]))
+            if j + 1 < len(c) and e["prob"] - c[j + 1]["prob"] > PROB_TOL \
+                    and {x["class"] for x in c[:j + 1]} != \
+                    {x["class"] for x in g[:j + 1]}:
+                fail(f"{label}: class order differs past a gap of "
+                     f"{PROB_TOL}: {c} vs {g}")
+    if worst > PROB_TOL:
+        fail(f"{label}: PMF probabilities differ by {worst} > {PROB_TOL}")
+    return on_cut
+
+
+def rules_and_pmf(torch, T, traced) -> dict:
+    """Phase 4g (module docstring): rule repairs, the PMF / score /
+    maximal-likelihood modes whole and chunked, and a CPU cross-check."""
+    from delphi_tpu_torch.utils import counters, phase_walls
+    out = {}
+
+    # (a) rule repairs on fd_table
+    t0 = time.perf_counter()
+    clean, dirty, truth = fd_table(RULES_ROWS, seed=7)
+    truth = {a: truth[a] for a in RULES_TARGETS}
+    log(f"[rules] generated {RULES_ROWS} rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    chosen, restore = fd_rules_chosen(T)
+    try:
+        res, wall, launches, counts, walls, peak, held = traced(
+            "rules", lambda: rules_model(T, dirty).run())
+    finally:
+        restore()
+    if list(res.columns) != ["tid", "attribute", "current_value",
+                             "repaired"] or not len(res):
+        fail(f"rules (a): unexpected result {list(res.columns)}, "
+             f"{len(res)} rows")
+    if counts.get("train.fd_rule_models", 0) < 1:
+        fail("rules (a): no FD rule model was chosen")
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"rules (a): kernel {name} was not launched")
+    scores = dc_scores(clean, truth, res)
+    by_rule = {k: counts.get(f"rules.{k}", 0)
+               for k in ("regex_repairs", "nearest_value_repairs")}
+    log(f"[rules] (a) {RULES_ROWS} rows: wall_s={wall:.3f} FD rules "
+        f"{json.dumps({y: f'{y} <- {x}' for y, x in chosen.items()})}; "
+        f"repaired by rule {json.dumps(by_rule)}; {json.dumps(scores)}; "
+        f"launches={launches} counters={json.dumps(counts)}")
+    log(f"[rules] (a) phase walls (s): {json.dumps(walls)}; peak device "
+        f"memory {peak:.1f} MiB above the {held:.1f} MiB held")
+    out["rules"] = {"rows": RULES_ROWS, "wall_s": wall, "phase_walls": walls,
+                    "fd_rules": chosen, "by_rule": by_rule,
+                    "launches": launches, "peak_mib": peak, **scores}
+
+    # (b) every PMF mode, whole, then in blocks of PMF_CHUNK_ROWS
+    t0 = time.perf_counter()
+    _, pdirty = missing_heavy(PMF_ROWS, seed=8)
+    log(f"[pmf] generated {PMF_ROWS} rows in {time.perf_counter() - t0:.1f} s")
+    whole, runs = {}, {}
+    for i, mode in enumerate(PMF_MODES):
+        if i == 0:
+            frame, wall, launches, counts, walls, peak, held = traced(
+                "pmf", lambda: pmf_model(T, pdirty).run(**{mode: True}))
+            for name, count in launches.items():
+                if count < 1:
+                    fail(f"pmf (b): kernel {name} was not launched")
+        else:
+            phase_walls.clear()
+            counters.clear()
+            t0 = time.perf_counter()
+            frame = pmf_model(T, pdirty).run(**{mode: True})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            walls = {k: round(v, 3) for k, v in phase_walls.items()}
+            counts = dict(counters)
+        if not len(frame):
+            fail(f"pmf (b): {mode} returned no rows")
+        whole[mode] = frame
+        runs[mode] = {"wall_s": wall, "rows": len(frame),
+                      "phase_walls": walls}
+        log(f"[pmf] (b) {mode}, {PMF_ROWS} rows: wall_s={wall:.3f} "
+            f"rows={len(frame)} phase walls {json.dumps(walls)} "
+            f"counters={json.dumps(counts)}")
+    os.environ["DELPHI_REPAIR_CHUNK_ROWS"] = str(PMF_CHUNK_ROWS)
+    try:
+        for mode in PMF_MODES:
+            counters.clear()
+            t0 = time.perf_counter()
+            frame = pmf_model(T, pdirty).run(**{mode: True})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            chunks = counters.get("repair.chunks", 0)
+            if chunks < 2 or records(frame) != records(whole[mode]):
+                fail(f"pmf (b): {mode} in blocks of {PMF_CHUNK_ROWS} rows "
+                     f"({chunks} chunks) differs from the whole block")
+            runs[mode].update(chunked_wall_s=wall, chunks=chunks)
+            log(f"[pmf] (b) {mode} in {chunks} chunks of {PMF_CHUNK_ROWS} "
+                f"dirty rows: wall_s={wall:.3f}, frame equal to the whole "
+                "block's")
+    finally:
+        del os.environ["DELPHI_REPAIR_CHUNK_ROWS"]
+    out["pmf"] = {"rows": PMF_ROWS, "runs": runs}
+
+    # (c) CHECK_ROWS rows, CPU against card
+    t0 = time.perf_counter()
+    sclean, sdirty, _ = fd_table(CHECK_ROWS, seed=9)
+    _, spdirty = missing_heavy(CHECK_ROWS, seed=10)
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        frames[dev] = {
+            "rules": rules_model(T, sdirty).run(),
+            "pmf": pmf_model(T, spdirty).run(
+                compute_repair_candidate_prob=True),
+            "score": pmf_model(T, spdirty).run(compute_repair_score=True),
+            "ml": pmf_model(T, spdirty).run(maximal_likelihood_repair=True)}
+    cpu, gpu = frames["cpu"], frames["cuda"]
+    if not len(gpu["rules"]) or records(cpu["rules"]) != records(gpu["rules"]):
+        fail("rules (c): the CPU and card rule-repair frames differ")
+    on_cut = pmf_gaps_and_check("pmf (c)", cpu["pmf"], gpu["pmf"])
+    w, g = cpu["score"]["score"].to_numpy(), gpu["score"]["score"].to_numpy()
+    if records(cpu["score"][["tid", "attribute", "repaired"]]) != records(
+            gpu["score"][["tid", "attribute", "repaired"]]) \
+            or not np.allclose(w, g, rtol=PROB_TOL, atol=PROB_TOL):
+        fail("pmf (c): the CPU and card scores differ")
+    pct = (1.0 - (PMF_DELTA * CHECK_ROWS // PMF_ROWS) / len(w)) * 100.0
+    thres = np.percentile(w, pct)
+    near = np.abs(w - thres) <= PROB_TOL * max(1.0, abs(thres))
+    keys = lambda f: set(zip(f["tid"].tolist(), f["attribute"].tolist()))  # noqa: E731
+    near_keys = set(zip(cpu["score"]["tid"][near].tolist(),
+                        cpu["score"]["attribute"][near].tolist()))
+    flipped = keys(cpu["ml"]) ^ keys(gpu["ml"])
+    if not flipped <= near_keys:
+        fail(f"pmf (c): maximal-likelihood selections differ off the cut: "
+             f"{sorted(flipped - near_keys)[:10]}")
+    T.set_device("cuda")
+    out["cross_check"] = {"rules_repairs": len(gpu["rules"]),
+                          "pmf_cells": len(gpu["pmf"]),
+                          "pmf_on_threshold_cut": on_cut,
+                          "ml_cells_near_cut": int(near.sum()),
+                          "ml_flipped": len(flipped)}
+    log(f"[rules-pmf] (c) {CHECK_ROWS} rows, CPU against card: rule repairs "
+        f"identical; PMF probabilities within {PROB_TOL}; "
+        f"{json.dumps(out['cross_check'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[rules-pmf] summary {json.dumps(out, default=str)}")
+    return out
+
+
+def misc_and_cli(torch, T, traced) -> dict:
+    """Phase 4h (module docstring): the dependency graph, input splitting
+    and the batch CLI."""
+    import tempfile
+
+    import pandas as pd
+    from delphi_tpu_torch.ops import cluster
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="delphi_smoke_")
+
+    def dot(name, path):
+        T.delphi.misc.options({
+            "table_name": name, "path": path, "edge_label": "1",
+            "pairwise_attr_stat_threshold": "1.5"}).generateDepGraph()
+        with open(os.path.join(path, "depgraph.dot")) as f:
+            return f.read()
+
+    # (a) the dependency graph
+    _, ddirty, _ = fd_table(DEPGRAPH_ROWS, seed=11)
+    T.delphi.register_table("depgraph_input", ddirty)
+    text, wall, launches, _, _, peak, _ = traced(
+        "depgraph", lambda: dot("depgraph_input", os.path.join(tmp, "g")))
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"depgraph (a): kernel {name} was not launched")
+    _, sdirty, _ = fd_table(CHECK_ROWS, seed=12)
+    T.delphi.register_table("depgraph_check", sdirty)
+    texts = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        texts[dev] = dot("depgraph_check", os.path.join(tmp, f"g_{dev}"))
+    if texts["cpu"] != texts["cuda"] or not texts["cuda"].startswith(
+            "digraph {"):
+        fail("depgraph (a): the card's dot text differs from the CPU's")
+    log(f"[depgraph] (a) {DEPGRAPH_ROWS} rows: wall_s={wall:.3f} "
+        f"{len(text)} bytes of dot, launches={launches}, peak device "
+        f"memory {peak:.1f} MiB; {CHECK_ROWS} rows: dot text identical on "
+        "the CPU and the card")
+    out["depgraph"] = {"rows": DEPGRAPH_ROWS, "wall_s": wall,
+                       "launches": launches}
+
+    # (b) input splitting, card against CPU, and one Lloyd iteration
+    _, split_df, _ = fd_table(SPLIT_ROWS, seed=13)
+    T.delphi.register_table("split_input", split_df)
+    out["split"] = {}
+    for alg in ("bisect-kmeans", "kmeans++"):
+        labels, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            T.set_device(dev)
+            t0 = time.perf_counter()
+            labels[dev] = T.delphi.misc.options({
+                "table_name": "split_input", "row_id": "tid",
+                "k": str(SPLIT_K), "clustering_alg": alg}).splitInputTable()
+            secs[dev] = time.perf_counter() - t0
+        if not labels["cuda"].equals(labels["cpu"]) \
+                or labels["cuda"]["k"].nunique() != SPLIT_K:
+            fail(f"split (b): {alg} labels on the card differ from the "
+                 "CPU's")
+        sizes = labels["cuda"]["k"].value_counts().sort_index().tolist()
+        out["split"][alg] = {"card_s": secs["cuda"], "cpu_s": secs["cpu"],
+                             "sizes": sizes}
+        log(f"[split] (b) {alg}, k={SPLIT_K}, {SPLIT_ROWS} rows: labels "
+            f"identical on the card and the CPU; cluster sizes {sizes}; "
+            f"card {secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s")
+    T.set_device("cuda")
+    X = torch.from_numpy(cluster.qgram_features(
+        split_df.drop(columns=["tid"]), 2)).cuda()
+    init = X[:2].clone()
+    ms = {}
+    for iters in (1, 5):
+        cluster._lloyd(X, init, 2, iters)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(3):
+            cluster._lloyd(X, init, 2, iters)
+        end.record()
+        torch.cuda.synchronize()
+        ms[iters] = start.elapsed_time(end) / 3
+    lloyd_ms = (ms[5] - ms[1]) / 4
+    out["lloyd_iteration_ms"] = lloyd_ms
+    log(f"[split] (b) one Lloyd iteration at {SPLIT_ROWS} x "
+        f"{cluster.FEATURE_DIM}, k=2, on the card: {lloyd_ms:.3f} ms "
+        f"(1 iteration + final assignment {ms[1]:.3f} ms)")
+    del X
+
+    # (c) the batch CLI in a subprocess against the in-process run
+    _, cdirty, _ = fd_table(CLI_ROWS, seed=14)
+    csv_in, dc_file = os.path.join(tmp, "in.csv"), os.path.join(tmp, "dc.txt")
+    cdirty.to_csv(csv_in, index=False)
+    with open(dc_file, "w") as f:
+        f.write(RULES_CONSTRAINTS.replace(";", "\n") + "\n")
+    csv_out = os.path.join(tmp, "out.csv")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "delphi_tpu_torch.main", "--input", csv_in,
+         "--row-id", "tid", "--output", csv_out, "--constraints", dc_file],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli (c): exit {proc.returncode}: {proc.stderr[-2000:]}")
+    frame = T.delphi.repair.setInput(pd.read_csv(csv_in)).setRowId("tid") \
+        .setErrorDetectors([T.NullErrorDetector(), T.ConstraintErrorDetector(
+            constraint_path=dc_file)]).run()
+    want = os.path.join(tmp, "in_process.csv")
+    frame.to_csv(want, index=False)
+    with open(csv_out) as a, open(want) as b:
+        if a.read() != b.read() or not len(frame):
+            fail("cli (c): the CLI's CSV differs from the in-process frame")
+    out["cli"] = {"rows": CLI_ROWS, "wall_s": cli_s, "repairs": len(frame)}
+    log(f"[cli] (c) python -m delphi_tpu_torch.main on {CLI_ROWS} rows "
+        f"with --constraints: {cli_s:.3f} s including the interpreter; CSV "
+        f"({len(frame)} rows) equal to the in-process run's; "
+        f"{proc.stderr.strip().splitlines()[-1]}")
+    log(f"[misc-cli] summary {json.dumps(out, default=str)}")
     return out
 
 
@@ -1119,6 +1499,12 @@ def main() -> None:
 
     # -- 4f. the constraints path ---------------------------------------------
     constraints_path(torch, T, traced)
+
+    # -- 4g. rule repairs and the PMF modes -----------------------------------
+    rules_and_pmf(torch, T, traced)
+
+    # -- 4h. delphi.misc and the batch CLI ------------------------------------
+    misc_and_cli(torch, T, traced)
 
     # -- 4b. each kernel on the inputs each path gave it ---------------------
     def main_path(rows):

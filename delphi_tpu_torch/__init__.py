@@ -1,6 +1,6 @@
 """delphi_tpu_torch — the PyTorch / CUDA port of delphi_tpu.
 
-The same public surface as the JAX package, for the paths ported so far:
+The same public surface as the JAX package:
 
     from delphi_tpu_torch import (delphi, ConstraintErrorDetector,
                                   NullErrorDetector)
@@ -19,20 +19,25 @@ any module of ``delphi_tpu``.
 """
 
 from delphi_tpu_torch.api import Delphi
+from delphi_tpu_torch.costs import (Levenshtein, UpdateCostFunction,
+                                    UserDefinedUpdateCostFunction)
 from delphi_tpu_torch.device import get_device, set_device
 from delphi_tpu_torch.errors import (
     ConstraintErrorDetector, DomainValues, ErrorDetector,
     GaussianOutlierErrorDetector, LOFOutlierErrorDetector, NullErrorDetector,
     RegExErrorDetector, ScikitLearnBackedErrorDetector,
     ScikitLearnBasedErrorDetector)
-from delphi_tpu_torch.model import PoorModel, RepairModel
+from delphi_tpu_torch.misc import RepairMisc
+from delphi_tpu_torch.model import FunctionalDepModel, PoorModel, RepairModel
 
 delphi = Delphi.getOrCreate()
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Delphi", "delphi", "RepairModel", "PoorModel", "ErrorDetector",
+    "Delphi", "delphi", "RepairModel", "RepairMisc", "PoorModel",
+    "FunctionalDepModel", "UpdateCostFunction", "Levenshtein",
+    "UserDefinedUpdateCostFunction", "ErrorDetector",
     "NullErrorDetector", "DomainValues", "RegExErrorDetector",
     "ConstraintErrorDetector", "GaussianOutlierErrorDetector",
     "ScikitLearnBasedErrorDetector", "ScikitLearnBackedErrorDetector",

@@ -3,15 +3,16 @@
     from delphi_tpu_torch import delphi
     repaired = delphi.repair.setInput(df).setRowId("tid").run()
 
-`delphi` is the singleton; `.repair` returns a fresh RepairModel.
-`register_table` feeds pandas inputs by name. `.misc` (the analysis
-helpers) comes with a later slice and raises until then.
+`delphi` is the singleton; `.repair` returns a fresh RepairModel and
+`.misc` a fresh RepairMisc (the helper utilities). `register_table` feeds
+pandas inputs by name.
 """
 
 from typing import Any
 
 import pandas as pd
 
+from delphi_tpu_torch.misc import RepairMisc
 from delphi_tpu_torch.model import RepairModel
 from delphi_tpu_torch.session import get_session
 
@@ -20,6 +21,7 @@ class Delphi:
     """A Delphi API set for data repairing.
 
     * ``repair``: detect errors in input data and infer correct ones.
+    * ``misc``: provide helper functionalities.
     """
 
     _instance: Any = None
@@ -39,10 +41,9 @@ class Delphi:
         return RepairModel()
 
     @property
-    def misc(self) -> Any:
-        raise NotImplementedError(
-            "delphi.misc (misc.py, depgraph.py, ops/cluster.py) is not ported "
-            "to delphi_tpu_torch yet (the analysis-paths slice)")
+    def misc(self) -> RepairMisc:
+        """Returns :class:`RepairMisc` for misc helper functions."""
+        return RepairMisc()
 
     @staticmethod
     def register_table(name: str, df: pd.DataFrame) -> str:

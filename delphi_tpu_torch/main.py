@@ -1,0 +1,150 @@
+"""Batch entry point of the port:
+
+    python -m delphi_tpu_torch.main --input data.csv --row-id tid \\
+        --output /tmp/repaired.csv [--repair-data]
+
+Reads a CSV (or a name already registered in the session catalog), runs
+the repair pipeline on the port's device (``cuda``; the CPU with
+``DELPHI_TORCH_DEVICE=cpu``), and writes the result CSV. ``--detect-only``
+emits the error cells instead of repairs; ``--constraints`` adds a
+ConstraintErrorDetector; ``--chunksize`` streams the CSV into an encoded
+table without one whole pandas frame.
+
+Every other flag of the JAX package's CLI is accepted under its own name
+and raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+brings it.
+"""
+
+import argparse
+import sys
+from typing import List, Optional
+
+import pandas as pd
+
+from delphi_tpu_torch import delphi
+from delphi_tpu_torch.errors import ConstraintErrorDetector, NullErrorDetector
+from delphi_tpu_torch.session import get_session
+
+_OBSERVABILITY = "queue 1 item 10 of ROADMAP.md (observability)"
+_INCREMENTAL = "queue 1 item 7 of ROADMAP.md (escalation and incremental runs)"
+_PLANES = "queue 1 item 8 of ROADMAP.md (execution planes)"
+_MULTI_GPU = "queue 1 item 9 of ROADMAP.md (multi-GPU)"
+
+# (flag, argparse keyword arguments, the ROADMAP item that brings it)
+_UNPORTED = [
+    ("--serve", dict(action="store_true"), _OBSERVABILITY),
+    ("--serve-port", dict(type=int, default=None), _OBSERVABILITY),
+    ("--serve-cache-dir", dict(type=str, default=""), _OBSERVABILITY),
+    ("--fleet", dict(type=int, default=0), _OBSERVABILITY),
+    ("--autoscale", dict(action="store_true"), _OBSERVABILITY),
+    ("--metrics-out", dict(type=str, default=""), _OBSERVABILITY),
+    ("--metrics-port", dict(type=int, default=None), _OBSERVABILITY),
+    ("--provenance-out", dict(type=str, default=""), _OBSERVABILITY),
+    ("--baseline-report", dict(type=str, default=""), _OBSERVABILITY),
+    ("--drift-fail-over", dict(type=float, default=None), _OBSERVABILITY),
+    ("--gauntlet", dict(action="store_true"), _OBSERVABILITY),
+    ("--gauntlet-rows", dict(type=int, default=None), _OBSERVABILITY),
+    ("--gauntlet-seed", dict(type=int, default=None), _OBSERVABILITY),
+    ("--gauntlet-scenarios", dict(type=str, default=""), _OBSERVABILITY),
+    ("--gauntlet-no-repairs", dict(action="store_true"), _OBSERVABILITY),
+    ("--incremental", dict(action="store_true"), _INCREMENTAL),
+    ("--snapshot-dir", dict(type=str, default=""), _INCREMENTAL),
+    ("--stream", dict(type=int, default=0), _INCREMENTAL),
+    ("--escalate", dict(action="store_true"), _INCREMENTAL),
+    ("--escalate-conf", dict(type=float, default=None), _INCREMENTAL),
+    ("--escalate-budget", dict(type=int, default=None), _INCREMENTAL),
+    ("--checkpoint-dir", dict(type=str, default=""), _PLANES),
+    ("--fault-plan", dict(type=str, default=""), _PLANES),
+    ("--compile-cache-dir", dict(type=str, default=""), _PLANES),
+    ("--pipeline", dict(choices=["on", "off", "auto"], default=None), _PLANES),
+    ("--plan-report", dict(type=str, default=""), _PLANES),
+    ("--fsck", dict(type=str, default=""), _PLANES),
+    ("--fsck-report-only", dict(action="store_true"), _PLANES),
+    ("--collective-timeout-s", dict(type=float, default=None), _MULTI_GPU),
+]
+
+
+def _dest(flag: str) -> str:
+    return flag.lstrip("-").replace("-", "_")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        description="delphi_tpu_torch batch repair")
+    parser.add_argument("--db", dest="db", type=str, default="",
+                        help="database name of the input table")
+    parser.add_argument("--input", dest="input", type=str, default=None,
+                        help="CSV path or registered table name")
+    parser.add_argument("--row-id", dest="row_id", type=str, default=None,
+                        help="row-id column")
+    parser.add_argument("--output", dest="output", type=str, default=None,
+                        help="output CSV path")
+    parser.add_argument("--targets", dest="targets", type=str, default="",
+                        help="comma-separated target attributes")
+    parser.add_argument("--constraints", dest="constraints", type=str,
+                        default="", help="denial-constraint file path")
+    parser.add_argument("--discrete-threshold", dest="discrete_threshold",
+                        type=int, default=80)
+    parser.add_argument("--detect-only", dest="detect_only",
+                        action="store_true")
+    parser.add_argument("--repair-data", dest="repair_data",
+                        action="store_true",
+                        help="write the fully repaired table instead of "
+                             "updates")
+    parser.add_argument("--chunksize", dest="chunksize", type=int, default=0,
+                        help="stream the input CSV in chunks of this many "
+                             "rows (0 = load at once); use for inputs too "
+                             "large for one pandas frame")
+    parser.add_argument("--dtype", dest="dtype", choices=["infer", "str"],
+                        default="infer",
+                        help="column typing: 'infer' keeps numeric columns "
+                             "numeric (a column that mixes strings and "
+                             "numbers across chunks fails loudly), 'str' "
+                             "reads everything as strings")
+    for flag, kwargs, item in _UNPORTED:
+        parser.add_argument(flag, dest=_dest(flag),
+                            help=f"not ported yet ({item})", **kwargs)
+    args = parser.parse_args(argv)
+
+    for flag, kwargs, item in _UNPORTED:
+        if getattr(args, _dest(flag)) != kwargs.get("default", False):
+            raise NotImplementedError(
+                f"{flag} is not ported to delphi_tpu_torch yet ({item})")
+    if not (args.input and args.row_id and args.output):
+        parser.error("--input, --row-id and --output are required")
+
+    session = get_session()
+    dtype = str if args.dtype == "str" else None
+    if args.input.endswith(".csv"):
+        if args.chunksize > 0:
+            from delphi_tpu_torch.ingest import read_csv_encoded
+            table = read_csv_encoded(args.input, args.row_id,
+                                     chunksize=args.chunksize, dtype=dtype)
+            name = session.register("batch_input", table)
+        else:
+            name = session.register("batch_input",
+                                    pd.read_csv(args.input, dtype=dtype))
+    else:
+        name = session.qualified_name(args.db, args.input)
+
+    detectors = [NullErrorDetector()]
+    if args.constraints:
+        detectors.append(
+            ConstraintErrorDetector(constraint_path=args.constraints))
+
+    model = delphi.repair \
+        .setTableName(name) \
+        .setRowId(args.row_id) \
+        .setErrorDetectors(detectors) \
+        .setDiscreteThreshold(args.discrete_threshold)
+    if args.targets:
+        model = model.setTargets(args.targets.split(","))
+    result = model.run(detect_errors_only=args.detect_only,
+                       repair_data=args.repair_data)
+    result.to_csv(args.output, index=False)
+    print(f"wrote {len(result)} rows to {args.output}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

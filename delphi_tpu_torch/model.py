@@ -1,39 +1,46 @@
 """RepairModel: the 3-phase repair pipeline (detect -> train -> repair).
 
-The port of the JAX package's ``model.py`` for the slices so far: the
-fluent setters and option keys, error detection with any detector mix or
-user-supplied error cells (:mod:`delphi_tpu_torch.errors`), per-attribute
+The port of the JAX package's ``model.py``: the fluent setters and option
+keys, error detection with any detector mix or user-supplied error cells
+(:mod:`delphi_tpu_torch.errors`), rule repairs (regex structure, nearest
+values under an update cost function, FD rule models), per-attribute
 training on rows whose target is clean (sequential, or batched behind
-``setParallelStatTrainingEnabled(True)``), one-shot batched repair
-inference over the dirty rows, the one-tuple denial-constraint repair
-minimization, and repair validation against the constraints. Paths of the
-reference that the port does not have yet raise ``NotImplementedError``
-naming the slice that brings them: the PMF / score / maximal-likelihood
-modes, rule repairs (regex, nearest values, FD rules), chunked repair and
-checkpoints (queue 1 item 5 of ``ROADMAP.md``), escalation and incremental
-runs (item 7).
+``setParallelStatTrainingEnabled(True)``), batched repair inference over
+the dirty rows (at once, or in blocks of ``DELPHI_REPAIR_CHUNK_ROWS``
+rows), the one-tuple denial-constraint repair minimization, repair
+validation against the constraints, and the PMF, score and
+maximal-likelihood modes. Settings of the reference that the port does
+not have yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that brings them: checkpoints (queue 1 item 8), escalation, incremental
+runs and their snapshots (item 7).
 
 DataFrames in and out are pandas.
 """
 
+import copy
 import heapq
 import os
 from collections import namedtuple
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import pandas as pd
 
 from delphi_tpu_torch.constraints import Constant
+from delphi_tpu_torch.costs import UpdateCostFunction
+from delphi_tpu_torch.depgraph import (compute_functional_dep_map,
+                                       compute_functional_deps)
 from delphi_tpu_torch.errors import (ROW_IDX, ConstraintErrorDetector,
-                                     ErrorDetector, ErrorModel)
+                                     ErrorDetector, ErrorModel,
+                                     RegExErrorDetector)
 from delphi_tpu_torch.models.encoding import FeatureEncoder, OrdinalEncoder
-from delphi_tpu_torch.session import get_session
+from delphi_tpu_torch.regex_repair import RegexStructureRepair
+from delphi_tpu_torch.session import AnalysisException, get_session
 from delphi_tpu_torch.ops.detect import (_one_tuple_violations,
                                          detect_constraint_violations)
 from delphi_tpu_torch.table import (KIND_FRACTIONAL, KIND_INTEGRAL,
-                                    EncodedTable, check_input_table,
-                                    encode_table)
+                                    EncodedTable, check_encoded_table,
+                                    check_input_table, encode_table)
 from delphi_tpu_torch.train import (build_model, build_models_batched,
                                     rebalance_training_data,
                                     train_option_keys)
@@ -47,8 +54,9 @@ _logger = setup_logger()
 
 _TRUTHY = ("1", "true", "yes", "on")
 
-# The slice that brings the model.py paths run() still rejects
-_NEXT_SLICE = "the next slice, queue 1 item 5 of ROADMAP.md"
+# The ROADMAP.md items that bring the settings run() still rejects
+_STORE_ITEM = "queue 1 item 8 of ROADMAP.md, the durable-store seam"
+_INCREMENTAL_ITEM = "queue 1 item 7 of ROADMAP.md"
 
 
 class PoorModel:
@@ -66,6 +74,88 @@ class PoorModel:
 
     def predict_proba(self, X: Any) -> Any:
         return [np.array([1.0])] * len(X)
+
+
+class FunctionalDepModel:
+    """Rule model looking values up in an FD map x -> y."""
+
+    def __init__(self, x: str, fd_map: Dict[str, str]) -> None:
+        self.fd_map = fd_map
+        # sorted: str-set iteration order varies with hash randomization,
+        # which would make classes_ (and PMF tie-breaking) vary across runs
+        self.classes = sorted(set(fd_map.values()))
+        self.x = x
+        self.fd_keypos_map = {c: i for i, c in enumerate(self.classes)}
+
+    @property
+    def classes_(self) -> Any:
+        return np.array(self.classes)
+
+    def predict(self, X: pd.DataFrame) -> Any:
+        return [self.fd_map.get(x, None) for x in X[self.x]]
+
+    def predict_proba(self, X: pd.DataFrame) -> Any:
+        pmf = []
+        for x in X[self.x]:
+            if x in self.fd_map:
+                probs = np.zeros(len(self.classes))
+                probs[self.fd_keypos_map[self.fd_map[x]]] = 1.0
+                pmf.append(probs)
+            else:
+                _logger.warning(f'Unknown "{self.x}" domain value found: {x}')
+                pmf.append(None)
+        return pmf
+
+
+def repair_attrs_from(updates_df: pd.DataFrame, base_df: pd.DataFrame,
+                      row_id: str, continuous_cols: Dict[str, str]) -> pd.DataFrame:
+    """Applies (row_id, attribute, repaired) updates into a table, with
+    type-aware casts for continuous columns (RepairMiscApi.scala:184-247)."""
+    need = {row_id, "attribute", "repaired"}
+    if not need.issubset(updates_df.columns):
+        raise AnalysisException(
+            f"Table must have '{row_id}', 'attribute', and 'repaired' columns")
+
+    out = base_df.copy()
+    row_index = pd.Index(out[row_id])
+    for attr, group in updates_df.groupby("attribute"):
+        if attr not in out.columns:
+            continue
+        pos = row_index.get_indexer(group[row_id])
+        present = pos >= 0
+        rows = pos[present]
+        if not len(rows):
+            continue
+        reps = pd.Series(group["repaired"].to_numpy(dtype=object)[present],
+                         dtype=object)
+        non_null = reps.notna().to_numpy()
+        if attr in continuous_cols and non_null.any():
+            conv = reps[non_null].astype(float)
+            if continuous_cols[attr] == KIND_INTEGRAL:
+                conv = conv.round().astype("int64")
+            reps = reps.copy()
+            reps[non_null] = conv.astype(object)
+        values = reps.to_numpy(dtype=object)
+        col = out[attr].copy()
+        if pd.api.types.is_integer_dtype(col.dtype) and not non_null.all():
+            col = col.astype("float64")
+        elif pd.api.types.is_integer_dtype(col.dtype):
+            values = pd.Series(values).astype("int64").to_numpy()
+        # assign as a list: pandas accepts elementwise coercion for lists
+        # where it rejects whole object-dtype arrays
+        col.iloc[rows] = list(values)
+        out[attr] = col
+    return out
+
+
+def _phase_checkpoint_dir() -> Optional[str]:
+    """``DELPHI_CHECKPOINT_DIR`` / the session conf ``repair.checkpoint.dir``
+    (the JAX package's phase checkpoints), or None when neither is set."""
+    env = os.environ.get("DELPHI_CHECKPOINT_DIR")
+    if env is not None and env.strip():
+        return env.strip()
+    conf = get_session().conf.get("repair.checkpoint.dir")
+    return str(conf).strip() if conf and str(conf).strip() else None
 
 
 class RepairModel:
@@ -161,6 +251,7 @@ class RepairModel:
         self.repair_delta: Optional[int] = None
         self.repair_validation_enabled: bool = False
 
+        self.cf: Optional[UpdateCostFunction] = None
         self.opts: Dict[str, str] = {}
         self._session = get_session()
         # phase 1's non-constraint detector frames (see `_detect_errors`)
@@ -257,8 +348,10 @@ class RepairModel:
 
     @argtype_check  # type: ignore
     def setRepairByRules(self, enabled: bool) -> "RepairModel":
-        """Enables rule-based repairs before model training (not ported
-        yet: ``run()`` raises)."""
+        """Enables rule-based repairs before model training: regex
+        structure repair, nearest-value merging (with a cost function) and
+        functional-dependency rules, each switched by a ``model.rule.*``
+        option."""
         self.repair_by_rules = enabled
         return self
 
@@ -270,10 +363,13 @@ class RepairModel:
         self.repair_delta = int(delta)
         return self
 
-    def setUpdateCostFunction(self, cf: Any) -> "RepairModel":
-        raise NotImplementedError(
-            "update cost functions (costs.py) are not ported to "
-            f"delphi_tpu_torch yet ({_NEXT_SLICE})")
+    @argtype_check  # type: ignore
+    def setUpdateCostFunction(self, cf: UpdateCostFunction) -> "RepairModel":
+        """Sets the cost of changing value x into y, used by nearest-value
+        repairs, to weight PMFs and in maximal-likelihood scores:
+        :class:`Levenshtein` or a :class:`UserDefinedUpdateCostFunction`."""
+        self.cf = cf
+        return self
 
     @argtype_check  # type: ignore
     def option(self, key: str, value: str) -> "RepairModel":
@@ -308,29 +404,45 @@ class RepairModel:
             else self._session.table(str(self.error_cells))
         return df[[self._row_id, "attribute"]]
 
+    @property
+    def _repair_by_regex_enabled(self) -> bool:
+        return not bool(self._get_option_value(*self._opt_repair_by_regex_disabled)) \
+            and self.repair_by_rules
+
+    @property
+    def _repair_by_nearest_values_enabled(self) -> bool:
+        return not bool(self._get_option_value(*self._opt_repair_by_nearest_values_disabled)) \
+            and self.repair_by_rules and self.cf is not None
+
+    @property
+    def _repair_by_functional_deps_enabled(self) -> bool:
+        return not bool(self._get_option_value(*self._opt_repair_by_functional_deps_disabled)) \
+            and self.repair_by_rules
+
     def _filter_columns_from(self, df: pd.DataFrame, targets: List[str],
                              negate: bool = False) -> pd.DataFrame:
         mask = df["attribute"].isin(targets)
         return df[~mask if negate else mask].reset_index(drop=True)
 
-    def _reject_unported(self, detect_errors_only: bool) -> None:
-        """Raises for every run path of the reference this slice does not
-        port, before any work starts."""
+    def _reject_unported(self) -> None:
+        """Raises for every setting of the reference the port does not
+        have yet, before any work starts: none is silently ignored."""
         def unported(what: str, later: str) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to delphi_tpu_torch yet ({later})")
 
-        for key in (self._opt_checkpoint_path.key, self._opt_snapshot_dir.key):
-            if self.opts.get(key):
-                unported(f"option {key} (checkpoints)", _NEXT_SLICE)
+        if self.opts.get(self._opt_checkpoint_path.key):
+            unported(f"option {self._opt_checkpoint_path.key} (model "
+                     "checkpoints)", _STORE_ITEM)
+        if _phase_checkpoint_dir():
+            unported("phase checkpoints (DELPHI_CHECKPOINT_DIR or the "
+                     "session conf repair.checkpoint.dir)", _STORE_ITEM)
+        if self.opts.get(self._opt_snapshot_dir.key):
+            unported(f"option {self._opt_snapshot_dir.key} (incremental "
+                     "snapshots)", _INCREMENTAL_ITEM)
         for key in (self._opt_incremental.key, self._opt_escalate.key):
             if str(self.opts.get(key, "")).strip().lower() in _TRUTHY:
-                unported(f"option {key}", "queue 1 item 7 of ROADMAP.md")
-        if detect_errors_only:
-            return
-        if self.repair_by_rules:
-            unported("setRepairByRules (regex / nearest-value / FD rule "
-                     "repairs)", _NEXT_SLICE)
+                unported(f"option {key}", _INCREMENTAL_ITEM)
 
     # -- phase 1: error detection --------------------------------------------
 
@@ -350,6 +462,136 @@ class RepairModel:
         # unless a constraint detector ran
         self._phase1_non_constraint_frames = error_model._non_constraint_frames
         return result
+
+    # -- phase 2 helpers: rule-based repairs ----------------------------------
+
+    def _empty_repaired_cells_frame(self) -> pd.DataFrame:
+        return pd.DataFrame(
+            columns=[self._row_id, "attribute", "current_value", "repaired", ROW_IDX])
+
+    def _repair_by_regexs(self, error_cells_df: pd.DataFrame) \
+            -> Tuple[pd.DataFrame, pd.DataFrame]:
+        regex_detectors = [d for d in self.error_detectors
+                           if isinstance(d, RegExErrorDetector)]
+        if not regex_detectors:
+            return error_cells_df, self._empty_repaired_cells_frame()
+
+        regexs = [(d.attr, d.regex) for d in regex_detectors]
+        _logger.info(f"[Repairing Phase] Repairing data using regexs: {to_list_str(regexs)}")
+
+        repaired_frames = []
+        for attr, regex in regexs:
+            target_cells = error_cells_df[error_cells_df["attribute"] == attr]
+            if len(target_cells) == 0:
+                continue
+            try:
+                repairer = RegexStructureRepair(regex)
+            except Exception as e:
+                _logger.warning(
+                    f"Repairing using regex '{regex}' (attr='{attr}') failed because: {e}")
+                continue
+            # a NULL current value may read back as NaN (string-dtype
+            # frames), which the regex cannot take: the JAX package raises
+            # TypeError there; the port leaves such a cell to the models
+            repaired = [repairer(cv) if not _is_null(cv) else None
+                        for cv in target_cells["current_value"]]
+            fixed = target_cells.assign(repaired=repaired)
+            fixed = fixed[fixed["repaired"].notna()]
+            if len(fixed):
+                repaired_frames.append(fixed)
+
+        if not repaired_frames:
+            return error_cells_df, self._empty_repaired_cells_frame()
+        repaired_cells_df = pd.concat(repaired_frames, ignore_index=True)
+        keys = set(zip(repaired_cells_df[self._row_id], repaired_cells_df["attribute"]))
+        keep = [
+            (r, a) not in keys
+            for r, a in zip(error_cells_df[self._row_id], error_cells_df["attribute"])
+        ]
+        return error_cells_df[keep].reset_index(drop=True), repaired_cells_df
+
+    def _repair_by_nearest_values(self, masked: EncodedTable,
+                                  error_cells_df: pd.DataFrame,
+                                  target_columns: List[str],
+                                  integral_columns: Set[str]) \
+            -> Tuple[pd.DataFrame, pd.DataFrame]:
+        assert self.cf is not None
+        cf_targets = self.cf.targets
+        targets = [c for c in target_columns if c in cf_targets] if cf_targets \
+            else target_columns
+        if not targets:
+            return error_cells_df, self._empty_repaired_cells_frame()
+
+        merge_threshold = self._get_option_value(*self._opt_merge_threshold)
+        # Per-target domain = the vocab entries still present after masking.
+        # Vocab spellings already match the distance space: str(int(v)) for
+        # integral attrs ('100', not the NULL-padded float view's '100.0'),
+        # str(float(v)) for fractional, raw strings otherwise (encode_column).
+        domains: Dict[str, List[str]] = {}
+        for c in targets:
+            col = masked.column(c)
+            present = np.unique(col.codes[col.codes >= 0])
+            domains[c] = [str(v) for v in col.vocab[present]]
+
+        # One nearest-value resolution per unique (attribute, current value):
+        # every duplicate dirty cell reuses it, and each resolution is one
+        # batched (native) Levenshtein call over the whole domain.
+        ec = error_cells_df.reset_index(drop=True)
+        attrs = ec["attribute"].to_numpy(dtype=object)
+        curs = ec["current_value"].to_numpy(dtype=object)
+        repaired_vals = np.full(len(ec), None, dtype=object)
+        resolved: Dict[Tuple[str, Any], Optional[str]] = {}
+        for i in range(len(ec)):
+            dvs = domains.get(attrs[i])
+            cur = curs[i]
+            if not dvs or cur is None:
+                continue
+            key = (attrs[i], cur)
+            if key not in resolved:
+                resolved[key] = self._nearest_value(cur, dvs, merge_threshold)
+            repaired_vals[i] = resolved[key]
+
+        mask = np.array([v is not None for v in repaired_vals], dtype=bool)
+        repaired_df = ec[mask].assign(repaired=repaired_vals[mask]) \
+            if mask.any() else self._empty_repaired_cells_frame()
+        error_df = ec[~mask].reset_index(drop=True) if (~mask).any() \
+            else error_cells_df.iloc[0:0]
+        return error_df, repaired_df
+
+    def _nearest_value(self, cur: Any, dvs: List[str],
+                       merge_threshold: float) -> Optional[str]:
+        """Repairs to the unique lowest-cost domain value when it is under
+        the merge threshold and strictly beats the runner-up."""
+        assert self.cf is not None
+        costs = self.cf.compute_many(cur, dvs)
+        if costs is None:
+            return None
+        scored = sorted(((c, v) for c, v in zip(costs, dvs) if c is not None))
+        if len(scored) >= 2 and scored[0][0] <= merge_threshold \
+                and scored[0][0] < scored[1][0]:
+            return scored[0][1]
+        return None
+
+    def _repair_by_rules(self, masked: EncodedTable,
+                         error_cells_df: pd.DataFrame, target_columns: List[str],
+                         integral_columns: Set[str]) \
+            -> Tuple[pd.DataFrame, pd.DataFrame]:
+        """Regex-structure repairs, then nearest-value repairs, of the error
+        cells; returns (the cells still to repair, the rule repairs). The
+        count of each goes to ``utils.counters`` (``rules.regex_repairs``,
+        ``rules.nearest_value_repairs``)."""
+        repaired_dfs = [self._empty_repaired_cells_frame()]
+        if self._repair_by_regex_enabled:
+            error_cells_df, by_regex = self._repair_by_regexs(error_cells_df)
+            counter_inc("rules.regex_repairs", len(by_regex))
+            repaired_dfs.append(by_regex)
+        if self._repair_by_nearest_values_enabled:
+            error_cells_df, by_nv = self._repair_by_nearest_values(
+                masked, error_cells_df, target_columns, integral_columns)
+            counter_inc("rules.nearest_value_repairs", len(by_nv))
+            repaired_dfs.append(by_nv)
+        repaired_by_rules = pd.concat(repaired_dfs, ignore_index=True)
+        return error_cells_df, repaired_by_rules
 
     # -- phase 2: model training ----------------------------------------------
 
@@ -409,6 +651,24 @@ class RepairModel:
             # tree models consume ordinal codes + raw continuous values
             return [OrdinalEncoder(features, continuous_columns)]
         return [FeatureEncoder(features, continuous_columns)]
+
+    def _get_functional_deps(self, column_names: List[str],
+                             target_columns: List[str]) \
+            -> Optional[Dict[str, List[str]]]:
+        constraint_detectors = [d for d in self.error_detectors
+                                if isinstance(d, ConstraintErrorDetector)]
+        if len(constraint_detectors) == 1:
+            ced = constraint_detectors[0]
+            constraint_targets = [c for c in target_columns if c in ced.targets] \
+                if ced.targets else target_columns
+            return compute_functional_deps(
+                pd.DataFrame(columns=column_names), ced.constraint_path,
+                ced.constraints, constraint_targets)
+        elif len(constraint_detectors) > 1:
+            _logger.warning(
+                "Multiple constraint classes not supported for detecting functional deps")
+            return None
+        return None
 
     def _sample_training_positions(self, positions: np.ndarray) -> np.ndarray:
         """Downsamples the candidate row positions to the training-row cap
@@ -537,16 +797,48 @@ class RepairModel:
                               **getattr(model, "train_report_", {})})
         models[y] = (model, feature_map[y], transformer_map[y])
 
+    def _resolve_prediction_order(self, models: Dict[str, Any],
+                                  target_columns: List[str]) -> List[Any]:
+        """Orders FD models after the attributes they depend on."""
+        pred_ordered_models = []
+        error_columns = copy.deepcopy(target_columns)
+
+        for y in target_columns:
+            (model, x, transformers) = models[y]
+            if not isinstance(model, FunctionalDepModel):
+                pred_ordered_models.append((y, models[y]))
+                error_columns.remove(y)
+
+        while len(error_columns) > 0:
+            columns = copy.deepcopy(error_columns)
+            for y in columns:
+                (model, x, transformers) = models[y]
+                if x[0] not in error_columns:
+                    pred_ordered_models.append((y, models[y]))
+                    error_columns.remove(y)
+            assert len(error_columns) < len(columns)
+
+        _logger.info("Resolved prediction order dependencies: {}".format(
+            to_list_str([x[0] for x in pred_ordered_models])))
+        assert len(pred_ordered_models) == len(target_columns)
+        return pred_ordered_models
+
     @job_phase(name="repair model training")
     def _build_repair_models(self, masked: EncodedTable,
                              float_cols: Tuple[str, ...],
                              target_columns: List[str],
                              continuous_columns: List[str],
+                             domain_stats: Dict[str, Any],
                              pairwise_attr_stats: Dict[str, Any]) -> List[Any]:
         """SCARE-style per-attribute conditional models P(e_y | clean attrs)
-        trained on the rows whose y is clean. (FD rule models come with
-        ``setRepairByRules``, which is not ported yet.)"""
+        trained on the rows whose y is clean; with ``setRepairByRules``, FD
+        rules stand in for training where a clean attribute determines y."""
         train_columns = masked.column_names
+
+        functional_deps = self._get_functional_deps(train_columns, target_columns) \
+            if self._repair_by_functional_deps_enabled else None
+        if functional_deps:
+            _logger.info(f"Functional deps found: {functional_deps}")
         _logger.info(
             "[Repair Model Training Phase] Building {} models to repair the cells "
             "in {}".format(len(target_columns), to_list_str(target_columns)))
@@ -571,6 +863,33 @@ class RepairModel:
                     v = y_col.vocab[y_col.codes[int(np.argmax(y_valid))]]
                 models[y] = (PoorModel(v), input_columns, None)
 
+            if y not in models and functional_deps is not None and y in functional_deps:
+                max_domain = int(self._get_option_value(*self._opt_max_domain_size))
+                fx = [x for x in functional_deps[y]
+                      if int(domain_stats[x]) < max_domain]
+                if len(fx) > 0:
+                    fd_frame = masked.to_pandas(
+                        columns=[fx[0], y], integral_as_float=float_cols)
+                    fd_map = compute_functional_dep_map(fd_frame, fx[0], y)
+                    # Coverage guard: a FunctionalDepModel returns None (an
+                    # unrepairable cell) for every x value absent from the
+                    # map, so when masking left too many x groups without a
+                    # surviving y, a trained stat model repairs y instead.
+                    x_vals = fd_frame[fx[0]].dropna().astype(str)
+                    coverage = float(x_vals.isin(fd_map.keys()).mean()) \
+                        if len(x_vals) else 0.0
+                    if coverage >= 0.8:
+                        _logger.info(
+                            "Building {}/{} model... type=rule(FD: X->y)  y={}(|y|={}) "
+                            "X={}(|X|={})".format(
+                                index, len(target_columns), y, num_class_map[y],
+                                fx[0], domain_stats[fx[0]]))
+                        models[y] = (FunctionalDepModel(fx[0], fd_map), [fx[0]], None)
+                    else:
+                        _logger.info(
+                            f"Skipping FD rule for y={y} (X={fx[0]} covers only "
+                            f"{coverage:.0%} of rows); falling back to a stat model")
+
         if len(models) != len(target_columns):
             feature_map: Dict[str, List[str]] = {}
             transformer_map: Dict[str, List[Any]] = {}
@@ -587,16 +906,22 @@ class RepairModel:
                 num_class_map, feature_map, transformer_map)
 
         assert len(models) == len(target_columns)
+
+        if any(isinstance(m, FunctionalDepModel) for m, _, _ in models.values()):
+            return self._resolve_prediction_order(models, target_columns)
         return list(models.items())
 
     # -- phase 3: repair -------------------------------------------------------
 
     @job_phase(name="repairing")
     def _repair(self, models: List[Any], continuous_columns: List[str],
-                dirty_rows_df: pd.DataFrame,
-                error_cells_df: pd.DataFrame) -> pd.DataFrame:
-        """Batched repair inference: for each model predict the NULL cells of
-        its target column over the whole dirty-row block at once."""
+                dirty_rows_df: pd.DataFrame, error_cells_df: pd.DataFrame,
+                compute_repair_candidate_prob: bool = False,
+                maximal_likelihood_repair: bool = False) -> pd.DataFrame:
+        """Batched repair inference: for each model (in dependency order)
+        predict the NULL cells of its target column over the whole dirty-row
+        block at once. In the PMF modes a discrete target's cells hold
+        ``{"classes", "probs"}`` dicts from ``predict_proba`` instead."""
         _logger.info(
             f"[Repairing Phase] Computing {len(error_cells_df)} repair updates in "
             f"{len(dirty_rows_df)} rows...")
@@ -604,6 +929,7 @@ class RepairModel:
         integral_columns = {
             c: True for c in dirty_rows_df.columns
             if pd.api.types.is_integer_dtype(dirty_rows_df[c].dtype)}
+        need_pmf = compute_repair_candidate_prob or maximal_likelihood_repair
         pdf = dirty_rows_df.reset_index(drop=True).copy()
         for y, (model, features, transformers) in models:
             missing = pdf[y].isna()
@@ -613,6 +939,20 @@ class RepairModel:
             X: Any = pdf[features].iloc[miss_idx]
             if transformers:
                 X = self._encode_features(transformers, X)
+            if need_pmf and y not in continuous_columns:
+                predicted = model.predict_proba(X)
+                classes_str = [str(c) for c in model.classes_.tolist()]
+
+                def _to_pmf(probs: Any) -> Dict[str, Any]:
+                    if probs is None:
+                        return {"classes": [], "probs": []}
+                    return {"classes": classes_str,
+                            "probs": np.asarray(probs, dtype=np.float64)}
+
+                filled = pdf[y].astype(object)
+                filled.iloc[miss_idx] = [_to_pmf(p) for p in predicted]
+                pdf[y] = filled
+                continue
             predicted = np.asarray(model.predict(X))
             if y in integral_columns:
                 vals = np.round(pd.to_numeric(
@@ -883,6 +1223,240 @@ class RepairModel:
         counter_inc("repair.dc_reverted", len(revert_log))
         return out
 
+    def _flatten(self, df: pd.DataFrame) -> pd.DataFrame:
+        """(row_id, attribute, value) long view (RepairMiscApi.scala:41-49);
+        values keep their python objects (PMF dicts pass through). Column-
+        vectorized: homogeneous columns convert with pandas ops, only
+        mixed/object columns fall back to a per-element pass."""
+        cols = [c for c in df.columns if c != self._row_id]
+        n = len(df)
+        mat = np.empty((n, len(cols)), dtype=object)
+        for j, c in enumerate(cols):
+            mat[:, j] = _flatten_column(df[c])
+        return pd.DataFrame({
+            self._row_id: np.repeat(df[self._row_id].to_numpy(dtype=object),
+                                    len(cols)),
+            "attribute": np.tile(np.array(cols, dtype=object), n),
+            "value": mat.reshape(-1),
+        }, columns=[self._row_id, "attribute", "value"])
+
+    def _pmf_records_for_attr(self, attr: str, group: pd.DataFrame,
+                              weighted: bool, weight: float,
+                              threshold: float, top_k: int) -> np.ndarray:
+        """Builds the per-cell PMF records of one attribute as matrix ops:
+        all cells of an attribute share one model, hence one class list, so
+        their probs stack into an (n, k) matrix. Cost weighting batches the
+        Levenshtein calls per *unique* current value, normalization and
+        top-k run as numpy array ops (replaces the reference's per-row
+        Python loops, model.py:1174-1225)."""
+        vals = group["value"].to_numpy(dtype=object)
+        curs = group["current_value"].to_numpy(dtype=object)
+        rids = group[self._row_id].to_numpy(dtype=object)
+        n = len(vals)
+        records = np.empty(n, dtype=object)
+
+        classes_of = [v.get("classes", []) if isinstance(v, dict) else []
+                      for v in vals]
+        nonempty = np.array([len(c) > 0 for c in classes_of], dtype=bool)
+        for i in np.nonzero(~nonempty)[0]:
+            records[i] = {
+                self._row_id: rids[i], "attribute": attr,
+                "current_value": {"value": curs[i], "prob": 0.0}, "pmf": []}
+        ne_idx = np.nonzero(nonempty)[0]
+        if len(ne_idx) == 0:
+            return records
+
+        classes = classes_of[ne_idx[0]]
+        k = len(classes)
+        if any(len(classes_of[i]) != k for i in ne_idx):
+            # distinct models for one attribute can't happen in this pipeline;
+            # defensive split so a future caller still gets correct output
+            for sub_k, sub in pd.Series(ne_idx).groupby(
+                    [len(classes_of[i]) for i in ne_idx]):
+                sub_group = group.iloc[sub.to_numpy()]
+                records[sub.to_numpy()] = self._pmf_records_for_attr(
+                    attr, sub_group, weighted, weight, threshold, top_k)
+            return records
+
+        P = np.stack([np.asarray(vals[i]["probs"], dtype=np.float64)[:k]
+                      for i in ne_idx])
+        curs_ne = curs[ne_idx]
+
+        if weighted:
+            codes, uniques = pd.factorize(pd.Series(curs_ne, dtype=object),
+                                          use_na_sentinel=True)
+            # one weight row per unique current value (batched Levenshtein),
+            # plus a trailing all-ones row that null/falsy currents (code -1)
+            # index into — those keep their unweighted probs, like the
+            # reference's `costs is None` branch
+            W = np.ones((len(uniques) + 1, k), dtype=np.float64)
+            for u, cur in enumerate(uniques):
+                costs = self.cf.compute_many(cur, classes) \
+                    if self.cf is not None else None
+                if costs is not None:
+                    W[u] = [1.0 / (1.0 + weight * c) if c is not None else 1.0
+                            for c in costs]
+            P = P * W[codes]
+            totals = P.sum(axis=1, keepdims=True)
+            np.divide(P, totals, out=P, where=totals > 0)
+
+        class_idx = {}
+        for j, c in enumerate(classes):
+            class_idx.setdefault(c, j)
+        cur_pos = np.array([class_idx.get(c, -1) for c in curs_ne])
+        cur_probs = np.where(
+            cur_pos >= 0, P[np.arange(len(ne_idx)), np.where(
+                cur_pos >= 0, cur_pos, 0)], 0.0)
+
+        kk = min(int(top_k), k)
+        order = np.argsort(-P, axis=1, kind="stable")[:, :kk]
+        top_probs = np.take_along_axis(P, order, axis=1)
+        classes_arr = np.array(classes, dtype=object)
+        top_classes = classes_arr[order]
+        counts = np.minimum((P > threshold).sum(axis=1), kk)
+
+        for r, i in enumerate(ne_idx):
+            records[i] = {
+                self._row_id: rids[i], "attribute": attr,
+                "current_value": {"value": curs[i],
+                                  "prob": float(cur_probs[r])},
+                "pmf": [{"class": top_classes[r, j],
+                         "prob": float(top_probs[r, j])}
+                        for j in range(counts[r])]}
+        return records
+
+    def _compute_repair_pmf(self, repaired_rows_df: pd.DataFrame,
+                            error_cells_df: pd.DataFrame,
+                            continuous_columns: List[str]) -> pd.DataFrame:
+        """PMF extraction + cost weighting + top-k filtering
+        (reference model.py:1174-1225), vectorized per attribute. Only the
+        attributes that carry error cells flatten — the inner join discards
+        every other column's cells anyway."""
+        error_attrs = set(error_cells_df["attribute"].unique())
+        flat = self._flatten(repaired_rows_df[
+            [self._row_id]
+            + [c for c in repaired_rows_df.columns if c in error_attrs]])
+        keys = error_cells_df[[self._row_id, "attribute", "current_value"]]
+        joined = flat.merge(keys, on=[self._row_id, "attribute"], how="inner")
+
+        continuous = set(continuous_columns)
+        discrete = joined[~joined["attribute"].isin(continuous)] \
+            .reset_index(drop=True)
+
+        threshold = float(self._get_option_value(*self._opt_prob_threshold))
+        top_k = int(self._get_option_value(*self._opt_prob_top_k))
+        weight = float(self._get_option_value(*self._opt_cost_weight))
+        cf_targets = set(self.cf.targets) if self.cf is not None else set()
+        if self.cf is not None and cf_targets:
+            _logger.info(f"[Repairing Phase] {self.cf} computing weighting probs...")
+
+        records = np.empty(len(discrete), dtype=object)
+        for attr, group in discrete.groupby("attribute", sort=False):
+            weighted = self.cf is not None and \
+                (not cf_targets or attr in cf_targets)
+            idx = group.index.to_numpy()
+            records[idx] = self._pmf_records_for_attr(
+                str(attr), group, weighted, weight, threshold, top_k)
+        out = list(records)
+
+        if continuous:
+            cont = joined[joined["attribute"].isin(continuous)]
+            for rid, a, v, cur in zip(
+                    cont[self._row_id], cont["attribute"], cont["value"],
+                    cont["current_value"]):
+                out.append({
+                    self._row_id: rid,
+                    "attribute": a,
+                    "current_value": {"value": cur, "prob": 0.0},
+                    "pmf": [{"class": v, "prob": 1.0}],
+                })
+
+        pmf_df = pd.DataFrame(
+            out, columns=[self._row_id, "attribute", "current_value", "pmf"])
+        assert len(pmf_df) == len(error_cells_df)
+        return pmf_df
+
+    def _finish_candidate_prob(self, pmf_df: pd.DataFrame,
+                               compute_repair_prob: bool) -> pd.DataFrame:
+        """Result shaping for the candidate-probability modes (reference
+        model.py:1204-1225), shared by the whole-block and the chunked
+        at-scale paths."""
+        pmf_df = pmf_df.assign(
+            current_value=[cv["value"] for cv in pmf_df["current_value"]])
+        if compute_repair_prob:
+            return pd.DataFrame({
+                self._row_id: pmf_df[self._row_id],
+                "attribute": pmf_df["attribute"],
+                "current_value": pmf_df["current_value"],
+                "repaired": [p[0]["class"] if p else None
+                             for p in pmf_df["pmf"]],
+                "prob": [p[0]["prob"] if p else None for p in pmf_df["pmf"]],
+            })
+        return pmf_df
+
+    def _compute_score(self, pmf_df: pd.DataFrame) -> pd.DataFrame:
+        """Log-likelihood-ratio x cost-discount score (reference
+        model.py:1227-1248). Vectorized: cost lookups dedupe to one
+        `cf.compute` per unique (base, repaired) pair, the score math runs
+        as numpy array ops."""
+        assert self.cf is not None
+        pmfs = pmf_df["pmf"].tolist()
+        curs = pmf_df["current_value"].tolist()
+        rep_class = [p[0]["class"] if p else None for p in pmfs]
+        rep_prob = np.array([p[0]["prob"] if p else 1e-6 for p in pmfs],
+                            dtype=np.float64)
+        cur_val = [c["value"] for c in curs]
+        cur_prob = np.array([c["prob"] for c in curs], dtype=np.float64)
+        base = [cv if cv is not None else rc
+                for cv, rc in zip(cur_val, rep_class)]
+
+        pair_cost: Dict[Tuple[Any, Any], Optional[float]] = {}
+        costs = np.empty(len(pmfs), dtype=np.float64)
+        for i, key in enumerate(zip(base, rep_class)):
+            if key not in pair_cost:
+                pair_cost[key] = self.cf.compute(*key)
+            c = pair_cost[key]
+            costs[i] = c if c is not None else 256.0
+
+        cur_prob = np.where(cur_prob > 0.0, cur_prob, 1e-6)
+        score = np.log(np.maximum(rep_prob, 1e-300) / cur_prob) / (1.0 + costs)
+        return pd.DataFrame({
+            self._row_id: pmf_df[self._row_id].to_numpy(),
+            "attribute": pmf_df["attribute"].to_numpy(),
+            "current_value": np.array(cur_val, dtype=object),
+            "repaired": np.array(rep_class, dtype=object),
+            "score": score.astype(float),
+        }, columns=[self._row_id, "attribute", "current_value", "repaired", "score"])
+
+    def _maximal_likelihood_repair(self, score_df: pd.DataFrame,
+                                   error_cells_df: pd.DataFrame) -> pd.DataFrame:
+        """Keeps the top `repair_delta` updates by score percentile
+        (reference model.py:1259-1277)."""
+        assert self.repair_delta is not None
+        num_error_cells = len(error_cells_df)
+        percent = min(1.0, 1.0 - self.repair_delta / num_error_cells)
+        thres = float(np.percentile(score_df["score"].to_numpy(), percent * 100.0)) \
+            if len(score_df) else 0.0
+        selected = score_df["score"].to_numpy() >= thres
+        top = score_df[selected].drop(columns=["score"])
+        _logger.info(
+            "[Repairing Phase] {} repair updates (delta={}) selected among {} "
+            "candidates".format(len(top), self.repair_delta, num_error_cells))
+        return top.reset_index(drop=True)
+
+    def _continuous_kind_map(self, table: EncodedTable) -> Dict[str, str]:
+        return {c.name: c.kind for c in table.columns if c.is_numeric}
+
+    def _repair_attrs(self, repair_updates: Union[str, pd.DataFrame],
+                      base_table: Union[str, pd.DataFrame],
+                      table: EncodedTable) -> pd.DataFrame:
+        updates = repair_updates if type(repair_updates) is pd.DataFrame \
+            else self._session.table(str(repair_updates))
+        base = base_table if type(base_table) is pd.DataFrame \
+            else self._session.table(str(base_table))
+        return repair_attrs_from(updates, base, self._row_id,
+                                 self._continuous_kind_map(table))
+
     @job_phase(name="validating")
     def _validate_repairs(self, repair_candidates: pd.DataFrame,
                           repaired_rows: pd.DataFrame,
@@ -1006,22 +1580,51 @@ class RepairModel:
     # -- the run ---------------------------------------------------------------
 
     def _check_input_table(self) -> Tuple[EncodedTable, str, List[str]]:
+        if isinstance(self.input, str):
+            # chunk-ingested inputs are already encoded in the catalog: use
+            # them directly instead of decoding + re-encoding
+            name = self._session.qualified_name(self.db_name, str(self.input))
+            entry = self._session.raw_entry(name)
+            if isinstance(entry, EncodedTable):
+                table, continuous_columns = check_encoded_table(
+                    entry, self._row_id, name)
+                _logger.info("input_table: {} ({} rows x {} columns)".format(
+                    name, table.n_rows, len(table.columns)))
+                return table, name, continuous_columns
         df, input_name = self._input_frame
         table, continuous_columns = check_input_table(df, self._row_id, input_name)
         _logger.info("input_table: {} ({} rows x {} columns)".format(
             input_name, table.n_rows, len(table.columns)))
         return table, input_name, continuous_columns
 
+    @staticmethod
+    def _count_models(models: List[Any]) -> None:
+        """Counts the trained models by kind in ``utils.counters``."""
+        for _, (model, _, _) in models:
+            if isinstance(model, PoorModel):
+                counter_inc("train.poor_models")
+            elif isinstance(model, FunctionalDepModel):
+                counter_inc("train.fd_rule_models")
+            else:
+                counter_inc("train.stat_models")
+                is_discrete = getattr(model, "is_discrete", None)
+                if is_discrete is False:
+                    counter_inc("train.regressors")
+                elif is_discrete is True:
+                    counter_inc("train.classifiers")
+
     @elapsed_time  # type: ignore
     def _run(self, table: EncodedTable, input_name: str,
              continuous_columns: List[str], detect_errors_only: bool,
-             repair_data: bool) -> pd.DataFrame:
+             compute_repair_candidate_prob: bool, compute_repair_prob: bool,
+             compute_repair_score: bool, repair_data: bool,
+             maximal_likelihood_repair: bool) -> pd.DataFrame:
         #######################################################################
         # 1. Error Detection Phase
         #######################################################################
         _logger.info(
             f"[Error Detection Phase] Detecting errors in a table `{input_name}`... ")
-        error_cells_df, target_columns, pairwise_attr_stats, _ = \
+        error_cells_df, target_columns, pairwise_attr_stats, domain_stats = \
             self._detect_errors(table, input_name, continuous_columns)
 
         if detect_errors_only:
@@ -1048,36 +1651,119 @@ class RepairModel:
             error_cells_df[ROW_IDX].to_numpy().astype(np.int64),
             error_cells_df["attribute"].to_numpy(dtype=object))
         # dtype snapshot: an integral column that carries NULLs after masking
-        # decodes to float64 in every downstream frame
+        # decodes to float64 in every downstream frame, even if rule repairs
+        # later fill all of its NULLs
         float_cols = tuple(
             c.name for c in masked.columns
             if c.kind == KIND_INTEGRAL and c.numeric is not None
             and bool(np.isnan(c.numeric).any()))
 
+        repaired_by_rules_df = None
+        if self.repair_by_rules:
+            integral_columns = {
+                c.name for c in table.columns if c.kind == KIND_INTEGRAL}
+            error_cells_df, repaired_by_rules_df = self._repair_by_rules(
+                masked, error_cells_df, target_columns, integral_columns)
+            if len(repaired_by_rules_df):
+                masked = masked.with_updates(list(zip(
+                    repaired_by_rules_df[ROW_IDX].astype(int),
+                    repaired_by_rules_df["attribute"],
+                    repaired_by_rules_df["repaired"])))
+
         error_row_pos = np.unique(
             error_cells_df[ROW_IDX].to_numpy().astype(np.int64))
-        chunk_rows = int(os.environ.get("DELPHI_REPAIR_CHUNK_ROWS", "2000000"))
-        if not (repair_data or self.repair_validation_enabled) \
-                and 0 < chunk_rows < len(error_row_pos):
-            raise NotImplementedError(
-                f"chunked repair ({len(error_row_pos)} dirty rows > "
-                f"{chunk_rows}) is not ported to delphi_tpu_torch yet "
-                f"({_NEXT_SLICE})")
 
         models = self._build_repair_models(
             masked, float_cols, target_columns, continuous_columns,
-            pairwise_attr_stats)
+            domain_stats, pairwise_attr_stats)
+        self._count_models(models)
 
         #######################################################################
         # 3. Repair Phase
         #######################################################################
-        dc_plan = self._one_tuple_dc_plan(table, error_cells_df)
+        need_pmf = compute_repair_candidate_prob or maximal_likelihood_repair
+        dc_plan = self._one_tuple_dc_plan(table, error_cells_df) \
+            if not need_pmf else None
+        chunk_rows = int(os.environ.get("DELPHI_REPAIR_CHUNK_ROWS", "2000000"))
+        chunked = 0 < chunk_rows < len(error_row_pos)
+        ecf_rows = error_cells_df[ROW_IDX].to_numpy().astype(np.int64)
+
+        def chunks() -> Any:
+            """(row positions, their error cells, decoded dirty rows) of
+            each block of ``chunk_rows`` dirty rows: error_row_pos is
+            sorted-unique, so a block's cells are the cells in its row
+            range."""
+            for start in range(0, len(error_row_pos), chunk_rows):
+                counter_inc("repair.chunks")
+                pos = error_row_pos[start:start + chunk_rows]
+                cells = error_cells_df[(ecf_rows >= pos[0]) & (ecf_rows <= pos[-1])]
+                yield pos, cells, masked.to_pandas(
+                    rows=pos, integral_as_float=float_cols)
+
+        if need_pmf and not repair_data and chunked:
+            # the dirty block, its repairs and the flattened PMF frames exist
+            # per chunk; the PMF records and scores are error-cell-sized, and
+            # the maximal-likelihood percentile runs once over all scores
+            parts = []
+            for pos, cells_chunk, dirty_chunk in chunks():
+                repaired_chunk = self._repair(
+                    models, continuous_columns, dirty_chunk, cells_chunk,
+                    compute_repair_candidate_prob, maximal_likelihood_repair)
+                if maximal_likelihood_repair:
+                    parts.append(self._compute_score(self._compute_repair_pmf(
+                        repaired_chunk, cells_chunk, [])))
+                else:
+                    parts.append(self._compute_repair_pmf(
+                        repaired_chunk, cells_chunk, continuous_columns))
+            if maximal_likelihood_repair:
+                score_df = pd.concat(parts, ignore_index=True)
+                if compute_repair_score:
+                    return score_df
+                return self._maximal_likelihood_repair(score_df, error_cells_df)
+            return self._finish_candidate_prob(
+                pd.concat(parts, ignore_index=True), compute_repair_prob)
+
+        if not (need_pmf or repair_data or self.repair_validation_enabled
+                or self.repair_by_rules) and chunked:
+            # candidates only: decode, repair, minimize and extract per chunk,
+            # so no whole dirty block materializes; row-major per chunk and
+            # ascending chunks give the one-shot path's global row order
+            parts = []
+            for pos, cells_chunk, dirty_chunk in chunks():
+                repaired_chunk = self._repair(
+                    models, continuous_columns, dirty_chunk, cells_chunk)
+                repaired_chunk = self._minimize_one_tuple_dc_repairs(
+                    table, dc_plan, pos, repaired_chunk, models)
+                parts.append(self._extract_repair_candidates(
+                    repaired_chunk, cells_chunk, target_columns, pos))
+            return pd.concat(parts, ignore_index=True)
+
+        counter_inc("repair.chunks")
         dirty_rows_df = masked.to_pandas(
             rows=error_row_pos, integral_as_float=float_cols)
         repaired_rows_df = self._repair(
-            models, continuous_columns, dirty_rows_df, error_cells_df)
+            models, continuous_columns, dirty_rows_df, error_cells_df,
+            compute_repair_candidate_prob, maximal_likelihood_repair)
         repaired_rows_df = self._minimize_one_tuple_dc_repairs(
             table, dc_plan, error_row_pos, repaired_rows_df, models)
+
+        if compute_repair_candidate_prob and not maximal_likelihood_repair:
+            pmf_df = self._compute_repair_pmf(
+                repaired_rows_df, error_cells_df, continuous_columns)
+            return self._finish_candidate_prob(pmf_df, compute_repair_prob)
+
+        if maximal_likelihood_repair:
+            score_df = self._compute_score(self._compute_repair_pmf(
+                repaired_rows_df, error_cells_df, []))
+            if compute_repair_score:
+                return score_df
+            top_delta_repairs_df = self._maximal_likelihood_repair(
+                score_df, error_cells_df)
+            if not repair_data:
+                return top_delta_repairs_df
+            repaired_rows_df = repair_attrs_from(
+                top_delta_repairs_df, dirty_rows_df, self._row_id,
+                {c.name: c.kind for c in table.columns if c.is_numeric})
 
         if repair_data:
             clean_pos = np.setdiff1d(
@@ -1091,6 +1777,12 @@ class RepairModel:
 
         repair_candidates_df = self._extract_repair_candidates(
             repaired_rows_df, error_cells_df, target_columns, error_row_pos)
+        if repaired_by_rules_df is not None and len(repaired_by_rules_df):
+            # rule repairs go after the model repairs
+            repair_candidates_df = pd.concat(
+                [repair_candidates_df, repaired_by_rules_df[
+                    [self._row_id, "attribute", "current_value", "repaired"]]],
+                ignore_index=True)
         if self.repair_validation_enabled:
             clean_pos = np.setdiff1d(
                 np.arange(table.n_rows, dtype=np.int64), error_row_pos,
@@ -1115,11 +1807,27 @@ class RepairModel:
         """Runs the pipeline on the port's device (``cuda`` unless the CPU
         was asked for). Returns the repair candidates ``[row_id, attribute,
         current_value, repaired]``, the detected error cells with
-        ``detect_errors_only``, or the repaired table with ``repair_data``.
-        The PMF, score and maximal-likelihood modes raise
-        ``NotImplementedError``."""
+        ``detect_errors_only``, the repaired table with ``repair_data``,
+        each error cell's top-k candidate PMF with
+        ``compute_repair_candidate_prob``, its most likely repair and
+        probability with ``compute_repair_prob``, scored repairs with
+        ``compute_repair_score``, or the ``setRepairDelta`` best-scoring
+        repairs with ``maximal_likelihood_repair``."""
         if self.input is None or self.row_id is None:
             raise ValueError("`setInput` and `setRowId` should be called before repairing")
+
+        if maximal_likelihood_repair and self.repair_delta is None:
+            raise ValueError(
+                "`setRepairDelta` should be called when enabling "
+                "maximal likelihood repairing")
+        if maximal_likelihood_repair and self.cf is None:
+            raise ValueError(
+                "`setUpdateCostFunction` should be called when enabling "
+                "maximal likelihood repairing")
+        if maximal_likelihood_repair and len(self.cf.targets) > 0:  # type: ignore
+            raise ValueError(
+                "`UpdateCostFunction.targets` cannot be used when enabling "
+                "maximal likelihood repairing")
 
         exclusive_params = [
             ("detect_errors_only", detect_errors_only),
@@ -1132,23 +1840,39 @@ class RepairModel:
         if len(selected) > 1:
             raise ValueError("{} cannot be set to true simultaneously".format(
                 to_list_str(selected, sep="/", quote=True)))
-        if compute_repair_candidate_prob or compute_repair_prob \
-                or compute_repair_score or maximal_likelihood_repair:
-            raise NotImplementedError(
-                "the PMF / score / maximal-likelihood repair modes are not "
-                f"ported to delphi_tpu_torch yet ({_NEXT_SLICE})")
-        self._reject_unported(detect_errors_only)
+
+        if self._repair_by_nearest_values_enabled and \
+                (maximal_likelihood_repair or compute_repair_candidate_prob or
+                 compute_repair_prob or compute_repair_score):
+            raise ValueError(
+                "Cannot repair data by nearest values when enabling "
+                "`maximal_likelihood_repair`, `compute_repair_candidate_prob`, "
+                "`compute_repair_prob`, or `compute_repair_score`")
+
+        if compute_repair_prob or compute_repair_score:
+            compute_repair_candidate_prob = True
+        if compute_repair_score:
+            maximal_likelihood_repair = True
+        self._reject_unported()
 
         with phase_span("input validation"):
             table, input_name, continuous_columns = self._check_input_table()
+
+            if maximal_likelihood_repair and len(continuous_columns) != 0:
+                raise ValueError(
+                    "Cannot enable the maximal likelihood repair mode "
+                    "when continous attributes found")
+
             if self.targets and \
                     len(set(self.targets) & set(table.column_names)) == 0:
                 raise ValueError(
                     f"Target attributes not found in {input_name}: "
                     f"{to_list_str(self.targets)}")
 
-        df, elapsed = self._run(table, input_name, continuous_columns,
-                                detect_errors_only, repair_data)
+        df, elapsed = self._run(
+            table, input_name, continuous_columns, detect_errors_only,
+            compute_repair_candidate_prob, compute_repair_prob,
+            compute_repair_score, repair_data, maximal_likelihood_repair)
         _logger.info(f"!!!Total Processing time is {elapsed}(s)!!!")
         return df
 

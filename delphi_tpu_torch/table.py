@@ -268,6 +268,56 @@ class EncodedTable:
                 data[c.name] = c.decode(rows)
         return pd.DataFrame(data)
 
+    def with_updates(self, cells: Sequence[Tuple[int, str, Any]]) -> "EncodedTable":
+        """Returns a copy with (row_index, attribute, value) cells updated —
+        the encoded-tensor equivalent of applying rule repairs with
+        `repairAttrsFrom` (RepairMiscApi.scala:184-247): continuous columns
+        cast the repaired string to float (integral: rounded), and novel
+        values extend the column vocab."""
+        by_attr: Dict[str, List[Tuple[int, Any]]] = {}
+        for row, attr, value in cells:
+            by_attr.setdefault(attr, []).append((row, value))
+        new_columns = []
+        for c in self.columns:
+            if c.name not in by_attr:
+                new_columns.append(c)
+                continue
+            updates = by_attr[c.name]
+            codes = c.codes.copy()
+            numeric = c.numeric.copy() if c.numeric is not None else None
+            vocab_index = {v: i for i, v in enumerate(c.vocab.tolist())}
+            vocab_list = c.vocab.tolist()
+            for row, value in updates:
+                if value is None or (not isinstance(value, (list, dict))
+                                     and pd.isna(value)):
+                    codes[row] = NULL_CODE
+                    if numeric is not None:
+                        numeric[row] = np.nan
+                    continue
+                if c.kind == KIND_INTEGRAL:
+                    num = float(np.round(float(value)))
+                    if num == 0.0:
+                        num = 0.0  # fold -0.0 (round(-0.4)) into +0.0
+                    s = str(int(num))
+                elif c.kind == KIND_FRACTIONAL:
+                    num = float(value)
+                    if num == 0.0:
+                        num = 0.0  # same -0.0 fold as normalize_neg_zero
+                    s = str(num)
+                else:
+                    num = None
+                    s = str(value)
+                if s not in vocab_index:
+                    vocab_index[s] = len(vocab_list)
+                    vocab_list.append(s)
+                codes[row] = vocab_index[s]
+                if numeric is not None:
+                    numeric[row] = num
+            new_columns.append(replace(
+                c, codes=codes, numeric=numeric,
+                vocab=np.asarray(vocab_list, dtype=object)))
+        return replace(self, columns=new_columns)
+
     def with_nulls_at_arrays(self, rows: np.ndarray,
                              attrs: np.ndarray) -> "EncodedTable":
         """`with_nulls_at` over aligned (row positions, attribute) arrays:
@@ -335,6 +385,29 @@ def check_input_table(df: pd.DataFrame, row_id: str, qualified_name: str = "inpu
             f"(# of distinct '{row_id}': {n_distinct}, # of rows: {n_rows})")
 
     table = encode_table(df, row_id)
+    return table, table.continuous_columns()
+
+
+def check_encoded_table(table: EncodedTable, row_id: str,
+                        qualified_name: str = "input") \
+        -> Tuple[EncodedTable, List[str]]:
+    """`check_input_table` for a pre-encoded table (chunked ingestion): same
+    validations, no re-encode — the type whitelist already held at encode
+    time, so only shape and row-id checks remain."""
+    if table.row_id != row_id:
+        raise AnalysisException(
+            f"Column '{row_id}' does not exist in '{qualified_name}'.")
+    if len(table.columns) < 2:
+        raise AnalysisException(
+            f"A least three columns (`{row_id}` columns + two more ones) "
+            f"in table '{qualified_name}'")
+    n_rows = table.n_rows
+    n_distinct = len(pd.unique(table.row_id_values))
+    if n_distinct != n_rows:
+        raise AnalysisException(
+            f"Uniqueness does not hold in column '{row_id}' of table "
+            f"'{qualified_name}' (# of distinct '{row_id}': {n_distinct}, "
+            f"# of rows: {n_rows})")
     return table, table.continuous_columns()
 
 

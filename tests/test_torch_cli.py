@@ -1,0 +1,144 @@
+"""The port's batch CLI (``python -m delphi_tpu_torch.main``) against the JAX
+package's (``delphi_tpu.main``) on the CPU: the default run,
+``--detect-only``, ``--repair-data``, ``--constraints``, ``--targets`` and
+``--chunksize`` write equal CSVs; every flag of the JAX package's CLI that
+the port does not have yet raises, naming the ``ROADMAP.md`` item that
+brings it.
+
+Both CLIs run in this process (``main(argv)``); one case also runs the
+port as ``python -m`` in a subprocess. The input has only string columns
+and a NULL-free integer column, so every repair is a classification and
+the packages' CSVs are byte-identical.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+import delphi_tpu_torch as T
+from delphi_tpu import main as j_main
+from delphi_tpu_torch import main as t_main
+from delphi_tpu_torch.session import get_session as t_session
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device(session):
+    T.set_device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+    T.set_device(None)
+    for name in list(t_session().table_names()):
+        t_session().drop(name)
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    rng = np.random.RandomState(0)
+    n = 400
+    city = rng.randint(0, 12, n)
+    df = pd.DataFrame({
+        "tid": range(n),
+        "city": [f"c{v}" for v in city],
+        "state": [f"s{v % 6}" for v in city],
+        "channel": [f"h{v}" for v in rng.randint(0, 3, n)],
+        "zone": city // 4,
+    })
+    df.loc[rng.rand(n) < 0.06, "state"] = None
+    df.loc[rng.rand(n) < 0.06, "channel"] = None
+    swap = rng.rand(n) < 0.03
+    df.loc[swap, "state"] = [f"s{v}" for v in rng.randint(0, 6, swap.sum())]
+    df.to_csv(root / "in.csv", index=False)
+    (root / "dc.txt").write_text("city->state\n")
+    return root
+
+
+def _run_both(inputs, tmp_path, *flags):
+    """Runs both CLIs on the same arguments; returns the two CSVs' text."""
+    out = []
+    for name, main in (("jax", j_main.main), ("torch", t_main.main)):
+        path = tmp_path / f"{name}.csv"
+        argv = ["--input", str(inputs / "in.csv"), "--row-id", "tid",
+                "--output", str(path)]
+        for f in flags:
+            argv.append(str(inputs / f) if f == "dc.txt" else f)
+        assert main(argv) == 0
+        out.append(path.read_text())
+    return out
+
+
+@pytest.mark.parametrize("flags", [
+    (), ("--detect-only",), ("--repair-data",),
+    ("--constraints", "dc.txt"), ("--targets", "state"),
+    ("--chunksize", "64"), ("--chunksize", "150", "--dtype", "str"),
+    ("--constraints", "dc.txt", "--repair-data", "--chunksize", "100"),
+], ids=lambda f: "-".join(x.strip("-") for x in f) or "default")
+def test_cli_csv_matches_jax(inputs, tmp_path, flags):
+    want, got = _run_both(inputs, tmp_path, *flags)
+    assert len(got.splitlines()) > 1
+    assert got == want
+
+
+def test_cli_as_module_matches_in_process(inputs, tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(DELPHI_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
+    out = tmp_path / "sub.csv"
+    proc = subprocess.run(
+        [sys.executable, "-m", "delphi_tpu_torch.main", "--input",
+         str(inputs / "in.csv"), "--row-id", "tid", "--output", str(out),
+         "--constraints", str(inputs / "dc.txt")],
+        cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "wrote" in proc.stderr
+    want = tmp_path / "in_process.csv"
+    assert t_main.main(["--input", str(inputs / "in.csv"), "--row-id", "tid",
+                        "--output", str(want), "--constraints",
+                        str(inputs / "dc.txt")]) == 0
+    assert out.read_text() == want.read_text()
+
+
+@pytest.mark.parametrize("flag,value,item", [
+    ("--serve", None, "item 10"), ("--serve-port", "8080", "item 10"),
+    ("--serve-cache-dir", "d", "item 10"), ("--fleet", "2", "item 10"),
+    ("--autoscale", None, "item 10"), ("--metrics-out", "r.json", "item 10"),
+    ("--metrics-port", "0", "item 10"),
+    ("--provenance-out", "p.jsonl", "item 10"),
+    ("--baseline-report", "b.json", "item 10"),
+    ("--drift-fail-over", "0.25", "item 10"), ("--gauntlet", None, "item 10"),
+    ("--gauntlet-rows", "100", "item 10"), ("--gauntlet-seed", "1", "item 10"),
+    ("--gauntlet-scenarios", "wide", "item 10"),
+    ("--gauntlet-no-repairs", None, "item 10"),
+    ("--incremental", None, "item 7"), ("--snapshot-dir", "s", "item 7"),
+    ("--stream", "2", "item 7"), ("--escalate", None, "item 7"),
+    ("--escalate-conf", "0.9", "item 7"), ("--escalate-budget", "8", "item 7"),
+    ("--checkpoint-dir", "c", "item 8"), ("--fault-plan", "x:1:oom", "item 8"),
+    ("--compile-cache-dir", "c", "item 8"), ("--pipeline", "on", "item 8"),
+    ("--plan-report", "p", "item 8"), ("--fsck", "root", "item 8"),
+    ("--fsck-report-only", None, "item 8"),
+    ("--collective-timeout-s", "5", "item 9"),
+])
+def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
+                                                value, item):
+    argv = ["--input", str(inputs / "in.csv"), "--row-id", "tid",
+            "--output", str(tmp_path / "o.csv"), flag]
+    if value is not None:
+        argv.append(value)
+    with pytest.raises(NotImplementedError,
+                       match=f"{flag} .*queue 1 {item} of ROADMAP.md"):
+        t_main.main(argv)
+    assert not (tmp_path / "o.csv").exists()
+
+
+def test_cli_requires_input_row_id_output():
+    with pytest.raises(SystemExit):
+        t_main.main(["--input", "x.csv"])

@@ -422,3 +422,63 @@ def test_detect_errors_only_card_matches_cpu(card):
     got = run()
     assert len(got) > 0
     pd.testing.assert_frame_equal(got, want)
+
+
+def _qgram_table(n, seed):
+    rng = np.random.default_rng(seed)
+    city = rng.integers(0, 24, n)
+    return pd.DataFrame({
+        "city": [f"city_{v:02d}" for v in city],
+        "state": [f"state_{v % 12:02d}" for v in city],
+        "channel": [f"ch_{v}" for v in rng.integers(0, 3, n)],
+        "amount": np.round(50.0 + rng.normal(0, 5, n), 2),
+    })
+
+
+@pytest.mark.cuda
+def test_kmeans_labels_card_match_cpu(card):
+    """Lloyd's loop on the card from the CPU's seeds: the same labels (the
+    centroid sums are exact; only a last-bit distance tie could differ)."""
+    from delphi_tpu_torch.ops import cluster
+    X = cluster.qgram_features(_qgram_table(20_000, 3), 2)
+    labels = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        labels[dev] = (cluster.kmeans(X, 4, seed=0),
+                       cluster.bisecting_kmeans(X, 4))
+    for got, want in zip(labels["cuda"], labels["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_pmf_probabilities_card_match_cpu(card):
+    """compute_repair_candidate_prob on the card against the CPU: the same
+    cells, classes and probabilities within 1e-4 (the GBDT trees agree)."""
+    rng = np.random.default_rng(5)
+    n = 3000
+    level = rng.integers(0, 10, n)
+    df = pd.DataFrame({
+        "tid": np.arange(n),
+        "level": [f"lv{v}" for v in level],
+        "tier": [f"t{v // 2}" for v in level],
+        "band": [f"b{v % 5}" for v in level],
+        "grade": [f"g{(v + s) % 6}" for v, s in
+                  zip(level, rng.integers(0, 4, n))],
+    })
+    for col in ("tier", "band", "grade"):
+        df.loc[rng.random(n) < 0.2, col] = None
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        frames[dev] = T.delphi.repair.setInput(df).setRowId("tid") \
+            .setErrorDetectors([T.NullErrorDetector()]) \
+            .option("error.max_attrs_to_compute_pairwise_stats", "4") \
+            .run(compute_repair_candidate_prob=True)
+    cpu, gpu = frames["cpu"], frames["cuda"]
+    assert len(gpu) > 0
+    pd.testing.assert_frame_equal(gpu[["tid", "attribute"]],
+                                  cpu[["tid", "attribute"]])
+    for g, c in zip(gpu["pmf"], cpu["pmf"]):
+        assert [e["class"] for e in g] == [e["class"] for e in c]
+        np.testing.assert_allclose([e["prob"] for e in g],
+                                   [e["prob"] for e in c], atol=1e-4)

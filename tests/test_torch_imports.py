@@ -147,6 +147,57 @@ print(json.dumps({"cells": len(cells), "repairs": len(out),
 """
 
 
+_RUN_SLICE5 = """
+import json, os, sys, tempfile
+import numpy as np
+import pandas as pd
+import delphi_tpu_torch as T
+from delphi_tpu_torch import main as cli
+rng = np.random.RandomState(0)
+n = 300
+city = rng.randint(0, 12, n)
+df = pd.DataFrame({
+    "tid": range(n),
+    "city": [f"c{v}" for v in city],
+    "state": [f"state_{v % 6:02d}" for v in city],
+    "channel": [f"h{v}" for v in rng.randint(0, 3, n)],
+})
+df.loc[rng.rand(n) < 0.05, "state"] = None
+df.loc[rng.rand(n) < 0.05, "state"] = "stxte_01"
+rules = T.delphi.repair.setInput(df).setRowId("tid").setErrorDetectors([
+    T.NullErrorDetector(), T.RegExErrorDetector("state", "^state_[0-9]{2}$"),
+    T.ConstraintErrorDetector(constraints="city->state")]) \\
+    .setRepairByRules(True).setUpdateCostFunction(T.Levenshtein()) \\
+    .option("model.rule.repair_by_regex.disabled", "") \\
+    .option("model.rule.repair_by_nearest_values.disabled", "") \\
+    .option("model.hp.max_evals", "1").run()
+pmf = T.delphi.repair.setInput(df).setRowId("tid") \\
+    .setErrorDetectors([T.NullErrorDetector()]) \\
+    .setUpdateCostFunction(T.Levenshtein()).setRepairDelta(5) \\
+    .option("model.hp.max_evals", "1")
+modes = [len(pmf.run(**{m: True})) for m in (
+    "compute_repair_candidate_prob", "compute_repair_prob",
+    "compute_repair_score", "maximal_likelihood_repair")]
+T.delphi.register_table("t", df)
+split = T.delphi.misc.options({"table_name": "t", "row_id": "tid",
+                               "k": "3"}).splitInputTable()
+out = tempfile.mkdtemp()
+T.delphi.misc.options({"table_name": "t", "path": out + "/g",
+                       "pairwise_attr_stat_threshold": "2.0"}) \\
+    .generateDepGraph()
+df.to_csv(out + "/in.csv", index=False)
+cli.main(["--input", out + "/in.csv", "--row-id", "tid", "--output",
+          out + "/out.csv", "--chunksize", "100"])
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({"rules": len(rules), "modes": modes,
+                  "clusters": int(split["k"].nunique()),
+                  "dot": os.path.exists(out + "/g/depgraph.dot"),
+                  "cli": len(pd.read_csv(out + "/out.csv")), "mods": mods}))
+"""
+
+
 def _python(code, **env_over):
     env = {k: v for k, v in os.environ.items()
            if k not in ("DELPHI_TORCH_DEVICE", "PYTHONPATH")}
@@ -199,3 +250,16 @@ def test_default_device_without_cuda_raises():
     proc = _python(_DEFAULT_DEVICE)
     assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout
     assert proc.stdout.strip().endswith("raised")
+
+
+def test_rules_pmf_misc_and_cli_run_without_jax():
+    """Rule repairs, the four PMF / score / maximal-likelihood modes,
+    ``delphi.misc`` (input splitting, the dependency graph) and the batch
+    CLI run on the CPU without JAX or ``delphi_tpu`` loaded."""
+    proc = _python(_RUN_SLICE5, DELPHI_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["rules"] > 0 and min(out["modes"]) > 0 and out["cli"] > 0
+    assert out["clusters"] == 3 and out["dot"]
+    assert out["mods"] == []

@@ -15,6 +15,7 @@ import delphi_tpu_torch as T
 from delphi_tpu.gauntlet.scenarios import generate_scenario
 from delphi_tpu.models import linear as j_linear
 from delphi_tpu_torch.models.linear import LogisticRegressionModel
+from delphi_tpu_torch.session import get_session as t_session
 
 # scenario -> (targets of the max_evals=1 runs, extra options).
 # fd_categorical's max_evals=1 runs repair `region` only, as slice 1 did;
@@ -210,23 +211,37 @@ def _tiny():
     })
 
 
+def _cost(m):
+    """A Levenshtein cost function of the package ``m`` belongs to."""
+    lib = J if type(m).__module__.startswith("delphi_tpu.") else T
+    return m.setUpdateCostFunction(lib.Levenshtein()).setRepairDelta(5)
+
+
+# case -> (model setup, run() arguments, environment)
 PORTED = {
-    "cv grid search": (lambda m: m, {}),
+    "cv grid search": (lambda m: m, {}, {}),
     "batched training": (lambda m: m.option("model.hp.max_evals", "1")
-                         .setParallelStatTrainingEnabled(True), {}),
+                         .setParallelStatTrainingEnabled(True), {}, {}),
     "user error cells": (
         lambda m: m.setErrorCells(pd.DataFrame({
             "tid": [1, 9, 18, 30], "attribute": ["a", "b", "c", "b"]})),
-        {}),
-    "default detectors": (lambda m: m.setErrorDetectors([]), {}),
+        {}, {}),
+    "default detectors": (lambda m: m.setErrorDetectors([]), {}, {}),
+    "pmf mode": (lambda m: m, {"compute_repair_prob": True}, {}),
+    "score mode": (_cost, {"compute_repair_score": True}, {}),
+    "maximal likelihood": (_cost, {"maximal_likelihood_repair": True}, {}),
+    "rule repairs": (lambda m: m.setRepairByRules(True), {}, {}),
+    "chunked repair": (lambda m: m, {}, {"DELPHI_REPAIR_CHUNK_ROWS": "2"}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PORTED))
-def test_formerly_unported_paths_match_jax(case):
+def test_formerly_unported_paths_match_jax(case, monkeypatch):
     """Paths that raised NotImplementedError in an earlier slice now run
     and return the JAX package's frame."""
-    setup, run_kw = PORTED[case]
+    setup, run_kw, env = PORTED[case]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
 
     def run(lib):
         m = lib.delphi.repair.setInput(_tiny()).setRowId("tid") \
@@ -238,34 +253,41 @@ def test_formerly_unported_paths_match_jax(case):
     pd.testing.assert_frame_equal(got, want)
 
 
-# case -> (model setup, run() arguments, words of the message, environment)
+# case -> (model setup, words of the message, ROADMAP item, environment,
+# session conf)
 UNPORTED = {
-    "pmf mode": (lambda m: m, {"compute_repair_prob": True}, "PMF", {}),
-    "score mode": (lambda m: m, {"compute_repair_score": True}, "score", {}),
-    "maximal likelihood": (lambda m: m, {"maximal_likelihood_repair": True},
-                           "maximal-likelihood", {}),
-    "rule repairs": (lambda m: m.setRepairByRules(True), {},
-                     "setRepairByRules", {}),
-    "checkpoints": (lambda m: m.option("model.checkpoint_path", "ckpt"), {},
-                    "checkpoints", {}),
-    "chunked repair": (lambda m: m, {}, "chunked repair",
-                       {"DELPHI_REPAIR_CHUNK_ROWS": "2"}),
+    "checkpoints": (lambda m: m.option("model.checkpoint_path", "ckpt"),
+                    "model checkpoints", "item 8", {}, {}),
+    "phase checkpoints env": (lambda m: m, "phase checkpoints", "item 8",
+                              {"DELPHI_CHECKPOINT_DIR": "ckpt"}, {}),
+    "phase checkpoints conf": (lambda m: m, "phase checkpoints", "item 8",
+                               {}, {"repair.checkpoint.dir": "ckpt"}),
+    "snapshot dir": (lambda m: m.option("repair.snapshot.dir", "snap"),
+                     "incremental snapshots", "item 7", {}, {}),
+    "incremental": (lambda m: m.option("repair.incremental", "true"),
+                    "repair.incremental", "item 7", {}, {}),
+    "escalation": (lambda m: m.option("repair.escalate", "1"),
+                   "repair.escalate", "item 7", {}, {}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_paths_raise(case, monkeypatch):
-    """Paths outside the port raise NotImplementedError naming what is
-    missing and the slice that brings it; none silently runs a different
-    model than the JAX package."""
-    setup, run_kw, words, env = UNPORTED[case]
+    """Settings outside the port raise NotImplementedError naming what is
+    missing and the ROADMAP item that brings it, before any work starts
+    (detect-only runs too); none is silently ignored."""
+    setup, words, item, env, conf = UNPORTED[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    m = T.delphi.repair.setInput(_tiny()).setRowId("tid") \
-        .setErrorDetectors([T.NullErrorDetector()])
-    with pytest.raises(NotImplementedError, match=words) as exc:
-        setup(m).run(**run_kw)
-    assert "queue 1 item 5 of ROADMAP.md" in str(exc.value)
+    for k, v in conf.items():
+        monkeypatch.setitem(t_session().conf, k, v)
+    for detect_only in (False, True):
+        m = T.delphi.repair.setInput(_tiny()).setRowId("tid") \
+            .setErrorDetectors([T.NullErrorDetector()])
+        with pytest.raises(NotImplementedError, match=words) as exc:
+            setup(m).run(detect_errors_only=detect_only)
+        assert f"queue 1 {item} of ROADMAP.md" in str(exc.value)
+        assert "item 5" not in str(exc.value)
 
 
 def test_logistic_head_trains_on_the_factored_design():
@@ -290,6 +312,5 @@ def test_logistic_head_trains_on_the_factored_design():
     assert seen == [True]
 
 
-def test_misc_facade_raises():
-    with pytest.raises(NotImplementedError):
-        T.delphi.misc
+def test_misc_facade_returns_repair_misc():
+    assert isinstance(T.delphi.misc, T.RepairMisc)
