@@ -21,7 +21,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    rounds and chunk steps, and the training wall split into CV search and
    final fit. In 4b each kernel is re-run, held against its plain version
    (K1 bitwise, K2 within 1e-12 relative) and timed on the inputs that each
-   driven path (4, 4c, 4d, 4f, 4g, 4h) gave it, reported per path, and both
+   driven path (4, 4c, 4d, 4f, 4g, 4h, 4i) gave it, reported per path, and both
    wrappers
    are run on those inputs under ``torch.cuda.set_sync_debug_mode("error")``
    (a synchronisation fails);
@@ -61,16 +61,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``compute_repair_candidate_prob`` (a main path, "pmf"),
    ``compute_repair_prob``, ``compute_repair_score`` and
    ``maximal_likelihood_repair`` (Levenshtein, delta 20,000), each run
-   again in blocks of 50,000 dirty rows: the same frame; (c) 20,000
+   again in blocks of 50,000 dirty rows: the same frame; (c) 5,000
    rows, CPU against card: rule repairs identical, PMF probabilities
    within 1e-4, maximal-likelihood selections equal off the percentile;
    4h. misc and CLI: (a) ``generateDepGraph`` on 200,000 rows of
    ``fd_table`` as a main path ("depgraph"), and its dot text at 20,000
    rows equal on the CPU and the card; (b) ``splitInputTable`` at 200,000
-   rows, bisecting and k-means++ at k = 4, labels equal to the CPU's, and
-   one Lloyd iteration at 200,000 x 1024, k = 2, timed; (c) ``python -m
-   delphi_tpu_torch.main --constraints`` on 200,000 rows in a subprocess,
-   its CSV equal to the in-process run's;
+   rows on the card, bisecting and k-means++ at k = 4, labels at 50,000
+   rows equal to the CPU's, and one Lloyd iteration at 200,000 x 1024,
+   k = 2, timed; (c) ``python -m delphi_tpu_torch.main --constraints`` on
+   200,000 rows in a subprocess, its CSV equal to the in-process run's;
+   4i. the provenance ledger and the escalation tier: (a) the 1M
+   ``missing_heavy`` run of 4 again without and with
+   ``DELPHI_PROVENANCE_PATH`` pointed at a file: the same frame, one
+   decided entry per detected cell, both walls, the ledger's share (per-cell
+   records, the JSONL write, the extra ``predict_proba``) and the file's
+   size; (b) ``escalation_table`` at 1,000,000 rows with the NULL and
+   regex detectors, without escalation and then with ``repair.escalate``
+   at a budget of 131,072 as a main path ("escalation"): routed cells,
+   each tier's attempts, repairs and wall, K8's launches with their
+   ``(n_pad, V_pad)`` and each one's ms against its bound, the cell F1
+   against the generator's truth off and on (on no lower; tier B on at
+   least 4,096 cells); (c) 20,000 rows at a budget of 4,096, CPU against
+   card: frames, routed and escalated cells and ledger entries equal
+   (confidences and top-k probabilities within 1e-5); (d) ``python -m
+   delphi_tpu_torch.main --escalate --provenance-out`` on (c)'s table in a
+   subprocess, its CSV equal to the in-process run's and its ledger file
+   starting with the store's envelope header;
 
 5. cross-check at default options, 20,000 rows, CPU (plain versions)
    against card (kernels): identical ``missing_heavy`` repair frames; on
@@ -90,8 +107,9 @@ launches, or a time below the bound), the host's enqueue time
 behind the same ctypes path (``launch_floor_ms``), the bound, the plain
 version and one library call.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the
-``nvidia-smi`` name and power limit, and the result line
+The last lines are a ``{"kernels": [...], "pytorch_programs": [...]}``
+JSON line (the hand kernels K1 and K2, and K8, which is plain PyTorch),
+the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -163,6 +181,24 @@ DEPGRAPH_ROWS = 200_000
 SPLIT_ROWS = 200_000
 SPLIT_K = 4
 CLI_ROWS = 200_000
+# The CPU halves of 4g(c) (20,000 rows) and of 4h(b) (200,000 rows) took
+# much of the script's time (PERF.md §4), so they were cut; the card side of
+# 4h(b) stays at SPLIT_ROWS.
+RULES_CHECK_ROWS = 5_000
+SPLIT_CHECK_ROWS = 50_000
+# 4i: the provenance ledger on the 1M missing_heavy run, and the escalation
+# tier on escalation_table (NULL and regex detectors on c2)
+ESC_ROWS = 1_000_000
+ESC_BUDGET = 131_072
+ESC_CHECK_ROWS = 20_000
+ESC_CHECK_BUDGET = 4_096
+ESC_REGEX = "^[0-9]{3}-[0-9]{2}$"
+# least cells the joint tier (tier B, K8) must take in the 1M run
+ESC_MIN_JOINT_CELLS = 4_096
+# tolerance on ledger confidences and top-k probabilities, CPU against card
+LEDGER_TOL = 1e-5
+# the JSONL envelope header of a provenance ledger file
+LEDGER_HEADER = b"#DELPHI-STORE v1 provenance "
 
 
 def log(msg: str) -> None:
@@ -769,10 +805,10 @@ def rules_and_pmf(torch, T, traced) -> dict:
         del os.environ["DELPHI_REPAIR_CHUNK_ROWS"]
     out["pmf"] = {"rows": PMF_ROWS, "runs": runs}
 
-    # (c) CHECK_ROWS rows, CPU against card
+    # (c) RULES_CHECK_ROWS rows, CPU against card
     t0 = time.perf_counter()
-    sclean, sdirty, _ = fd_table(CHECK_ROWS, seed=9)
-    _, spdirty = missing_heavy(CHECK_ROWS, seed=10)
+    sclean, sdirty, _ = fd_table(RULES_CHECK_ROWS, seed=9)
+    _, spdirty = missing_heavy(RULES_CHECK_ROWS, seed=10)
     frames = {}
     for dev in ("cpu", "cuda"):
         T.set_device(dev)
@@ -791,7 +827,7 @@ def rules_and_pmf(torch, T, traced) -> dict:
             gpu["score"][["tid", "attribute", "repaired"]]) \
             or not np.allclose(w, g, rtol=PROB_TOL, atol=PROB_TOL):
         fail("pmf (c): the CPU and card scores differ")
-    pct = (1.0 - (PMF_DELTA * CHECK_ROWS // PMF_ROWS) / len(w)) * 100.0
+    pct = (1.0 - (PMF_DELTA * RULES_CHECK_ROWS // PMF_ROWS) / len(w)) * 100.0
     thres = np.percentile(w, pct)
     near = np.abs(w - thres) <= PROB_TOL * max(1.0, abs(thres))
     keys = lambda f: set(zip(f["tid"].tolist(), f["attribute"].tolist()))  # noqa: E731
@@ -807,7 +843,8 @@ def rules_and_pmf(torch, T, traced) -> dict:
                           "pmf_on_threshold_cut": on_cut,
                           "ml_cells_near_cut": int(near.sum()),
                           "ml_flipped": len(flipped)}
-    log(f"[rules-pmf] (c) {CHECK_ROWS} rows, CPU against card: rule repairs "
+    log(f"[rules-pmf] (c) {RULES_CHECK_ROWS} rows, CPU against card: rule "
+        "repairs "
         f"identical; PMF probabilities within {PROB_TOL}; "
         f"{json.dumps(out['cross_check'])} "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -856,29 +893,37 @@ def misc_and_cli(torch, T, traced) -> dict:
     out["depgraph"] = {"rows": DEPGRAPH_ROWS, "wall_s": wall,
                        "launches": launches}
 
-    # (b) input splitting, card against CPU, and one Lloyd iteration
+    # (b) input splitting on the card at SPLIT_ROWS rows, card against CPU
+    # at SPLIT_CHECK_ROWS rows, and one Lloyd iteration
     _, split_df, _ = fd_table(SPLIT_ROWS, seed=13)
     T.delphi.register_table("split_input", split_df)
+    T.delphi.register_table("split_check", split_df[:SPLIT_CHECK_ROWS])
     out["split"] = {}
+
+    def split(dev, name, alg):
+        T.set_device(dev)
+        t0 = time.perf_counter()
+        labels = T.delphi.misc.options({
+            "table_name": name, "row_id": "tid", "k": str(SPLIT_K),
+            "clustering_alg": alg}).splitInputTable()
+        return labels, time.perf_counter() - t0
+
     for alg in ("bisect-kmeans", "kmeans++"):
-        labels, secs = {}, {}
-        for dev in ("cuda", "cpu"):
-            T.set_device(dev)
-            t0 = time.perf_counter()
-            labels[dev] = T.delphi.misc.options({
-                "table_name": "split_input", "row_id": "tid",
-                "k": str(SPLIT_K), "clustering_alg": alg}).splitInputTable()
-            secs[dev] = time.perf_counter() - t0
-        if not labels["cuda"].equals(labels["cpu"]) \
-                or labels["cuda"]["k"].nunique() != SPLIT_K:
+        full, card_s = split("cuda", "split_input", alg)
+        on_card, check_card_s = split("cuda", "split_check", alg)
+        on_cpu, check_cpu_s = split("cpu", "split_check", alg)
+        if not on_card.equals(on_cpu) or full["k"].nunique() != SPLIT_K \
+                or on_card["k"].nunique() != SPLIT_K:
             fail(f"split (b): {alg} labels on the card differ from the "
                  "CPU's")
-        sizes = labels["cuda"]["k"].value_counts().sort_index().tolist()
-        out["split"][alg] = {"card_s": secs["cuda"], "cpu_s": secs["cpu"],
-                             "sizes": sizes}
-        log(f"[split] (b) {alg}, k={SPLIT_K}, {SPLIT_ROWS} rows: labels "
-            f"identical on the card and the CPU; cluster sizes {sizes}; "
-            f"card {secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s")
+        sizes = full["k"].value_counts().sort_index().tolist()
+        out["split"][alg] = {"card_s": card_s, "sizes": sizes,
+                             "check_card_s": check_card_s,
+                             "check_cpu_s": check_cpu_s}
+        log(f"[split] (b) {alg}, k={SPLIT_K}: {SPLIT_ROWS} rows on the card "
+            f"in {card_s:.3f} s, cluster sizes {sizes}; {SPLIT_CHECK_ROWS} "
+            f"rows: labels identical on the card ({check_card_s:.3f} s) and "
+            f"the CPU ({check_cpu_s:.3f} s)")
     T.set_device("cuda")
     X = torch.from_numpy(cluster.qgram_features(
         split_df.drop(columns=["tid"]), 2)).cuda()
@@ -929,6 +974,392 @@ def misc_and_cli(torch, T, traced) -> dict:
         f"({len(frame)} rows) equal to the in-process run's; "
         f"{proc.stderr.strip().splitlines()[-1]}")
     log(f"[misc-cli] summary {json.dumps(out, default=str)}")
+    return out
+
+
+def escalation_table(n: int):
+    """(dirty, truth) in the construction of the JAX package's escalation
+    fixture (``bench.py::_escalate_frames``): ``c1`` is a function of
+    ``c0``; ``c2`` is an ``NNN-NN`` code whose first factor appears in no
+    other column, so the models are unsure of it and its error cells
+    route; separators broken to ``x`` every 13th row from 5 (pattern-tier
+    repairable), NULLs in ``c1`` every 17th from 3 and in ``c2`` every 23rd
+    from 7. ``truth`` maps (tid, attribute) to the clean value of every
+    corrupted cell. One change: ``c2``'s factors are ``i % 3`` and
+    ``i % 8`` where the fixture has ``i % 7`` and ``i % 8``. With 56 codes
+    and their 56 broken spellings, the fixture's ``c2`` passes the default
+    discrete threshold (80 distinct values) only below a few hundred rows
+    and never fits the joint tier's 64-value domain, so at scale nothing
+    routes and tier B never launches; 24 codes and 24 broken spellings fit
+    both, and 24 classes keep ``c2`` on the GBDT."""
+    import pandas as pd
+    i = np.arange(n)
+    names = lambda fmt, k: np.array(  # noqa: E731
+        [fmt.format(v) for v in range(k)], dtype=object)
+    codes = np.array([f"{100 + a}-{10 + b}" for a in range(3)
+                      for b in range(8)], dtype=object)
+    clean = pd.DataFrame({
+        "tid": i.astype(str).astype(object),
+        "c0": names("g{}", 8)[i % 8],
+        "c1": names("v{}", 4)[(i % 8) % 4],
+        "c2": codes[(i % 3) * 8 + i % 8],
+    })
+    dirty = clean.copy()
+    c1 = dirty["c1"].to_numpy(dtype=object).copy()
+    c2 = dirty["c2"].to_numpy(dtype=object).copy()
+    truth = {}
+    breaks = np.arange(5, n, 13)
+    c2[breaks] = [v.replace("-", "x") for v in c2[breaks]]
+    truth.update({(str(r), "c2"): clean["c2"].iat[r] for r in breaks})
+    c1[np.arange(3, n, 17)] = None
+    truth.update({(str(r), "c1"): clean["c1"].iat[r]
+                  for r in range(3, n, 17)})
+    c2[np.arange(7, n, 23)] = None
+    truth.update({(str(r), "c2"): clean["c2"].iat[r]
+                  for r in range(7, n, 23)})
+    dirty["c1"], dirty["c2"] = c1, c2
+    return dirty, truth
+
+
+def escalation_f1(frame, truth) -> float:
+    """Cell-level F1 of a repair-candidates frame against the injected
+    cells (``bench.py::_escalate_f1``)."""
+    by_cell = dict(zip(zip(frame["tid"].astype(str), frame["attribute"]),
+                       frame["repaired"]))
+    correct = sum(1 for k, v in by_cell.items() if truth.get(k) == v)
+    p = correct / len(by_cell) if by_cell else 0.0
+    r = correct / len(truth) if truth else 0.0
+    return 2 * p * r / (p + r) if p + r else 0.0
+
+
+def escalation_model(T, df, budget=None, detectors=True):
+    dets = [T.NullErrorDetector()]
+    if detectors:
+        dets.append(T.RegExErrorDetector("c2", ESC_REGEX))
+    m = T.delphi.repair.setInput(df).setRowId("tid").setErrorDetectors(dets)
+    if budget is not None:
+        m = m.option("repair.escalate", "true") \
+            .option("repair.escalate.budget", str(budget))
+    return m
+
+
+class LedgerCapture:
+    """Keeps the ledgers ``run()`` finalizes, and times the ledger's work
+    while it is on: the per-cell record calls, the JSONL write, and the
+    extra ``predict_proba`` of the plain prediction path (the time of
+    ``RepairModel._record_prediction`` less the records it makes)."""
+
+    RECORDS = ("record_detection", "record_current_values",
+               "record_domain_sizes", "record_weak_label_demotions",
+               "record_model_score", "record_posterior",
+               "record_point_predictions", "record_pmf_topk",
+               "record_decisions", "record_decision",
+               "record_escalation_routed", "record_escalation")
+
+    def __init__(self):
+        from delphi_tpu_torch import model as t_model
+        from delphi_tpu_torch.observability import provenance
+        self.prov, self.model = provenance, t_model.RepairModel
+        self.ledgers, self.seconds = [], {}
+        self.saved = []
+
+    def __enter__(self):
+        prov, cls = self.prov, self.prov.ProvenanceLedger
+
+        def timed(owner, name, key):
+            orig = getattr(owner, name)
+            self.saved.append((owner, name, vars(owner)[name]))
+
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **k)
+                finally:
+                    self.seconds[key] = self.seconds.get(key, 0.0) \
+                        + time.perf_counter() - t0
+            setattr(owner, name, staticmethod(wrapper)
+                    if isinstance(owner.__dict__.get(name), staticmethod)
+                    else wrapper)
+
+        for name in self.RECORDS:
+            timed(cls, name, "records")
+        for name in ("record_posterior", "record_point_predictions"):
+            self.saved.append((cls, name, vars(cls)[name]))
+
+        def in_prediction(orig):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **k)
+                finally:
+                    self.seconds["prediction_records"] = self.seconds.get(
+                        "prediction_records", 0.0) \
+                        + time.perf_counter() - t0
+            return wrapper
+        cls.record_posterior = in_prediction(cls.record_posterior)
+        cls.record_point_predictions = in_prediction(
+            cls.record_point_predictions)
+        timed(cls, "write", "write")
+        timed(self.model, "_record_prediction", "prediction")
+        orig_finalize = prov.finalize
+        self.saved.append((prov, "finalize", orig_finalize))
+
+        def finalize(holder):
+            if getattr(holder, "provenance", None) is not None:
+                self.ledgers.append(holder.provenance)
+            return orig_finalize(holder)
+        prov.finalize = finalize
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self.saved):
+            setattr(owner, name, orig)
+        self.saved = []
+
+    def split(self) -> dict:
+        s = self.seconds
+        return {"records_s": s.get("records", 0.0),
+                "write_s": s.get("write", 0.0),
+                "extra_predict_proba_s": s.get("prediction", 0.0)
+                - s.get("prediction_records", 0.0)}
+
+
+def entries_match(label, got, want) -> None:
+    """Ledger entries: every discrete field equal, confidence and top-k
+    probabilities within LEDGER_TOL, top-k values equal where no other
+    probability of the entry is within LEDGER_TOL."""
+    if len(got) != len(want) or not want:
+        fail(f"{label}: {len(got)} ledger entries against {len(want)}")
+    discrete = ("row_id", "attribute", "detectors", "current_value",
+                "domain_size", "decision", "decision_reason", "repaired",
+                "escalation_routed", "escalation_tier")
+    for g, w in zip(got, want):
+        if set(g) != set(w) or any(g.get(f) != w.get(f) for f in discrete):
+            fail(f"{label}: ledger entries differ: {g} against {w}")
+        for f in ("confidence", "escalation_confidence"):
+            if (g.get(f) is None) != (w.get(f) is None) or (
+                    w.get(f) is not None
+                    and abs(g[f] - w[f]) > LEDGER_TOL):
+                fail(f"{label}: {f} differs: {g} against {w}")
+        gk, wk = g.get("top_k") or [], w.get("top_k") or []
+        if len(gk) != len(wk):
+            fail(f"{label}: top-k differ: {g} against {w}")
+        for i, (a, b) in enumerate(zip(gk, wk)):
+            if b["prob"] is None:
+                if a != b:
+                    fail(f"{label}: top-k differ: {g} against {w}")
+                continue
+            if abs(a["prob"] - b["prob"]) > LEDGER_TOL or (
+                    a["value"] != b["value"] and not any(
+                        abs(b["prob"] - o["prob"]) <= LEDGER_TOL
+                        for j, o in enumerate(wk) if j != i)):
+                fail(f"{label}: top-k differ: {g} against {w}")
+
+
+def time_k8(torch, k_joint, args) -> float:
+    """CUDA-event ms of one K8 call on recorded inputs (median of 5)."""
+    k_joint.joint_ascent(*args)
+    out = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        k_joint.joint_ascent(*args)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def k8_bound_ms(args) -> float:
+    """Reading nbr_pot once an iteration, iters * n * K * V^2 * 4 bytes, at
+    the card's memory rate."""
+    _, _, pot, iters = args
+    return iters * pot.numel() * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def ledger_and_escalation(torch, T, traced, dirty, n_err) -> dict:
+    """Phase 4i (module docstring): the provenance ledger on the 1M
+    missing_heavy run, the escalation tier at full width, CPU against card,
+    and the CLI."""
+    import tempfile
+
+    import pandas as pd
+    from delphi_tpu_torch.ops import joint as k_joint
+    from delphi_tpu_torch.parallel import store
+    from delphi_tpu_torch.utils import counters, phase_walls
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="delphi_smoke_")
+
+    # (a) the ledger on the 1M missing_heavy run at default options, and
+    # the same run without it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = repair(T, dirty)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "ledger.jsonl")
+    os.environ["DELPHI_PROVENANCE_PATH"] = path
+    try:
+        with LedgerCapture() as cap:
+            t0 = time.perf_counter()
+            with_ledger = repair(T, dirty)
+            torch.cuda.synchronize()
+            ledger_s = time.perf_counter() - t0
+    finally:
+        del os.environ["DELPHI_PROVENANCE_PATH"]
+    if not with_ledger.equals(plain):
+        fail("ledger (a): the frame with a ledger differs from the one "
+             "without")
+    if len(cap.ledgers) != 1:
+        fail(f"ledger (a): {len(cap.ledgers)} ledgers finalized, not one")
+    cells = list(cap.ledgers[0]._cells.values())
+    undecided = sum(1 for e in cells if "decision" not in e)
+    if len(cells) != n_err or undecided:
+        fail(f"ledger (a): {len(cells)} entries for {n_err} detected cells, "
+             f"{undecided} without a decision")
+    rows, status = store.read_jsonl(path, schema="provenance",
+                                    site="store.provenance")
+    if status != "ok" or len(rows) != n_err:
+        fail(f"ledger (a): the file reads back {status}")
+    out["ledger"] = {"rows": E2E_ROWS, "entries": len(cells),
+                     "wall_s": ledger_s, "plain_wall_s": plain_s,
+                     "file_bytes": os.path.getsize(path), **cap.split()}
+    log(f"[ledger] (a) {E2E_ROWS} rows missing_heavy, default options: "
+        f"{json.dumps(out['ledger'])}; frame equal to the run without a "
+        "ledger, one decided entry per detected cell")
+
+    # (b) escalation at full width
+    edirty, truth = escalation_table(ESC_ROWS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = escalation_model(T, edirty).run()
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    k8_calls = []
+    orig_k8 = k_joint.joint_ascent
+
+    def rec_k8(unary, nbr_idx, nbr_pot, iters):
+        k8_calls.append((unary, nbr_idx, nbr_pot, iters))
+        return orig_k8(unary, nbr_idx, nbr_pot, iters)
+
+    model = escalation_model(T, edirty, ESC_BUDGET)
+    k_joint.reset_launches()
+    k_joint.joint_ascent = rec_k8
+    try:
+        on, wall, launches, counts, walls, peak, held = traced(
+            "escalation", model.run)
+    finally:
+        k_joint.joint_ascent = orig_k8
+    summary = model._last_escalation
+    f1_off, f1_on = escalation_f1(off, truth), escalation_f1(on, truth)
+    tiers = summary["tiers"]
+    joint_cells = counts.get("escalation.joint.cells", 0)
+    tier_walls = {k: v for k, v in walls.items()
+                  if k.startswith("escalation.")}
+    log(f"[escalation] (b) {ESC_ROWS} rows, budget {ESC_BUDGET}: wall_s="
+        f"{wall:.3f} (without escalation {off_s:.3f}), escalation span "
+        f"{walls.get('escalation', 0.0):.3f} s (by step: "
+        f"{json.dumps(tier_walls)}); routed {summary['routed']}, "
+        f"escalated {summary['escalated']}, budget "
+        f"{json.dumps(summary['budget'])}, tiers {json.dumps(tiers)}; "
+        f"phase walls {json.dumps(walls)}; counters {json.dumps(counts)}; "
+        f"launches {launches}; peak device memory {peak:.1f} MiB above "
+        f"{held:.1f} MiB; cell F1 off {f1_off:.6f}, on {f1_on:.6f}")
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"escalation (b): kernel {name} was not launched")
+    if joint_cells < ESC_MIN_JOINT_CELLS or not k8_calls:
+        fail(f"escalation (b): tier B took {joint_cells} cells, fewer than "
+             f"{ESC_MIN_JOINT_CELLS}")
+    if f1_on < f1_off:
+        fail(f"escalation (b): F1 with escalation {f1_on} below {f1_off}")
+    k8 = []
+    for args in k8_calls:
+        n_pad, v_pad = (int(d) for d in args[0].shape)
+        k8.append({"n_pad": n_pad, "v_pad": v_pad, "iters": int(args[3]),
+                   "ms": time_k8(torch, k_joint, args),
+                   "bound_ms": k8_bound_ms(args)})
+        log(f"[escalation] (b) K8 launch (n_pad={n_pad}, V_pad={v_pad}, "
+            f"iters={args[3]}): {k8[-1]['ms']:.4f} ms, bound "
+            f"{k8[-1]['bound_ms']:.4f} ms")
+    del k8_calls
+    torch.cuda.empty_cache()
+    out["escalation"] = {
+        "rows": ESC_ROWS, "budget": ESC_BUDGET, "wall_s": wall,
+        "off_wall_s": off_s, "span_s": walls.get("escalation", 0.0),
+        "tier_walls": tier_walls,
+        "routed": summary["routed"], "escalated": summary["escalated"],
+        "tiers": tiers, "joint_cells": joint_cells, "f1_off": f1_off,
+        "f1_on": f1_on, "k8": k8, "k8_launches": k_joint.launches}
+
+    # (c) CPU against card, ledger entries included
+    t0 = time.perf_counter()
+    sdirty, _ = escalation_table(ESC_CHECK_ROWS)
+    runs = {}
+    os.environ["DELPHI_PROVENANCE_PATH"] = ":memory:"
+    try:
+        for dev in ("cpu", "cuda"):
+            T.set_device(dev)
+            m = escalation_model(T, sdirty, ESC_CHECK_BUDGET)
+            with LedgerCapture() as cap:
+                frame = m.run()
+            runs[dev] = (frame, m._last_escalation, cap.ledgers[0].entries())
+    finally:
+        del os.environ["DELPHI_PROVENANCE_PATH"]
+        T.set_device("cuda")
+    (f_cpu, s_cpu, e_cpu), (f_gpu, s_gpu, e_gpu) = runs["cpu"], runs["cuda"]
+    if not f_gpu.equals(f_cpu):
+        fail("escalation (c): the card's frame differs from the CPU's")
+    for key in ("routed_cells", "escalated_cells", "routed", "escalated",
+                "budget", "tiers"):
+        if s_gpu[key] != s_cpu[key]:
+            fail(f"escalation (c): {key} differs between CPU and card")
+    entries_match("escalation (c)", e_gpu, e_cpu)
+    if not s_gpu["escalated"]:
+        fail("escalation (c): nothing escalated")
+    out["cross_check"] = {"rows": ESC_CHECK_ROWS, "repairs": len(f_gpu),
+                          "routed": s_gpu["routed"],
+                          "escalated": s_gpu["escalated"],
+                          "entries": len(e_gpu)}
+    log(f"[escalation] (c) {ESC_CHECK_ROWS} rows, budget {ESC_CHECK_BUDGET}, "
+        f"CPU against card: frames, routed and escalated cells equal, ledger "
+        f"entries equal within {LEDGER_TOL}: {json.dumps(out['cross_check'])}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+
+    # (d) the CLI with --escalate and --provenance-out in a subprocess
+    csv_in = os.path.join(tmp, "esc.csv")
+    sdirty.to_csv(csv_in, index=False)
+    csv_out, led = os.path.join(tmp, "esc_out.csv"), os.path.join(
+        tmp, "esc.jsonl")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DELPHI_TORCH_DEVICE", "DELPHI_PROVENANCE_PATH")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "delphi_tpu_torch.main", "--input", csv_in,
+         "--row-id", "tid", "--output", csv_out, "--escalate",
+         "--escalate-budget", str(ESC_CHECK_BUDGET), "--provenance-out",
+         led], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli (d): exit {proc.returncode}: {proc.stderr[-2000:]}")
+    frame = escalation_model(T, pd.read_csv(csv_in), ESC_CHECK_BUDGET,
+                             detectors=False).run()
+    want = os.path.join(tmp, "esc_in_process.csv")
+    frame.to_csv(want, index=False)
+    with open(csv_out) as a, open(want) as b:
+        if a.read() != b.read() or not len(frame):
+            fail("cli (d): the CLI's CSV differs from the in-process frame")
+    with open(led, "rb") as f:
+        if not f.readline().startswith(LEDGER_HEADER):
+            fail("cli (d): the ledger file lacks the envelope header")
+    out["cli"] = {"rows": ESC_CHECK_ROWS, "wall_s": cli_s,
+                  "repairs": len(frame), "ledger_bytes": os.path.getsize(led)}
+    log(f"[escalation] (d) python -m delphi_tpu_torch.main --escalate "
+        f"--provenance-out on {ESC_CHECK_ROWS} rows: {cli_s:.3f} s including "
+        f"the interpreter; CSV ({len(frame)} rows) equal to the in-process "
+        "run's; the ledger file starts with the envelope header")
+    log(f"[ledger-escalation] summary {json.dumps(out, default=str)}")
     return out
 
 
@@ -1506,6 +1937,10 @@ def main() -> None:
     # -- 4h. delphi.misc and the batch CLI ------------------------------------
     misc_and_cli(torch, T, traced)
 
+    # -- 4i. the provenance ledger and the escalation tier -------------------
+    esc = ledger_and_escalation(torch, T, traced, dirty,
+                                int(dirty[cells].isna().to_numpy().sum()))
+
     # -- 4b. each kernel on the inputs each path gave it ---------------------
     def main_path(rows):
         keys = ("ms", "host_ms", "kernel_ms", "plain_ms", "library_ms",
@@ -1664,9 +2099,19 @@ def main() -> None:
          "library_ms": None, "shapes": shapes(k2_shapes),
          "paths": paths["entropy_terms"], "ok": True},
     ]
+    k8 = esc["escalation"]["k8"]
+    programs = [
+        {"name": "joint_ascent", "route": "pytorch",
+         "source": "delphi_tpu_torch/ops/joint.py",
+         "replaces": "delphi_tpu/ops/joint.py:46",
+         "launches": esc["escalation"]["k8_launches"],
+         "ms": sum(r["ms"] for r in k8),
+         "bound_ms": sum(r["bound_ms"] for r in k8), "bound_by": "bytes",
+         "per_launch": k8, "hand_kernel": False},
+    ]
     log(f"[total] {time.perf_counter() - t_start:.1f} s from start to the "
         "result lines")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "pytorch_programs": programs}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

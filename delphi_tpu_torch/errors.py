@@ -31,6 +31,7 @@ from delphi_tpu_torch.ops.entropy import (compute_pairwise_stats,
                                           select_candidate_pairs)
 from delphi_tpu_torch.ops.freq import (FreqStats, PairDistinctCounter,
                                        compute_freq_stats)
+from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.session import get_session
 from delphi_tpu_torch.table import (DiscretizedTable, EncodedTable,
                                     discretize_table)
@@ -419,11 +420,17 @@ class ErrorModel:
         keep_capture = any(isinstance(d, ConstraintErrorDetector)
                            for d in detectors)
         self._non_constraint_frames = [] if keep_capture else None
+        led = active_ledger()
         for d in detectors:
             d.setUp(self.row_id, input_name, continuous_columns, target_attrs,
                     encoded_table=table)
             cells = d.detect()
             frames.append(cells)
+            if led is not None and len(cells):
+                led.record_detection(
+                    str(d), cells[ROW_IDX].to_numpy(),
+                    cells["attribute"].to_numpy(dtype=object),
+                    cells[self.row_id].to_numpy())
             if keep_capture and len(cells) \
                     and not isinstance(d, ConstraintErrorDetector):
                 assert self._non_constraint_frames is not None
@@ -476,7 +483,14 @@ class ErrorModel:
                 count=len(miss_uniques))
             idx = np.where(idx >= 0, idx, lut[miss_codes])
         df = df.assign(**{ROW_IDX: idx})
-        return df[df[ROW_IDX] >= 0].reset_index(drop=True)
+        df = df[df[ROW_IDX] >= 0].reset_index(drop=True)
+        led = active_ledger()
+        if led is not None and len(df):
+            led.record_detection(
+                "user_supplied", df[ROW_IDX].to_numpy(),
+                df["attribute"].to_numpy(dtype=object),
+                df[self.row_id].to_numpy())
+        return df
 
     def _with_current_values(self, table: EncodedTable, cells_df: pd.DataFrame,
                              factorized=None) -> pd.DataFrame:
@@ -517,6 +531,12 @@ class ErrorModel:
             noisy_columns = list(factorized[1])
             noisy_cells_df = self._with_current_values(
                 table, noisy_cells_df, factorized=factorized)
+            led = active_ledger()
+            if led is not None:
+                led.record_current_values(
+                    noisy_cells_df[self.row_id].to_numpy(),
+                    noisy_cells_df["attribute"].to_numpy(dtype=object),
+                    noisy_cells_df["current_value"].to_numpy(dtype=object))
         return noisy_cells_df, noisy_columns
 
     @job_phase(name="attr stats")
@@ -570,6 +590,11 @@ class ErrorModel:
             self._get_option_value(*self._opt_domain_threshold_alpha),
             self._get_option_value(*self._opt_domain_threshold_beta))
         fixed = int(demote.sum())
+        led = active_ledger()
+        if led is not None and fixed:
+            led.record_weak_label_demotions(
+                noisy_cells_df[self.row_id].to_numpy()[demote],
+                attrs_np[demote])
         error_cells_df = noisy_cells_df[~demote].reset_index(drop=True)
         assert len(noisy_cells_df) == len(error_cells_df) + fixed
         counter_inc("domain.cells_fixed", fixed)

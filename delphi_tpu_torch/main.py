@@ -8,7 +8,9 @@ the repair pipeline on the port's device (``cuda``; the CPU with
 ``DELPHI_TORCH_DEVICE=cpu``), and writes the result CSV. ``--detect-only``
 emits the error cells instead of repairs; ``--constraints`` adds a
 ConstraintErrorDetector; ``--chunksize`` streams the CSV into an encoded
-table without one whole pandas frame.
+table without one whole pandas frame; ``--escalate`` (with
+``--escalate-conf`` and ``--escalate-budget``) runs the escalation pass;
+``--provenance-out`` writes the per-cell provenance ledger as JSONL.
 
 Every other flag of the JAX package's CLI is accepted under its own name
 and raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
@@ -26,7 +28,7 @@ from delphi_tpu_torch.errors import ConstraintErrorDetector, NullErrorDetector
 from delphi_tpu_torch.session import get_session
 
 _OBSERVABILITY = "queue 1 item 10 of ROADMAP.md (observability)"
-_INCREMENTAL = "queue 1 item 7 of ROADMAP.md (escalation and incremental runs)"
+_INCREMENTAL = "queue 1 item 7 of ROADMAP.md (incremental runs)"
 _PLANES = "queue 1 item 8 of ROADMAP.md (execution planes)"
 _MULTI_GPU = "queue 1 item 9 of ROADMAP.md (multi-GPU)"
 
@@ -39,7 +41,6 @@ _UNPORTED = [
     ("--autoscale", dict(action="store_true"), _OBSERVABILITY),
     ("--metrics-out", dict(type=str, default=""), _OBSERVABILITY),
     ("--metrics-port", dict(type=int, default=None), _OBSERVABILITY),
-    ("--provenance-out", dict(type=str, default=""), _OBSERVABILITY),
     ("--baseline-report", dict(type=str, default=""), _OBSERVABILITY),
     ("--drift-fail-over", dict(type=float, default=None), _OBSERVABILITY),
     ("--gauntlet", dict(action="store_true"), _OBSERVABILITY),
@@ -50,9 +51,6 @@ _UNPORTED = [
     ("--incremental", dict(action="store_true"), _INCREMENTAL),
     ("--snapshot-dir", dict(type=str, default=""), _INCREMENTAL),
     ("--stream", dict(type=int, default=0), _INCREMENTAL),
-    ("--escalate", dict(action="store_true"), _INCREMENTAL),
-    ("--escalate-conf", dict(type=float, default=None), _INCREMENTAL),
-    ("--escalate-budget", dict(type=int, default=None), _INCREMENTAL),
     ("--checkpoint-dir", dict(type=str, default=""), _PLANES),
     ("--fault-plan", dict(type=str, default=""), _PLANES),
     ("--compile-cache-dir", dict(type=str, default=""), _PLANES),
@@ -101,6 +99,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "numeric (a column that mixes strings and "
                              "numbers across chunks fails loudly), 'str' "
                              "reads everything as strings")
+    parser.add_argument("--escalate", dest="escalate", action="store_true",
+                        help="confidence-routed escalation pass over the "
+                             "cells the models are unsure about "
+                             "(DELPHI_ESCALATE / repair.escalate)")
+    parser.add_argument("--escalate-conf", dest="escalate_conf", type=float,
+                        default=None,
+                        help="confidence below which cells route to "
+                             "escalation (default 0.5)")
+    parser.add_argument("--escalate-budget", dest="escalate_budget",
+                        type=int, default=None,
+                        help="most cell x tier escalation attempts per run "
+                             "(default 256)")
+    parser.add_argument("--provenance-out", dest="provenance_out", type=str,
+                        default="",
+                        help="write the per-cell repair provenance ledger "
+                             "here as JSONL (repair.provenance.path)")
     for flag, kwargs, item in _UNPORTED:
         parser.add_argument(flag, dest=_dest(flag),
                             help=f"not ported yet ({item})", **kwargs)
@@ -139,8 +153,26 @@ def main(argv: Optional[List[str]] = None) -> int:
         .setDiscreteThreshold(args.discrete_threshold)
     if args.targets:
         model = model.setTargets(args.targets.split(","))
-    result = model.run(detect_errors_only=args.detect_only,
-                       repair_data=args.repair_data)
+    if args.escalate:
+        model = model.option("repair.escalate", "true")
+    if args.escalate_conf is not None:
+        model = model.option("repair.escalate.conf", str(args.escalate_conf))
+    if args.escalate_budget is not None:
+        model = model.option("repair.escalate.budget",
+                             str(args.escalate_budget))
+    prior = session.conf.get("repair.provenance.path")
+    if args.provenance_out:
+        session.conf["repair.provenance.path"] = args.provenance_out
+    try:
+        result = model.run(detect_errors_only=args.detect_only,
+                           repair_data=args.repair_data)
+    finally:
+        if args.provenance_out:
+            # the setting belongs to this invocation, not the session
+            if prior is None:
+                session.conf.pop("repair.provenance.path", None)
+            else:
+                session.conf["repair.provenance.path"] = prior
     result.to_csv(args.output, index=False)
     print(f"wrote {len(result)} rows to {args.output}", file=sys.stderr)
     return 0

@@ -11,12 +11,18 @@ rows), the one-tuple denial-constraint repair minimization, repair
 validation against the constraints, and the PMF, score and
 maximal-likelihood modes. Settings of the reference that the port does
 not have yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings them: checkpoints (queue 1 item 8), escalation, incremental
-runs and their snapshots (item 7).
+that brings them: checkpoints (queue 1 item 8), incremental runs, their
+snapshots and the store's quota sweep (item 7), the run report and live
+telemetry (item 10). With ``DELPHI_PROVENANCE_PATH`` /
+``repair.provenance.path`` set, every flagged cell gets a provenance
+ledger entry (:mod:`delphi_tpu_torch.observability.provenance`); with
+``repair.escalate`` on, the cells the models are unsure about go through
+the escalation tiers (:mod:`delphi_tpu_torch.escalate`).
 
 DataFrames in and out are pandas.
 """
 
+import contextlib
 import copy
 import heapq
 import os
@@ -26,6 +32,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import pandas as pd
 
+from delphi_tpu_torch import escalate as _escalate
 from delphi_tpu_torch.constraints import Constant
 from delphi_tpu_torch.costs import UpdateCostFunction
 from delphi_tpu_torch.depgraph import (compute_functional_dep_map,
@@ -34,6 +41,8 @@ from delphi_tpu_torch.errors import (ROW_IDX, ConstraintErrorDetector,
                                      ErrorDetector, ErrorModel,
                                      RegExErrorDetector)
 from delphi_tpu_torch.models.encoding import FeatureEncoder, OrdinalEncoder
+from delphi_tpu_torch.observability import provenance as _prov
+from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.regex_repair import RegexStructureRepair
 from delphi_tpu_torch.session import AnalysisException, get_session
 from delphi_tpu_torch.ops.detect import (_one_tuple_violations,
@@ -57,6 +66,7 @@ _TRUTHY = ("1", "true", "yes", "on")
 # The ROADMAP.md items that bring the settings run() still rejects
 _STORE_ITEM = "queue 1 item 8 of ROADMAP.md, the durable-store seam"
 _INCREMENTAL_ITEM = "queue 1 item 7 of ROADMAP.md"
+_OBSERVABILITY_ITEM = "queue 1 item 10 of ROADMAP.md, observability"
 
 
 class PoorModel:
@@ -156,6 +166,46 @@ def _phase_checkpoint_dir() -> Optional[str]:
         return env.strip()
     conf = get_session().conf.get("repair.checkpoint.dir")
     return str(conf).strip() if conf and str(conf).strip() else None
+
+
+# (environment variable, session conf key, how the JAX package parses it,
+# what it turns on) of the observability planes the port does not have yet
+_OBSERVABILITY_SETTINGS = [
+    ("DELPHI_METRICS_PATH", "repair.metrics.path", None, "the run report"),
+    ("DELPHI_METRICS_PORT", "repair.metrics.port", int, "live telemetry"),
+    ("DELPHI_STALL_TIMEOUT_S", "repair.metrics.stall_timeout_s", float,
+     "the stall watchdog"),
+]
+
+
+def _env_or_conf(env: str, conf: str, cast: Any) -> bool:
+    """Whether the JAX package would see the setting: the environment
+    variable wins over the session conf; a path counts when non-empty, a
+    port or a timeout when ``cast`` parses it."""
+    if cast is None:
+        return bool(os.environ.get(env) or get_session().conf.get(conf))
+    raw = os.environ.get(env)
+    if raw is None or not str(raw).strip():
+        raw = get_session().conf.get(conf)
+    if raw is None or not str(raw).strip():
+        return False
+    try:
+        cast(str(raw).strip())
+    except ValueError:
+        return False
+    return True
+
+
+def _store_quota_set() -> bool:
+    """``DELPHI_STORE_QUOTA_GB`` as the JAX package's store parses it."""
+    raw = os.environ.get("DELPHI_STORE_QUOTA_GB")
+    if raw is None or not raw.strip():
+        return False
+    try:
+        float(raw.strip())
+    except ValueError:
+        return False
+    return True
 
 
 class RepairModel:
@@ -424,9 +474,36 @@ class RepairModel:
         mask = df["attribute"].isin(targets)
         return df[~mask if negate else mask].reset_index(drop=True)
 
+    def _incremental_requested(self) -> bool:
+        """The JAX package's reading of ``repair.incremental``: the option
+        (Python truthiness of its string), then ``DELPHI_INCREMENTAL``,
+        then the session conf (1/true/yes/on)."""
+        if self._opt_incremental.key in self.opts:
+            return bool(self._get_option_value(*self._opt_incremental))
+        env = os.environ.get("DELPHI_INCREMENTAL")
+        if env is not None:
+            return env.strip().lower() in _TRUTHY
+        conf = get_session().conf.get("repair.incremental")
+        return conf is not None and str(conf).strip().lower() in _TRUTHY
+
+    def _snapshot_dir(self) -> Optional[str]:
+        """``repair.snapshot.dir``: the option, then
+        ``DELPHI_SNAPSHOT_DIR``, then the session conf."""
+        if self._opt_snapshot_dir.key in self.opts:
+            v = str(self._get_option_value(*self._opt_snapshot_dir)).strip()
+            return v or None
+        env = os.environ.get("DELPHI_SNAPSHOT_DIR")
+        if env is not None and env.strip():
+            return env.strip()
+        conf = get_session().conf.get("repair.snapshot.dir")
+        return str(conf).strip() if conf and str(conf).strip() else None
+
     def _reject_unported(self) -> None:
         """Raises for every setting of the reference the port does not
-        have yet, before any work starts: none is silently ignored."""
+        have yet, before any work starts: none is silently ignored. Each
+        setting is read as the JAX package reads it (option, then
+        environment, then session conf), so an explicit false spelling
+        does not raise."""
         def unported(what: str, later: str) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to delphi_tpu_torch yet ({later})")
@@ -437,12 +514,21 @@ class RepairModel:
         if _phase_checkpoint_dir():
             unported("phase checkpoints (DELPHI_CHECKPOINT_DIR or the "
                      "session conf repair.checkpoint.dir)", _STORE_ITEM)
-        if self.opts.get(self._opt_snapshot_dir.key):
-            unported(f"option {self._opt_snapshot_dir.key} (incremental "
-                     "snapshots)", _INCREMENTAL_ITEM)
-        for key in (self._opt_incremental.key, self._opt_escalate.key):
-            if str(self.opts.get(key, "")).strip().lower() in _TRUTHY:
-                unported(f"option {key}", _INCREMENTAL_ITEM)
+        if self._snapshot_dir():
+            unported("incremental snapshots (option or session conf "
+                     f"{self._opt_snapshot_dir.key}, DELPHI_SNAPSHOT_DIR)",
+                     _INCREMENTAL_ITEM)
+        if self._incremental_requested():
+            unported(f"incremental runs (option or session conf "
+                     f"{self._opt_incremental.key}, DELPHI_INCREMENTAL)",
+                     _INCREMENTAL_ITEM)
+        if _store_quota_set():
+            unported("the durable store's quota sweep "
+                     "(DELPHI_STORE_QUOTA_GB)", _INCREMENTAL_ITEM)
+        for env, conf, cast, what in _OBSERVABILITY_SETTINGS:
+            if _env_or_conf(env, conf, cast):
+                unported(f"{what} ({env} or the session conf {conf})",
+                         _OBSERVABILITY_ITEM)
 
     # -- phase 1: error detection --------------------------------------------
 
@@ -580,15 +666,27 @@ class RepairModel:
         cells; returns (the cells still to repair, the rule repairs). The
         count of each goes to ``utils.counters`` (``rules.regex_repairs``,
         ``rules.nearest_value_repairs``)."""
+        led = active_ledger()
+
+        def _record_rule_repairs(frame: pd.DataFrame, reason: str) -> None:
+            if led is not None and len(frame):
+                led.record_decisions(
+                    frame[self._row_id].to_numpy(),
+                    frame["attribute"].to_numpy(dtype=object),
+                    _prov.DECISION_REPAIRED, reason,
+                    repaired=frame["repaired"].to_numpy(dtype=object))
+
         repaired_dfs = [self._empty_repaired_cells_frame()]
         if self._repair_by_regex_enabled:
             error_cells_df, by_regex = self._repair_by_regexs(error_cells_df)
             counter_inc("rules.regex_repairs", len(by_regex))
+            _record_rule_repairs(by_regex, _prov.REASON_RULE_REGEX_STRUCTURE)
             repaired_dfs.append(by_regex)
         if self._repair_by_nearest_values_enabled:
             error_cells_df, by_nv = self._repair_by_nearest_values(
                 masked, error_cells_df, target_columns, integral_columns)
             counter_inc("rules.nearest_value_repairs", len(by_nv))
+            _record_rule_repairs(by_nv, _prov.REASON_RULE_NEAREST_VALUE)
             repaired_dfs.append(by_nv)
         repaired_by_rules = pd.concat(repaired_dfs, ignore_index=True)
         return error_cells_df, repaired_by_rules
@@ -921,7 +1019,10 @@ class RepairModel:
         """Batched repair inference: for each model (in dependency order)
         predict the NULL cells of its target column over the whole dirty-row
         block at once. In the PMF modes a discrete target's cells hold
-        ``{"classes", "probs"}`` dicts from ``predict_proba`` instead."""
+        ``{"classes", "probs"}`` dicts from ``predict_proba`` instead. With
+        a provenance ledger active, each cell's top-k posterior is
+        recorded; outside the PMF modes that costs one more
+        ``predict_proba`` per discrete target."""
         _logger.info(
             f"[Repairing Phase] Computing {len(error_cells_df)} repair updates in "
             f"{len(dirty_rows_df)} rows...")
@@ -930,18 +1031,26 @@ class RepairModel:
             c: True for c in dirty_rows_df.columns
             if pd.api.types.is_integer_dtype(dirty_rows_df[c].dtype)}
         need_pmf = compute_repair_candidate_prob or maximal_likelihood_repair
+        led = active_ledger()
         pdf = dirty_rows_df.reset_index(drop=True).copy()
         for y, (model, features, transformers) in models:
             missing = pdf[y].isna()
             miss_idx = np.nonzero(missing.to_numpy())[0]
             if len(miss_idx) == 0:
                 continue
+            miss_rids = pdf[self._row_id].to_numpy()[miss_idx] \
+                if led is not None else None
             X: Any = pdf[features].iloc[miss_idx]
             if transformers:
                 X = self._encode_features(transformers, X)
             if need_pmf and y not in continuous_columns:
                 predicted = model.predict_proba(X)
                 classes_str = [str(c) for c in model.classes_.tolist()]
+                if led is not None:
+                    led.record_posterior(y, miss_rids, classes_str,
+                                         np.asarray(predicted,
+                                                    dtype=np.float64),
+                                         domain_size=len(classes_str))
 
                 def _to_pmf(probs: Any) -> Dict[str, Any]:
                     if probs is None:
@@ -954,6 +1063,9 @@ class RepairModel:
                 pdf[y] = filled
                 continue
             predicted = np.asarray(model.predict(X))
+            if led is not None:
+                self._record_prediction(led, y, model, X, miss_rids,
+                                        predicted, continuous_columns)
             if y in integral_columns:
                 vals = np.round(pd.to_numeric(
                     pd.Series(predicted), errors="coerce").to_numpy())
@@ -968,6 +1080,28 @@ class RepairModel:
             filled.iloc[miss_idx] = vals
             pdf[y] = filled
         return pdf
+
+    @staticmethod
+    def _record_prediction(led: Any, y: str, model: Any, X: Any,
+                           row_ids: np.ndarray, predicted: np.ndarray,
+                           continuous_columns: List[str]) -> None:
+        """The ledger's posterior for the plain prediction path, which
+        never calls ``predict_proba``: its top-k comes from one extra call,
+        paid only with a ledger active. Regressors and models without
+        ``predict_proba`` record a top-1 without probability, as does an
+        FD rule model whose posterior has no row for an unknown key."""
+        if y in continuous_columns or not hasattr(model, "predict_proba") \
+                or not hasattr(model, "classes_"):
+            led.record_point_predictions(y, row_ids, predicted)
+            return
+        try:
+            probs = np.asarray(model.predict_proba(X), dtype=np.float64)
+        except (TypeError, ValueError):
+            led.record_point_predictions(y, row_ids, predicted)
+            return
+        led.record_posterior(y, row_ids,
+                             [str(c) for c in model.classes_.tolist()],
+                             probs, domain_size=len(model.classes_))
 
     def _one_tuple_dc_plan(self, table: EncodedTable,
                            error_cells_df: pd.DataFrame) -> Optional[Dict[str, Any]]:
@@ -1108,6 +1242,21 @@ class RepairModel:
                     return None
             return None
 
+        led = active_ledger()
+
+        def _record_keep_all(cands: List[Any]) -> None:
+            # the distinct "confidence unavailable -> keep all repairs"
+            # outcome, with the sticky reason explaining why no
+            # minimization happened
+            if led is None:
+                return
+            for _i, r, _row_flagged, fixable, _options in cands:
+                rid = table.row_id_values[r]
+                for a in fixable:
+                    led.record_decision(
+                        rid, a, _prov.DECISION_REPAIRED,
+                        _prov.REASON_CONFIDENCE_UNAVAILABLE)
+
         out = repaired_rows_df
         # (frame position, attr) -> the ORIGINAL model repair, recorded the
         # first time any plan reverts that cell (later plans reverting the
@@ -1165,11 +1314,13 @@ class RepairModel:
                 for i, sc in zip(row_is, scores):
                     conf[(a, i)] = float(sc)
             if not usable:
+                _record_keep_all(candidates)
                 continue
 
             for i, r, row_flagged, fixable, options in candidates:
                 scored = [(conf.get((a, i), np.nan), a) for a in options]
                 if any(np.isnan(sc) for sc, _ in scored):
+                    _record_keep_all([(i, r, row_flagged, fixable, options)])
                     continue  # confidence unavailable -> keep all repairs
                 best = max(scored)[1]
                 reverted = []
@@ -1179,6 +1330,11 @@ class RepairModel:
                             (i, a), out.at[out.index[i], a])
                         out.at[out.index[i], a] = row_flagged[a]
                         reverted.append(a)
+                if led is not None and reverted:
+                    rid = table.row_id_values[r]
+                    for a in reverted:
+                        led.record_decision(rid, a, _prov.DECISION_KEPT,
+                                            _prov.REASON_DC_MINIMIZED)
                 if reverted:
                     _logger.info(
                         "[Repairing Phase] one-tuple DC on row {}: keeping "
@@ -1215,6 +1371,11 @@ class RepairModel:
                             for a in restorable:
                                 out.at[out.index[i], a] = \
                                     revert_log.pop((i, a))
+                                if led is not None:
+                                    # the revert was undone: the extraction
+                                    # pass re-derives the cell's decision
+                                    led.clear_decision(
+                                        table.row_id_values[pos[i]], a)
                             changed = True
                 if not changed:
                     break
@@ -1374,6 +1535,14 @@ class RepairModel:
         pmf_df = pd.DataFrame(
             out, columns=[self._row_id, "attribute", "current_value", "pmf"])
         assert len(pmf_df) == len(error_cells_df)
+        led = active_ledger()
+        if led is not None and len(pmf_df):
+            # the cost-weighted top-k the candidate selection ranks on
+            # replaces the raw posterior
+            for attr, group in pmf_df.groupby("attribute", sort=False):
+                led.record_pmf_topk(str(attr),
+                                    group[self._row_id].tolist(),
+                                    group["pmf"].tolist())
         return pmf_df
 
     def _finish_candidate_prob(self, pmf_df: pd.DataFrame,
@@ -1439,6 +1608,20 @@ class RepairModel:
             if len(score_df) else 0.0
         selected = score_df["score"].to_numpy() >= thres
         top = score_df[selected].drop(columns=["score"])
+        led = active_ledger()
+        if led is not None and len(score_df):
+            rids = score_df[self._row_id].to_numpy()
+            attrs = score_df["attribute"].to_numpy(dtype=object)
+            reps = score_df["repaired"].to_numpy(dtype=object)
+            if selected.any():
+                led.record_decisions(rids[selected], attrs[selected],
+                                     _prov.DECISION_REPAIRED,
+                                     _prov.REASON_MAXIMAL_LIKELIHOOD,
+                                     repaired=reps[selected])
+            if (~selected).any():
+                led.record_decisions(rids[~selected], attrs[~selected],
+                                     _prov.DECISION_BELOW_THRESHOLD,
+                                     _prov.REASON_BELOW_SCORE_THRESHOLD)
         _logger.info(
             "[Repairing Phase] {} repair updates (delta={}) selected among {} "
             "candidates".format(len(top), self.repair_delta, num_error_cells))
@@ -1521,6 +1704,13 @@ class RepairModel:
         keep = np.array([k not in violating for k in keys])
         dropped = int((~keep).sum())
         if dropped:
+            led = active_ledger()
+            if led is not None:
+                dropped_df = repair_candidates[~keep]
+                led.record_decisions(
+                    dropped_df[self._row_id].to_numpy(),
+                    dropped_df["attribute"].to_numpy(dtype=object),
+                    _prov.DECISION_KEPT, _prov.REASON_VALIDATION_VIOLATION)
             _logger.info(
                 f"[Validation Phase] Dropped {dropped}/{len(keys)} repairs "
                 "that introduce integrity-constraint violations")
@@ -1564,6 +1754,27 @@ class RepairModel:
             (_is_null(r) or not _null_safe_eq(c, r)
              for c, r in zip(curs_np, repaired)),
             dtype=bool, count=len(cells_rows))
+        led = active_ledger()
+        if led is not None and len(cells_rows):
+            # sticky-aware: a reason a more specific pass recorded (DC
+            # minimization, rules, the confidence fallback, escalation)
+            # survives; the generic outcome fills in everything else
+            rep_null = np.fromiter((_is_null(r) for r in repaired),
+                                   dtype=bool, count=len(repaired))
+            for mask, decision, reason, rep in (
+                    (keep & ~rep_null, _prov.DECISION_REPAIRED,
+                     _prov.REASON_MODEL_REPAIR, repaired),
+                    (keep & rep_null, _prov.DECISION_KEPT,
+                     _prov.REASON_NO_PREDICTION, None),
+                    (valid & ~keep, _prov.DECISION_KEPT,
+                     _prov.REASON_PREDICTION_MATCHES_CURRENT, None),
+                    (~valid, _prov.DECISION_KEPT,
+                     _prov.REASON_NOT_TARGETED, None)):
+                if mask.any():
+                    led.record_decisions(
+                        rid_np[mask], attrs_np[mask], decision, reason,
+                        repaired=rep[mask] if rep is not None else None,
+                        sticky_aware=True)
         if not keep.any():
             return empty
         ranks = np.fromiter((col_rank.get(a, 0) for a in attrs_np),
@@ -1686,6 +1897,9 @@ class RepairModel:
             if not need_pmf else None
         chunk_rows = int(os.environ.get("DELPHI_REPAIR_CHUNK_ROWS", "2000000"))
         chunked = 0 < chunk_rows < len(error_row_pos)
+        # escalation applies only to the direct-repair paths: the PMF and
+        # maximal-likelihood modes return distributions, not decisions
+        escalate_requested = not need_pmf and _escalate.escalation_requested(self)
         ecf_rows = error_cells_df[ROW_IDX].to_numpy().astype(np.int64)
 
         def chunks() -> Any:
@@ -1724,7 +1938,7 @@ class RepairModel:
                 pd.concat(parts, ignore_index=True), compute_repair_prob)
 
         if not (need_pmf or repair_data or self.repair_validation_enabled
-                or self.repair_by_rules) and chunked:
+                or self.repair_by_rules or escalate_requested) and chunked:
             # candidates only: decode, repair, minimize and extract per chunk,
             # so no whole dirty block materializes; row-major per chunk and
             # ascending chunks give the one-shot path's global row order
@@ -1746,6 +1960,15 @@ class RepairModel:
             compute_repair_candidate_prob, maximal_likelihood_repair)
         repaired_rows_df = self._minimize_one_tuple_dc_repairs(
             table, dc_plan, error_row_pos, repaired_rows_df, models)
+
+        if escalate_requested:
+            # after DC minimization, before the result frames are shaped:
+            # the escalated values flow into the repaired table and the
+            # candidate extraction alike
+            with phase_span("escalation"):
+                self._last_escalation = _escalate.maybe_escalate(
+                    self, masked, error_cells_df, error_row_pos,
+                    repaired_rows_df, target_columns, continuous_columns)
 
         if compute_repair_candidate_prob and not maximal_likelihood_repair:
             pmf_df = self._compute_repair_pmf(
@@ -1812,7 +2035,16 @@ class RepairModel:
         ``compute_repair_candidate_prob``, its most likely repair and
         probability with ``compute_repair_prob``, scored repairs with
         ``compute_repair_score``, or the ``setRepairDelta`` best-scoring
-        repairs with ``maximal_likelihood_repair``."""
+        repairs with ``maximal_likelihood_repair``.
+
+        ``DELPHI_PROVENANCE_PATH`` (or ``repair.provenance.path``) records a
+        per-cell provenance ledger — detectors, domain size, top-k
+        posterior, final decision — written as JSONL when the run ends,
+        whether it succeeds or fails (``:memory:`` keeps it in-process).
+        ``repair.escalate`` (option, ``DELPHI_ESCALATE`` or session conf)
+        re-repairs the cells the models are unsure about through the
+        escalation tiers; the pass's summary is kept in
+        ``_last_escalation``."""
         if self.input is None or self.row_id is None:
             raise ValueError("`setInput` and `setRowId` should be called before repairing")
 
@@ -1855,6 +2087,30 @@ class RepairModel:
             maximal_likelihood_repair = True
         self._reject_unported()
 
+        holder = _prov.maybe_start()
+        # the escalation router reads the live ledger: a run that escalates
+        # without a configured ledger routes through an in-memory one of
+        # its own, written nowhere
+        esc_scope: Any = contextlib.nullcontext()
+        if not detect_errors_only and _escalate.escalation_requested(self) \
+                and _prov.active_ledger() is None \
+                and not _prov.provenance_configured():
+            esc_scope = _prov.scoped_ledger(
+                _prov.ProvenanceLedger(_prov.MEMORY_PATH))
+        try:
+            with esc_scope:
+                return self._run_validated(
+                    detect_errors_only, compute_repair_candidate_prob,
+                    compute_repair_prob, compute_repair_score, repair_data,
+                    maximal_likelihood_repair)
+        finally:
+            _prov.finalize(holder)
+
+    def _run_validated(self, detect_errors_only: bool,
+                       compute_repair_candidate_prob: bool,
+                       compute_repair_prob: bool, compute_repair_score: bool,
+                       repair_data: bool,
+                       maximal_likelihood_repair: bool) -> pd.DataFrame:
         with phase_span("input validation"):
             table, input_name, continuous_columns = self._check_input_table()
 

@@ -35,6 +35,7 @@ import torch
 from delphi_tpu_torch.constraints import (AttrRef, Constant,
                                           DenialConstraints, Predicate)
 from delphi_tpu_torch.device import get_device
+from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.ops import xfer
 from delphi_tpu_torch.table import NULL_CODE, EncodedTable
 from delphi_tpu_torch.utils import counter_inc, setup_logger
@@ -523,6 +524,16 @@ def detect_constraint_violations(table: EncodedTable,
             mask = _two_tuple_violations(table, preds)
         rows = np.nonzero(mask)[0]
         if rows.size:
+            led = active_ledger()
+            if led is not None:
+                # the ledger's detector label spells which constraint
+                # flagged the cell, as the predicate conjunction
+                label = "constraint[" \
+                    + "&".join(f"{p.sign}({p.left},{p.right})"
+                               for p in preds) + "]"
+                rids = table.row_id_values[rows]
+                for a in attrs:
+                    led.record_detection(label, rows, a, rids)
             for a in attrs:
                 out.append((rows, a))
     return out

@@ -24,6 +24,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.ops import xfer
 from delphi_tpu_torch.ops.freq import FreqStats
 from delphi_tpu_torch.table import NULL_CODE, DiscretizedTable
@@ -142,15 +143,22 @@ def compute_weak_label_mask(
     """Weak-label demotion mask aligned with ``cells`` (rows int64[n],
     attributes object[n], current values object[n]): True where the cell's
     TOP domain value (highest posterior above beta, ties broken by the
-    value's string order) equals its current value."""
+    value's string order) equals its current value. With a provenance
+    ledger active, each cell's candidate-domain size (the values kept above
+    beta) is recorded."""
     assert max_attrs_to_compute_domains > 0
     table = disc.table
+    led = active_ledger()
     demote = np.zeros(len(cells[0]), dtype=bool)
     for group in _iter_attr_groups(
             disc, cells, continuous_attrs, target_attrs, freq,
             pairwise_stats, domain_stats, max_attrs_to_compute_domains,
             alpha):
         if group.empty_domain:
+            if led is not None and len(group.rows):
+                led.record_domain_sizes(
+                    group.rows, group.attr,
+                    np.zeros(len(group.rows), dtype=np.int64))
             continue  # empty domain -> never demoted
         vocab = table.column(group.attr).vocab
         vocab_str = np.array([str(v) for v in vocab], dtype=object)
@@ -163,6 +171,9 @@ def compute_weak_label_mask(
         for lo, big, tiny, contributed in _score_chunks(group):
             prob, contributed = _combine_scores(big, tiny, contributed, n_rows)
             keep = contributed & (prob > beta)
+            if led is not None and len(prob):
+                led.record_domain_sizes(group.rows[lo:lo + len(prob)],
+                                        group.attr, keep.sum(axis=1))
             masked = np.where(keep, prob, -np.inf)
             best_p = masked.max(axis=1)
             has_domain = best_p > -np.inf

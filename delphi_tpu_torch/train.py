@@ -17,6 +17,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.utils import (counter_inc, elapsed_time,
                                     get_option_value, setup_logger)
 
@@ -304,6 +305,19 @@ def build_model(X: Any, y: pd.Series, is_discrete: bool, num_class: int,
     return _build_model(X, y, is_discrete, num_class, opts)
 
 
+def _record_model_scores(
+        results: Dict[str, Tuple[Tuple[Any, float], float]]) \
+        -> Dict[str, Tuple[Tuple[Any, float], float]]:
+    """Lands each target's CV score in the provenance ledger (it surfaces
+    as ``model_cv_score`` on the attribute's quality scorecard)."""
+    led = active_ledger()
+    if led is not None:
+        for name, ((model, score), _elapsed) in results.items():
+            if model is not None:
+                led.record_model_score(name, score)
+    return results
+
+
 def build_models_batched(tasks: list, opts: Dict[str, str]) \
         -> Dict[str, Tuple[Tuple[Any, float], float]]:
     """Builds MANY per-attribute repair models with shared device launches:
@@ -334,7 +348,7 @@ def build_models_batched(tasks: list, opts: Dict[str, str]) \
                 results[name] = build_model(
                     X, y, is_discrete, num_class, -1, opts)
         if not gbdt_tasks:
-            return results
+            return _record_model_scores(results)
 
         def opt(*args):  # type: ignore
             return get_option_value(opts, *args)
@@ -451,7 +465,7 @@ def build_models_batched(tasks: list, opts: Dict[str, str]) \
             score = score if m is not None and np.isfinite(score) \
                 else (-m.loss_ if m is not None else 0.0)
             results[name] = ((m, score), elapsed_each)
-        return results
+        return _record_model_scores(results)
     except Exception as e:
         if _is_device_error(e):
             raise
@@ -466,7 +480,7 @@ def build_models_batched(tasks: list, opts: Dict[str, str]) \
             if name not in results:
                 results[name] = build_model(
                     X, y, is_discrete, num_class, -1, opts)
-        return results
+        return _record_model_scores(results)
 
 
 def compute_class_nrow_stdv(y: pd.Series, is_discrete: bool) -> Optional[float]:

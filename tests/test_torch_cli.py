@@ -1,9 +1,12 @@
 """The port's batch CLI (``python -m delphi_tpu_torch.main``) against the JAX
 package's (``delphi_tpu.main``) on the CPU: the default run,
 ``--detect-only``, ``--repair-data``, ``--constraints``, ``--targets`` and
-``--chunksize`` write equal CSVs; every flag of the JAX package's CLI that
-the port does not have yet raises, naming the ``ROADMAP.md`` item that
-brings it.
+``--chunksize`` write equal CSVs; ``--escalate`` (with
+``--escalate-conf`` / ``--escalate-budget``) and ``--provenance-out`` write
+equal CSVs and ledger files on the escalation fixture (the port repairing
+with the JAX package's models, as ``tests/test_torch_escalate.py`` explains);
+every flag of the JAX package's CLI that the port does not have yet
+raises, naming the ``ROADMAP.md`` item that brings it.
 
 Both CLIs run in this process (``main(argv)``); one case also runs the
 port as ``python -m`` in a subprocess. The input has only string columns
@@ -24,6 +27,8 @@ import torch
 import delphi_tpu_torch as T
 from delphi_tpu import main as j_main
 from delphi_tpu_torch import main as t_main
+from delphi_tpu.session import get_session as j_session
+from delphi_tpu_torch.parallel import store as t_store
 from delphi_tpu_torch.session import get_session as t_session
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -112,15 +117,13 @@ def test_cli_as_module_matches_in_process(inputs, tmp_path):
     ("--serve-cache-dir", "d", "item 10"), ("--fleet", "2", "item 10"),
     ("--autoscale", None, "item 10"), ("--metrics-out", "r.json", "item 10"),
     ("--metrics-port", "0", "item 10"),
-    ("--provenance-out", "p.jsonl", "item 10"),
     ("--baseline-report", "b.json", "item 10"),
     ("--drift-fail-over", "0.25", "item 10"), ("--gauntlet", None, "item 10"),
     ("--gauntlet-rows", "100", "item 10"), ("--gauntlet-seed", "1", "item 10"),
     ("--gauntlet-scenarios", "wide", "item 10"),
     ("--gauntlet-no-repairs", None, "item 10"),
     ("--incremental", None, "item 7"), ("--snapshot-dir", "s", "item 7"),
-    ("--stream", "2", "item 7"), ("--escalate", None, "item 7"),
-    ("--escalate-conf", "0.9", "item 7"), ("--escalate-budget", "8", "item 7"),
+    ("--stream", "2", "item 7"),
     ("--checkpoint-dir", "c", "item 8"), ("--fault-plan", "x:1:oom", "item 8"),
     ("--compile-cache-dir", "c", "item 8"), ("--pipeline", "on", "item 8"),
     ("--plan-report", "p", "item 8"), ("--fsck", "root", "item 8"),
@@ -142,3 +145,48 @@ def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
 def test_cli_requires_input_row_id_output():
     with pytest.raises(SystemExit):
         t_main.main(["--input", "x.csv"])
+
+
+@pytest.fixture(scope="module")
+def escalate_csv(tmp_path_factory):
+    import bench
+    path = tmp_path_factory.mktemp("cli_esc") / "esc.csv"
+    bench._escalate_frames(64)[0].to_csv(path, index=False)
+    return path
+
+
+@pytest.mark.parametrize("flags", [
+    ("--escalate",), ("--escalate", "--escalate-budget", "3"),
+    ("--escalate", "--escalate-conf", "0.9"),
+    ("--escalate", "--escalate-budget", "20", "--provenance-out"),
+    ("--provenance-out",),
+], ids=lambda f: "-".join(x.strip("-") for x in f))
+def test_cli_escalation_and_provenance_match_jax(escalate_csv, tmp_path,
+                                                 monkeypatch, flags):
+    """The escalation flags and ``--provenance-out``: equal CSVs, and the
+    ledger files carry the JAX package's envelope header and entries."""
+    from test_torch_provenance import assert_entries_match, carry_jax_models
+    carry_jax_models(monkeypatch)
+    # the JAX CLI leaves repair.provenance.path in its session conf
+    monkeypatch.setitem(j_session().conf, "repair.provenance.path", "")
+    texts, ledgers = [], []
+    for name, main in (("jax", j_main.main), ("torch", t_main.main)):
+        out, led = tmp_path / f"{name}.csv", tmp_path / f"{name}.jsonl"
+        argv = ["--input", str(escalate_csv), "--row-id", "tid",
+                "--output", str(out)]
+        for f in flags:
+            argv += [f, str(led)] if f == "--provenance-out" else [f]
+        assert main(argv) == 0
+        texts.append(out.read_text())
+        if "--provenance-out" in flags:
+            with open(led, "rb") as fh:
+                assert fh.readline().startswith(b"#DELPHI-STORE v1 provenance ")
+            rows, status = t_store.read_jsonl(
+                str(led), schema="provenance", site="store.provenance")
+            assert status == "ok"
+            ledgers.append(rows)
+    assert len(texts[1].splitlines()) > 1
+    assert texts[1] == texts[0]
+    assert t_session().conf.get("repair.provenance.path") is None
+    if ledgers:
+        assert_entries_match(ledgers[1], ledgers[0])

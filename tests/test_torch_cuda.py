@@ -482,3 +482,64 @@ def test_pmf_probabilities_card_match_cpu(card):
         assert [e["class"] for e in g] == [e["class"] for e in c]
         np.testing.assert_allclose([e["prob"] for e in g],
                                    [e["prob"] for e in c], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k8_joint_ascent_card_matches_cpu(card):
+    """K8 on the card within 1e-5 of the CPU, argmax equal, with no copy to
+    the host between iterations, and bit-deterministic on the card."""
+    from delphi_tpu_torch.ops import joint
+    rng = np.random.default_rng(8)
+    n, n_pad, v, v_pad, k = 300, 512, 40, 64, 4
+    unary = np.full((n_pad, v_pad), joint.NEG_INF, dtype=np.float32)
+    unary[:, 0] = 0.0
+    unary[:n, :v] = rng.normal(0, 2, (n, v))
+    idx = np.full((n_pad, k), -1, dtype=np.int32)
+    pot = np.zeros((n_pad, k, v_pad, v_pad), dtype=np.float32)
+    for i in range(n):
+        for j in range(rng.integers(0, k + 1)):
+            idx[i, j] = rng.integers(0, n)
+            pot[i, j, :v, :v] = np.log(rng.dirichlet(np.ones(v), v))
+    want = joint.joint_ascent(*(torch.as_tensor(a) for a in (unary, idx, pot)),
+                              8).numpy()
+    args = [torch.as_tensor(a, device=card) for a in (unary, idx, pot)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = joint.joint_ascent(*args, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    again = joint.joint_ascent(*args, 8)
+    assert torch.equal(got, again)
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got[:n, :v].argmax(1), want[:n, :v].argmax(1))
+
+
+@pytest.mark.cuda
+def test_escalated_repair_card_matches_cpu(card):
+    """The escalation pass on the card: the frame, the routed and escalated
+    cells and the joint tier's launches equal the CPU's."""
+    n = 3000
+    i = np.arange(n)
+    df = pd.DataFrame({
+        "tid": i.astype(str), "c0": [f"g{v}" for v in i % 8],
+        "c1": [f"v{v}" for v in (i % 8) % 4],
+        "c2": [f"{100 + a}-{10 + b}" for a, b in zip(i % 3, i % 8)]})
+    df.loc[5::13, "c2"] = df.loc[5::13, "c2"].str.replace("-", "x")
+    df.loc[7::23, "c2"] = None
+    df.loc[3::17, "c1"] = None
+    runs = []
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        m = T.delphi.repair.setInput(df).setRowId("tid").setErrorDetectors([
+            T.NullErrorDetector(),
+            T.RegExErrorDetector("c2", "^[0-9]{3}-[0-9]{2}$")]) \
+            .option("repair.escalate", "true") \
+            .option("repair.escalate.budget", "400")
+        runs.append((m.run(), m._last_escalation))
+    (f_cpu, s_cpu), (f_gpu, s_gpu) = runs
+    pd.testing.assert_frame_equal(f_gpu, f_cpu)
+    assert s_gpu["routed_cells"] == s_cpu["routed_cells"]
+    assert s_gpu["escalated_cells"] == s_cpu["escalated_cells"]
+    assert s_gpu["tiers"] == s_cpu["tiers"] and s_gpu["escalated"] > 0

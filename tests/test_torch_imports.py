@@ -198,6 +198,51 @@ print(json.dumps({"rules": len(rules), "modes": modes,
 """
 
 
+_RUN_SLICE6 = """
+import json, os, sys, tempfile
+import numpy as np
+import pandas as pd
+import delphi_tpu_torch as T
+from delphi_tpu_torch import main as cli
+from delphi_tpu_torch.escalate import joint, patterns, router
+from delphi_tpu_torch.observability import provenance
+from delphi_tpu_torch.ops import joint as k8
+from delphi_tpu_torch.parallel import store
+n = 200
+df = pd.DataFrame({
+    "tid": [str(i) for i in range(n)],
+    "c0": [f"g{i % 8}" for i in range(n)],
+    "c1": [f"v{(i % 8) % 4}" for i in range(n)],
+    "c2": [f"{100 + i % 5}-{10 + i % 6}" for i in range(n)],
+})
+for i in range(5, n, 13):
+    df.loc[i, "c2"] = df.loc[i, "c2"].replace("-", "x")
+for i in range(7, n, 23):
+    df.loc[i, "c2"] = None
+out = tempfile.mkdtemp()
+os.environ["DELPHI_PROVENANCE_PATH"] = out + "/p.jsonl"
+m = T.delphi.repair.setInput(df).setRowId("tid").setErrorDetectors([
+    T.NullErrorDetector(), T.RegExErrorDetector("c2", "^[0-9]{3}-[0-9]{2}$")
+]).option("repair.escalate", "true").option("model.hp.max_evals", "1")
+frame = m.run()
+del os.environ["DELPHI_PROVENANCE_PATH"]
+rows, status = store.read_jsonl(out + "/p.jsonl", schema="provenance",
+                                site="store.provenance")
+df.to_csv(out + "/in.csv", index=False)
+cli.main(["--input", out + "/in.csv", "--row-id", "tid", "--output",
+          out + "/out.csv", "--escalate", "--provenance-out",
+          out + "/cli.jsonl"])
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({"repairs": len(frame), "status": status,
+                  "entries": len(rows),
+                  "escalated": m._last_escalation["escalated"],
+                  "launches": k8.launches,
+                  "cli": os.path.exists(out + "/cli.jsonl"), "mods": mods}))
+"""
+
+
 def _python(code, **env_over):
     env = {k: v for k, v in os.environ.items()
            if k not in ("DELPHI_TORCH_DEVICE", "PYTHONPATH")}
@@ -262,4 +307,19 @@ def test_rules_pmf_misc_and_cli_run_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["rules"] > 0 and min(out["modes"]) > 0 and out["cli"] > 0
     assert out["clusters"] == 3 and out["dot"]
+    assert out["mods"] == []
+
+
+def test_escalation_and_provenance_run_without_jax():
+    """The provenance ledger (written through the durable store), the
+    escalation tiers with K8, and the CLI's ``--escalate`` and
+    ``--provenance-out`` run on the CPU without JAX or ``delphi_tpu``
+    loaded."""
+    proc = _python(_RUN_SLICE6, DELPHI_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["repairs"] > 0 and out["status"] == "ok"
+    assert out["entries"] > 0 and out["escalated"] > 0
+    assert out["launches"] >= 1 and out["cli"]
     assert out["mods"] == []

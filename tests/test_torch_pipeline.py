@@ -217,21 +217,32 @@ def _cost(m):
     return m.setUpdateCostFunction(lib.Levenshtein()).setRepairDelta(5)
 
 
-# case -> (model setup, run() arguments, environment)
+# case -> (model setup, run() arguments, environment, session conf of
+# both packages)
 PORTED = {
-    "cv grid search": (lambda m: m, {}, {}),
+    "cv grid search": (lambda m: m, {}, {}, {}),
     "batched training": (lambda m: m.option("model.hp.max_evals", "1")
-                         .setParallelStatTrainingEnabled(True), {}, {}),
+                         .setParallelStatTrainingEnabled(True), {}, {}, {}),
     "user error cells": (
         lambda m: m.setErrorCells(pd.DataFrame({
             "tid": [1, 9, 18, 30], "attribute": ["a", "b", "c", "b"]})),
-        {}, {}),
-    "default detectors": (lambda m: m.setErrorDetectors([]), {}, {}),
-    "pmf mode": (lambda m: m, {"compute_repair_prob": True}, {}),
-    "score mode": (_cost, {"compute_repair_score": True}, {}),
-    "maximal likelihood": (_cost, {"maximal_likelihood_repair": True}, {}),
-    "rule repairs": (lambda m: m.setRepairByRules(True), {}, {}),
-    "chunked repair": (lambda m: m, {}, {"DELPHI_REPAIR_CHUNK_ROWS": "2"}),
+        {}, {}, {}),
+    "default detectors": (lambda m: m.setErrorDetectors([]), {}, {}, {}),
+    "pmf mode": (lambda m: m, {"compute_repair_prob": True}, {}, {}),
+    "score mode": (_cost, {"compute_repair_score": True}, {}, {}),
+    "maximal likelihood": (_cost, {"maximal_likelihood_repair": True}, {},
+                           {}),
+    "rule repairs": (lambda m: m.setRepairByRules(True), {}, {}, {}),
+    "chunked repair": (lambda m: m, {}, {"DELPHI_REPAIR_CHUNK_ROWS": "2"},
+                       {}),
+    "escalation": (lambda m: m.option("repair.escalate", "1"), {}, {}, {}),
+    "escalation env": (lambda m: m, {}, {"DELPHI_ESCALATE": "1"}, {}),
+    "escalation conf": (lambda m: m, {}, {}, {"repair.escalate": "true"}),
+    "escalation explicit false": (
+        lambda m: m, {}, {"DELPHI_ESCALATE": "false"},
+        {"repair.escalate": "true"}),
+    "provenance ledger": (lambda m: m, {}, {"DELPHI_PROVENANCE_PATH":
+                                            ":memory:"}, {}),
 }
 
 
@@ -239,9 +250,13 @@ PORTED = {
 def test_formerly_unported_paths_match_jax(case, monkeypatch):
     """Paths that raised NotImplementedError in an earlier slice now run
     and return the JAX package's frame."""
-    setup, run_kw, env = PORTED[case]
+    from delphi_tpu.session import get_session as j_session
+    setup, run_kw, env, conf = PORTED[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    for k, v in conf.items():
+        monkeypatch.setitem(t_session().conf, k, v)
+        monkeypatch.setitem(j_session().conf, k, v)
 
     def run(lib):
         m = lib.delphi.repair.setInput(_tiny()).setRowId("tid") \
@@ -266,8 +281,22 @@ UNPORTED = {
                      "incremental snapshots", "item 7", {}, {}),
     "incremental": (lambda m: m.option("repair.incremental", "true"),
                     "repair.incremental", "item 7", {}, {}),
-    "escalation": (lambda m: m.option("repair.escalate", "1"),
-                   "repair.escalate", "item 7", {}, {}),
+    "incremental env": (lambda m: m, "DELPHI_INCREMENTAL", "item 7",
+                        {"DELPHI_INCREMENTAL": "1"}, {}),
+    "incremental conf": (lambda m: m, "repair.incremental", "item 7", {},
+                         {"repair.incremental": "true"}),
+    "snapshot dir env": (lambda m: m, "incremental snapshots", "item 7",
+                         {"DELPHI_SNAPSHOT_DIR": "snap"}, {}),
+    "snapshot dir conf": (lambda m: m, "incremental snapshots", "item 7",
+                          {}, {"repair.snapshot.dir": "snap"}),
+    "run report env": (lambda m: m, "run report", "item 10",
+                       {"DELPHI_METRICS_PATH": "r.json"}, {}),
+    "run report conf": (lambda m: m, "run report", "item 10", {},
+                        {"repair.metrics.path": "r.json"}),
+    "live telemetry env": (lambda m: m, "live telemetry", "item 10",
+                           {"DELPHI_METRICS_PORT": "0"}, {}),
+    "store quota": (lambda m: m, "quota", "item 7",
+                    {"DELPHI_STORE_QUOTA_GB": "1"}, {}),
 }
 
 
@@ -288,6 +317,25 @@ def test_unported_paths_raise(case, monkeypatch):
             setup(m).run(detect_errors_only=detect_only)
         assert f"queue 1 {item} of ROADMAP.md" in str(exc.value)
         assert "item 5" not in str(exc.value)
+
+
+@pytest.mark.parametrize("env,conf", [
+    ({"DELPHI_INCREMENTAL": "false"}, {"repair.incremental": "true"}),
+    ({}, {"repair.incremental": "off"}),
+    ({"DELPHI_METRICS_PORT": "not-a-port"}, {}),
+    ({"DELPHI_STORE_QUOTA_GB": ""}, {"repair.metrics.path": ""}),
+])
+def test_explicit_false_settings_do_not_raise(env, conf, monkeypatch):
+    """Read as the JAX package reads them (the environment before the
+    session conf), these spellings turn nothing on, so the run goes on."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    for k, v in conf.items():
+        monkeypatch.setitem(t_session().conf, k, v)
+    out = T.delphi.repair.setInput(_tiny()).setRowId("tid") \
+        .setErrorDetectors([T.NullErrorDetector()]) \
+        .run(detect_errors_only=True)
+    assert len(out) > 0
 
 
 def test_logistic_head_trains_on_the_factored_design():
