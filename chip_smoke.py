@@ -21,7 +21,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    rounds and chunk steps, and the training wall split into CV search and
    final fit. In 4b each kernel is re-run, held against its plain version
    (K1 bitwise, K2 within 1e-12 relative) and timed on the inputs that each
-   driven path (4, 4c, 4d, 4f, 4g, 4h, 4i) gave it, reported per path, and both
+   driven path (4, 4c, 4d, 4f, 4g, 4h, 4i, 4j) gave it, reported per path, and both
    wrappers
    are run on those inputs under ``torch.cuda.set_sync_debug_mode("error")``
    (a synchronisation fails);
@@ -45,7 +45,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    device steps and K1/K2 launches (each at least one);
    (c) the default detector set, and a run given the injected cells
    through ``setErrorCells`` (precision at least 0.9);
-   (d) 20,000 rows, CPU against card: the full-run, default-detector and
+   (d) 5,000 rows, CPU against card: the full-run, default-detector and
    ``setErrorCells`` frames identical apart from logistic-head repairs
    under the CPU's 1e-4 top-two gap;
    (e) every constraint route on 200,000 rows, card against CPU, which
@@ -57,11 +57,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    rules on and a Levenshtein cost on state, as a main path ("rules"):
    wall, phase walls, the FD ``y <- x`` rules chosen (at least one), the
    cells each rule repaired, precision and recall against the injected
-   cells, K1/K2 launches; (b) the 200,000-row missing_heavy table through
+   cells, K1/K2 launches; (b) the 100,000-row missing_heavy table through
    ``compute_repair_candidate_prob`` (a main path, "pmf"),
    ``compute_repair_prob``, ``compute_repair_score`` and
-   ``maximal_likelihood_repair`` (Levenshtein, delta 20,000), each run
-   again in blocks of 50,000 dirty rows: the same frame; (c) 5,000
+   ``maximal_likelihood_repair`` (Levenshtein, delta 10,000), each run
+   again in blocks of 25,000 dirty rows: the same frame; (c) 5,000
    rows, CPU against card: rule repairs identical, PMF probabilities
    within 1e-4, maximal-likelihood selections equal off the percentile;
    4h. misc and CLI: (a) ``generateDepGraph`` on 200,000 rows of
@@ -70,15 +70,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    rows on the card, bisecting and k-means++ at k = 4, labels at 50,000
    rows equal to the CPU's, and one Lloyd iteration at 200,000 x 1024,
    k = 2, timed; (c) ``python -m delphi_tpu_torch.main --constraints`` on
-   200,000 rows in a subprocess, its CSV equal to the in-process run's;
-   4i. the provenance ledger and the escalation tier: (a) the 1M
-   ``missing_heavy`` run of 4 again without and with
+   100,000 rows in a subprocess, its CSV equal to the in-process run's;
+   4i. the provenance ledger and the escalation tier: (a) a 200,000-row
+   ``missing_heavy`` run at 4's options, without and with
    ``DELPHI_PROVENANCE_PATH`` pointed at a file: the same frame, one
    decided entry per detected cell, both walls, the ledger's share (per-cell
    records, the JSONL write, the extra ``predict_proba``) and the file's
-   size; (b) ``escalation_table`` at 1,000,000 rows with the NULL and
+   size; (b) ``escalation_table`` at 200,000 rows with the NULL and
    regex detectors, without escalation and then with ``repair.escalate``
-   at a budget of 131,072 as a main path ("escalation"): routed cells,
+   at a budget of 32,768 as a main path ("escalation"): routed cells,
    each tier's attempts, repairs and wall, K8's launches with their
    ``(n_pad, V_pad)`` and each one's ms against its bound, the cell F1
    against the generator's truth off and on (on no lower; tier B on at
@@ -88,6 +88,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    delphi_tpu_torch.main --escalate --provenance-out`` on (c)'s table in a
    subprocess, its CSV equal to the in-process run's and its ledger file
    starting with the store's envelope header;
+   4j. incremental and streaming repair on ``incremental_table`` (the JAX
+   package's ``bench._incremental_frames``, rebuilt with numpy; NULL and
+   ``EQ(t1.c0,t2.c0)&IQ(t1.c3,t2.c3)`` detectors, an in-memory ledger):
+   (a) 200,000 rows, then 20,000 appended in groups 0-3 (1,000,000 and
+   100,000 ran past the script's time; the run prints the size): populate
+   (``repair.incremental`` with no manifest yet), delta as a main path
+   ("incremental"), fresh (incremental off); the delta frame identical to
+   the fresh one, rows pulled in by the constraint, fewer rows scanned by
+   detection and fewer cells scored, a model reused, ledger cells spliced,
+   K1 and K2 launched, a ``state.pkl`` without a tensor on the card; the
+   three walls, their phase walls (``incremental.load / plan / manifest /
+   snapshot_write`` among them), the snapshot's bytes and the fresh/delta
+   ratio (reported, not gated); (b) 20,000 rows, CPU against card, through
+   populate, an append delta and an update delta (``c2`` rewritten in one
+   4,096-row block): frames, plans and ledger entries equal; (c) ``python
+   -m delphi_tpu_torch.main --stream 4 --snapshot-dir D`` on a 200,000-row
+   table shaped like ``bench._stream_frames``, its CSV equal to one batch
+   CLI run's, then ``--fsck D`` exit 0, and exit 4 once a byte of D's
+   manifest is flipped (the manifest quarantined);
 
 5. cross-check at default options, 20,000 rows, CPU (plain versions)
    against card (kernels): identical ``missing_heavy`` repair frames; on
@@ -166,12 +185,14 @@ RULES_CONSTRAINTS = "city->state;state->region"
 RULES_ON = {"model.rule.repair_by_regex.disabled": "",
             "model.rule.repair_by_nearest_values.disabled": ""}
 # 4g: the PMF, score and maximal-likelihood modes on missing_heavy, whole
-# and in blocks of PMF_CHUNK_ROWS dirty rows
-PMF_ROWS = 200_000
-PMF_CHUNK_ROWS = 50_000
+# and in blocks of PMF_CHUNK_ROWS dirty rows. Its eight runs took about 62
+# s at 200,000 rows, and with 4j the script ran past 480 s (PERF.md §4),
+# so they run 100,000 rows.
+PMF_ROWS = 100_000
+PMF_CHUNK_ROWS = 25_000
 # repairs the maximal-likelihood mode keeps per PMF_ROWS rows (it must not
 # exceed the error cells: the percentile would leave [0, 100])
-PMF_DELTA = 20_000
+PMF_DELTA = 10_000
 PMF_MODES = ["compute_repair_candidate_prob", "compute_repair_prob",
              "compute_repair_score", "maximal_likelihood_repair"]
 # the CPU tests' tolerance on PMF probabilities
@@ -180,25 +201,48 @@ PROB_TOL = 1e-4
 DEPGRAPH_ROWS = 200_000
 SPLIT_ROWS = 200_000
 SPLIT_K = 4
-CLI_ROWS = 200_000
-# The CPU halves of 4g(c) (20,000 rows) and of 4h(b) (200,000 rows) took
-# much of the script's time (PERF.md §4), so they were cut; the card side of
-# 4h(b) stays at SPLIT_ROWS.
+# 4h(c)'s CLI ran 200,000 rows at first; with 4j the script ran past
+# 480 s (PERF.md §4), so it runs 100,000
+CLI_ROWS = 100_000
+# The CPU halves of 4f(d) and 4g(c) (20,000 rows) and of 4h(b) (200,000
+# rows) took much of the script's time (PERF.md §4), so they were cut; the
+# card side of 4h(b) stays at SPLIT_ROWS.
+DC_CHECK_ROWS = 5_000
 RULES_CHECK_ROWS = 5_000
 SPLIT_CHECK_ROWS = 50_000
-# 4i: the provenance ledger on the 1M missing_heavy run, and the escalation
-# tier on escalation_table (NULL and regex detectors on c2)
-ESC_ROWS = 1_000_000
-ESC_BUDGET = 131_072
+# 4i: the provenance ledger on a missing_heavy run, and the escalation
+# tier on escalation_table (NULL and regex detectors on c2). 4i(a) ran the
+# 1M table of 4 and 4i(b) 1,000,000 rows at a budget of 131,072 at first;
+# with 4j the script ran past 480 s (4i(a) alone took 49 s), so both run
+# 200,000 rows, 4i(b) at 32,768, which still leaves tier B more than
+# ESC_MIN_JOINT_CELLS cells (PERF.md §4)
+LEDGER_ROWS = 200_000
+ESC_ROWS = 200_000
+ESC_BUDGET = 32_768
 ESC_CHECK_ROWS = 20_000
 ESC_CHECK_BUDGET = 4_096
 ESC_REGEX = "^[0-9]{3}-[0-9]{2}$"
-# least cells the joint tier (tier B, K8) must take in the 1M run
+# least cells the joint tier (tier B, K8) must take in 4i(b)
 ESC_MIN_JOINT_CELLS = 4_096
 # tolerance on ledger confidences and top-k probabilities, CPU against card
 LEDGER_TOL = 1e-5
 # the JSONL envelope header of a provenance ledger file
 LEDGER_HEADER = b"#DELPHI-STORE v1 provenance "
+# 4j: incremental and streaming repair on incremental_table (the JAX
+# package's bench._incremental_frames, rebuilt with numpy): a base table,
+# then INC_APPEND rows appended in groups 0-3; NULL and constraint
+# detectors. At 1,000,000 + 100,000 rows the script took 534.3 s, past its
+# 480 s (PERF.md §7), so 4j(a) runs 200,000 + 20,000 rows (it prints the
+# size that ran).
+INC_ROWS = 200_000
+INC_APPEND = 20_000
+INC_CONSTRAINTS = "t1&t2&EQ(t1.c0,t2.c0)&IQ(t1.c3,t2.c3)"
+INC_CHECK_ROWS = 20_000
+# the update delta of (b) rewrites c2 in the second snapshot block
+INC_UPDATE_ROWS = (4_096, 8_192)
+# (c): the CLI's --stream over a table shaped like bench._stream_frames
+STREAM_ROWS = 200_000
+STREAM_CHUNKS = 4
 
 
 def log(msg: str) -> None:
@@ -576,9 +620,9 @@ def constraints_path(torch, T, traced) -> dict:
     out["default_detectors"] = {"cells": len(ddet), "card_s": ddet_s}
     out["error_cells"] = {"wall_s": given_s, **given_scores}
 
-    # (d) CPU against card at CHECK_ROWS rows: three full runs each
+    # (d) CPU against card at DC_CHECK_ROWS rows: three full runs each
     t0 = time.perf_counter()
-    sclean, sdirty, struth = fd_table(CHECK_ROWS, seed=5)
+    sclean, sdirty, struth = fd_table(DC_CHECK_ROWS, seed=5)
     scells = truth_cells(struth)
     builds = {
         "detectors": lambda: dc_model(T, sdirty),
@@ -601,7 +645,7 @@ def constraints_path(torch, T, traced) -> dict:
         out["cross_check"][label] = {"repairs": len(on_gpu),
                                      "near_ties": len(ties),
                                      "near_ties_differing": differ}
-    log(f"[constraints] (d) {CHECK_ROWS} rows, CPU against card: "
+    log(f"[constraints] (d) {DC_CHECK_ROWS} rows, CPU against card: "
         f"{json.dumps(out['cross_check'])} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1177,8 +1221,8 @@ def k8_bound_ms(args) -> float:
     return iters * pot.numel() * 4 / HBM_BYTES_PER_S * 1e3
 
 
-def ledger_and_escalation(torch, T, traced, dirty, n_err) -> dict:
-    """Phase 4i (module docstring): the provenance ledger on the 1M
+def ledger_and_escalation(torch, T, traced) -> dict:
+    """Phase 4i (module docstring): the provenance ledger on a
     missing_heavy run, the escalation tier at full width, CPU against card,
     and the CLI."""
     import tempfile
@@ -1190,8 +1234,10 @@ def ledger_and_escalation(torch, T, traced, dirty, n_err) -> dict:
     out = {}
     tmp = tempfile.mkdtemp(prefix="delphi_smoke_")
 
-    # (a) the ledger on the 1M missing_heavy run at default options, and
-    # the same run without it
+    # (a) the ledger on a missing_heavy run at 4's options, and the same
+    # run without it
+    _, dirty = missing_heavy(LEDGER_ROWS, seed=0)
+    n_err = int(dirty[["tier", "band", "grade"]].isna().to_numpy().sum())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = repair(T, dirty)
@@ -1221,10 +1267,10 @@ def ledger_and_escalation(torch, T, traced, dirty, n_err) -> dict:
                                     site="store.provenance")
     if status != "ok" or len(rows) != n_err:
         fail(f"ledger (a): the file reads back {status}")
-    out["ledger"] = {"rows": E2E_ROWS, "entries": len(cells),
+    out["ledger"] = {"rows": LEDGER_ROWS, "entries": len(cells),
                      "wall_s": ledger_s, "plain_wall_s": plain_s,
                      "file_bytes": os.path.getsize(path), **cap.split()}
-    log(f"[ledger] (a) {E2E_ROWS} rows missing_heavy, default options: "
+    log(f"[ledger] (a) {LEDGER_ROWS} rows missing_heavy, default options: "
         f"{json.dumps(out['ledger'])}; frame equal to the run without a "
         "ledger, one decided entry per detected cell")
 
@@ -1360,6 +1406,288 @@ def ledger_and_escalation(torch, T, traced, dirty, n_err) -> dict:
         f"the interpreter; CSV ({len(frame)} rows) equal to the in-process "
         "run's; the ledger file starts with the envelope header")
     log(f"[ledger-escalation] summary {json.dumps(out, default=str)}")
+    return out
+
+
+def incremental_table(n: int):
+    """(base, appended) frames equal to the JAX package's
+    ``bench._incremental_frames(n)``, built with numpy: 32 groups keyed by
+    c0, c1 and c3 functions of the group, every 11th base row's c1 NULL;
+    ``max(4, n // 10)`` rows appended in groups 0-3, every third with c1
+    NULL."""
+    import pandas as pd
+
+    def rows(ids, gid, null):
+        g = gid.astype(str)
+        c1 = np.char.add("v", (gid % 7).astype(str)).astype(object)
+        c1[null] = None
+        return pd.DataFrame({
+            "tid": ids.astype(str).tolist(),
+            "c0": np.char.add("g", g).tolist(), "c1": c1.tolist(),
+            "c2": ((ids * 7) % 5).astype(str).tolist(),
+            "c3": np.char.add("w", (gid % 5).astype(str)).tolist()})
+
+    i = np.arange(n)
+    j = np.arange(max(4, n // 10))
+    base = rows(i, i % 32, i % 11 == 0)
+    extra = rows(n + j, j % 4, j % 3 == 0)
+    return base, pd.concat([base, extra], ignore_index=True)
+
+
+def stream_table(n: int):
+    """A table shaped like ``bench._stream_frames``: 8 groups keyed by c0,
+    c1 and c3 functions of the group, every 11th c1 NULL, so every chunk of
+    a stream holds a clean example of every group."""
+    import pandas as pd
+    i = np.arange(n)
+    gid = i % 8
+    c1 = np.char.add("v", (gid % 7).astype(str)).astype(object)
+    c1[i % 11 == 0] = None
+    return pd.DataFrame({
+        "tid": i.astype(str).tolist(),
+        "c0": np.char.add("g", gid.astype(str)).tolist(), "c1": c1.tolist(),
+        "c2": ((i * 7) % 5).astype(str).tolist(),
+        "c3": np.char.add("w", (gid % 5).astype(str)).tolist()})
+
+
+def tensor_devices(obj) -> set:
+    """Device types of every tensor reachable from ``obj`` through dicts,
+    lists, tuples and the port's objects."""
+    import torch
+    seen, stack, found = set(), [obj], set()
+    while stack:
+        o = stack.pop()
+        if isinstance(o, torch.Tensor):
+            found.add(o.device.type)
+            continue
+        if id(o) in seen:
+            continue
+        seen.add(id(o))
+        if isinstance(o, dict):
+            stack.extend(o.values())
+        elif isinstance(o, (list, tuple)):
+            stack.extend(o)
+        elif type(o).__module__.startswith("delphi_tpu_torch"):
+            stack.extend(vars(o).values())
+    return found
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def incremental_and_stream(torch, T, traced) -> dict:
+    """4j: (a) populate, delta and fresh runs of the clean-append workload
+    at INC_ROWS rows, the delta a main path ("incremental"); (b) CPU
+    against card at INC_CHECK_ROWS rows through populate, append and
+    update deltas; (c) the CLI's --stream and --fsck."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    import pandas as pd
+    from delphi_tpu_torch import main as cli
+    from delphi_tpu_torch.incremental import manifest as mf
+    from delphi_tpu_torch.parallel import store
+    from delphi_tpu_torch.utils import counters, phase_walls
+    out = {"rows": INC_ROWS, "appended": INC_APPEND}
+    tmp = tempfile.mkdtemp(prefix="delphi_smoke_")
+
+    def model(df, snap_dir):
+        m = T.delphi.repair.setInput(df).setRowId("tid").setErrorDetectors([
+            T.NullErrorDetector(),
+            T.ConstraintErrorDetector(constraints=INC_CONSTRAINTS)])
+        if snap_dir is not None:
+            m = m.option("repair.incremental", "true") \
+                .option("repair.snapshot.dir", snap_dir)
+        return m
+
+    def run(df, snap_dir):
+        m = model(df, snap_dir)
+        return m.run(), m._last_incremental
+
+    def timed_run(df, snap_dir):
+        phase_walls.clear()
+        counters.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame, summary = run(df, snap_dir)
+        torch.cuda.synchronize()
+        return (frame, summary, time.perf_counter() - t0, dict(counters),
+                {k: round(v, 3) for k, v in phase_walls.items()})
+
+    # (a) the clean-append A/B at full size, with the in-memory ledger the
+    # JAX package's A/B splices
+    t0 = time.perf_counter()
+    base, appended = incremental_table(INC_ROWS)
+    log(f"[incremental] generated {len(base)} + {len(appended) - len(base)} "
+        f"rows in {time.perf_counter() - t0:.1f} s")
+    snap = os.path.join(tmp, "snap")
+    os.environ["DELPHI_PROVENANCE_PATH"] = ":memory:"
+    try:
+        _, p_sum, p_wall, p_counts, p_walls = timed_run(base, snap)
+        (d_frame, d_sum), d_wall, launches, d_counts, d_walls, peak, _ = \
+            traced("incremental", lambda: run(appended, snap))
+        f_frame, _, f_wall, f_counts, f_walls = timed_run(appended, None)
+    finally:
+        del os.environ["DELPHI_PROVENANCE_PATH"]
+    try:
+        pd.testing.assert_frame_equal(d_frame, f_frame)
+    except AssertionError as e:
+        fail(f"incremental (a): the delta frame differs from the fresh "
+             f"frame: {e}")
+    checks = {
+        "populate is a counted no_manifest fallback":
+            p_sum["fallback_reason"] == "no_manifest"
+            and p_counts.get("incremental.fallback") == 1,
+        "delta mode": d_sum["mode"] == "delta",
+        "rows pulled in by the constraint": d_sum["rows_expanded"] > 0,
+        "rows replanned below the table's":
+            0 < d_counts.get("incremental.rows_replanned", 0)
+            < len(appended),
+        "a model reused": d_sum["models_reused"] >= 1,
+        "ledger cells spliced": d_sum["cells_spliced_reused"] > 0,
+        "fewer rows scanned": d_counts["detect.rows_scanned"]
+        < f_counts["detect.rows_scanned"],
+        "fewer cells scored": d_counts["domain.cells_scored"]
+        < f_counts["domain.cells_scored"],
+        "K1 and K2 launched": min(launches.values()) >= 1,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"incremental (a): {what} does not hold: summary "
+                 f"{json.dumps(d_sum, default=str)}, counters "
+                 f"{json.dumps(d_counts)}, fresh {json.dumps(f_counts)}, "
+                 f"launches {launches}")
+    payload, status = store.read_bytes(
+        os.path.join(snap, mf.STATE_FILE), schema="snapshot_state",
+        site="store.snapshot_state")
+    state = pickle.loads(payload) if status == "ok" else None
+    if state is None or "cuda" in tensor_devices(state) \
+            or not state["models"]:
+        fail(f"incremental (a): state.pkl unreadable ({status}), without "
+             "models, or holding a tensor on the card")
+    out["a"] = {
+        "populate_s": p_wall, "delta_s": d_wall, "fresh_s": f_wall,
+        "fresh_over_delta": f_wall / d_wall, "snapshot_bytes":
+        dir_bytes(snap), "peak_mib": peak, "launches": launches,
+        "plan": {k: d_sum[k] for k in (
+            "rows_appended", "rows_expanded", "rows_planned",
+            "models_reused", "models_retrained", "cells_spliced_reused")},
+        "rows_scanned": [d_counts["detect.rows_scanned"],
+                         f_counts["detect.rows_scanned"]],
+        "cells_scored": [d_counts["domain.cells_scored"],
+                         f_counts["domain.cells_scored"]],
+        "walls": {"populate": p_walls, "delta": d_walls, "fresh": f_walls}}
+    log(f"[incremental] (a) {INC_ROWS} rows + {INC_APPEND} appended: "
+        f"populate {p_wall:.3f} s, delta {d_wall:.3f} s, fresh "
+        f"{f_wall:.3f} s (fresh/delta {f_wall / d_wall:.2f}x, reported, "
+        f"not gated); delta frame identical to the fresh frame "
+        f"({len(d_frame)} repairs); snapshot {out['a']['snapshot_bytes']} "
+        f"bytes, no tensor on the card; {json.dumps(out['a'], default=str)}")
+
+    # (b) CPU against card: populate, append delta, update delta
+    t0 = time.perf_counter()
+    sbase, sapp = incremental_table(INC_CHECK_ROWS)
+    supd = sapp.copy()
+    lo, hi = INC_UPDATE_ROWS
+    supd.loc[lo:hi - 1, "c2"] = [str((i * 3) % 5) for i in range(lo, hi)]
+    keys = ("fallback_reason", "columns_clean", "columns_dirty",
+            "rows_updated", "rows_appended", "rows_expanded",
+            "rows_planned", "attrs_reusable", "models_reused",
+            "models_retrained", "cells_spliced_reused", "snapshot_id")
+    runs = {}
+    os.environ["DELPHI_PROVENANCE_PATH"] = ":memory:"
+    try:
+        for dev in ("cpu", "cuda"):
+            T.set_device(dev)
+            d = os.path.join(tmp, f"check_{dev}")
+            runs[dev] = []
+            for df in (sbase, sapp, supd):
+                frame, summary = run(df, d)
+                runs[dev].append((frame, {k: summary.get(k) for k in keys},
+                                  mf.load_state(d)["ledger_entries"]))
+    finally:
+        del os.environ["DELPHI_PROVENANCE_PATH"]
+        T.set_device("cuda")
+    for step, (c, g) in enumerate(zip(runs["cpu"], runs["cuda"])):
+        label = f"incremental (b) {('populate', 'append', 'update')[step]}"
+        if not g[0].equals(c[0]) or not len(g[0]):
+            fail(f"{label}: the card's frame differs from the CPU's")
+        if g[1] != c[1]:
+            fail(f"{label}: plans differ: {g[1]} against {c[1]}")
+        entries_match(label, g[2], c[2])
+    upd = runs["cuda"][2][1]
+    if runs["cuda"][1][1]["fallback_reason"] is not None \
+            or upd["fallback_reason"] is not None \
+            or upd["rows_updated"] != hi - lo:
+        fail(f"incremental (b): the deltas were not planned as such: {upd}")
+    out["b"] = {"rows": INC_CHECK_ROWS, "append": runs["cuda"][1][1],
+                "update": upd, "entries": len(runs["cuda"][2][2])}
+    log(f"[incremental] (b) {INC_CHECK_ROWS} rows, CPU against card: "
+        f"populate, append and update-delta frames, plans and ledger "
+        f"entries (confidences within {LEDGER_TOL}) equal: "
+        f"{json.dumps(out['b'], default=str)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (c) the CLI's --stream in a subprocess against one batch run, then
+    # --fsck on the stream's directory, clean and with a flipped byte
+    t0 = time.perf_counter()
+    csv_in = os.path.join(tmp, "stream.csv")
+    stream_table(STREAM_ROWS).to_csv(csv_in, index=False)
+    sdir = os.path.join(tmp, "stream")
+    streamed, batch = (os.path.join(tmp, f"{k}.csv")
+                       for k in ("streamed", "batch"))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DELPHI_TORCH_DEVICE", "DELPHI_PROVENANCE_PATH")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "delphi_tpu_torch.main", "--input", csv_in,
+         "--row-id", "tid", "--output", streamed, "--stream",
+         str(STREAM_CHUNKS), "--snapshot-dir", sdir], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=600)
+    stream_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"stream (c): exit {proc.returncode}: {proc.stderr[-2000:]}")
+    t1 = time.perf_counter()
+    if cli.main(["--input", csv_in, "--row-id", "tid", "--output",
+                 batch]) != 0:
+        fail("stream (c): the batch CLI run failed")
+    batch_s = time.perf_counter() - t1
+    with open(streamed) as a, open(batch) as b:
+        text = a.read()
+        if text != b.read() or len(text.splitlines()) < 2:
+            fail("stream (c): the streamed CSV differs from the batch CSV")
+
+    def fsck():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--fsck", sdir])
+        return rc, json.loads(buf.getvalue())
+
+    rc_clean, clean = fsck()
+    manifest = os.path.join(sdir, "snapshot", mf.MANIFEST_FILE)
+    with open(manifest, "r+b") as f:
+        blob = f.read()
+        at = len(blob) // 2
+        f.seek(at)
+        f.write(bytes([blob[at] ^ 0x20]))
+    rc_dirty, dirty = fsck()
+    if rc_clean != 0 or clean["corrupt"] or rc_dirty != 4 \
+            or dirty["quarantined"] != 1 or os.path.exists(manifest):
+        fail(f"stream (c): fsck exit codes {rc_clean}, {rc_dirty} (want 0, "
+             f"4): {json.dumps(clean)} then {json.dumps(dirty)}")
+    out["c"] = {"rows": STREAM_ROWS, "chunks": STREAM_CHUNKS,
+                "stream_s": stream_s, "batch_s": batch_s,
+                "repairs": len(text.splitlines()) - 1,
+                "fsck": [rc_clean, clean["ok"], rc_dirty, dirty["corrupt"]],
+                "stream_bytes": dir_bytes(sdir)}
+    log(f"[stream] (c) python -m delphi_tpu_torch.main --stream "
+        f"{STREAM_CHUNKS} on {STREAM_ROWS} rows: {stream_s:.3f} s including "
+        f"the interpreter, CSV equal to the batch CLI's ({batch_s:.3f} s in "
+        f"process); --fsck exit 0 ({clean['ok']} files ok), then 4 with the "
+        f"flipped manifest quarantined; {json.dumps(out['c'])}")
     return out
 
 
@@ -1778,6 +2106,7 @@ def main() -> None:
     from delphi_tpu_torch.utils import counters, phase_walls, train_reports
     T.set_device("cuda")
 
+    log(f"[elapsed] 1 done at {time.perf_counter() - t_start:.1f} s")
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     path, compiler_log = build.build(ptxas_verbose=True)
@@ -1789,6 +2118,7 @@ def main() -> None:
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
 
+    log(f"[elapsed] 2 done at {time.perf_counter() - t_start:.1f} s")
     # -- 3. kernels at the stand-alone shapes --------------------------------
     lib, stream = build.library(), build.current_stream()
     empty = lambda: lib.delphi_launch_floor(stream)  # noqa: E731
@@ -1800,6 +2130,7 @@ def main() -> None:
     k1_shapes, k2_shapes = kernel_cases(torch, k_pair, k_entropy, build,
                                         flush)
 
+    log(f"[elapsed] 3 done at {time.perf_counter() - t_start:.1f} s")
     # -- 4. end to end on the card -------------------------------------------
     t0 = time.perf_counter()
     clean, dirty = missing_heavy(E2E_ROWS, seed=0)
@@ -1883,6 +2214,7 @@ def main() -> None:
     cells = ["tier", "band", "grade"]
     out, launches, _, _, wall = drive("e2e", dirty, clean, cells)
 
+    log(f"[elapsed] 4 done at {time.perf_counter() - t_start:.1f} s")
     # -- 4c. batched training on the same table ------------------------------
     batched, _, counts, _, _ = drive("batched", dirty, clean, cells,
                                      batched=True)
@@ -1895,6 +2227,7 @@ def main() -> None:
         fail("batched training fell back to per-target fits")
     log("[batched] frame identical to the sequential run's")
 
+    log(f"[elapsed] 4c done at {time.perf_counter() - t_start:.1f} s")
     # -- 4d. the logistic head -----------------------------------------------
     zclean, zdirty = zones_table(LOGISTIC_ROWS, seed=2)
     _, _, _, zmodels, _ = drive("logistic", zdirty, zclean, ["zone"])
@@ -1919,6 +2252,7 @@ def main() -> None:
         f"ms a step; first torch.optim.Adam of a fresh process: "
         f"{float(first_adam.stdout.strip()):.3f} s")
 
+    log(f"[elapsed] 4d done at {time.perf_counter() - t_start:.1f} s")
     # -- 4e. tree-builder cost per boosting round ----------------------------
     rounds = {}
     for depth in (3, 5):
@@ -1928,19 +2262,27 @@ def main() -> None:
     log(f"[train-profile] one CV step of a 6-class target (3 folds x 8 "
         f"class trees, 10,000 rows, 4 features): {json.dumps(rounds)}")
 
+    log(f"[elapsed] 4e done at {time.perf_counter() - t_start:.1f} s")
     # -- 4f. the constraints path ---------------------------------------------
     constraints_path(torch, T, traced)
 
+    log(f"[elapsed] 4f done at {time.perf_counter() - t_start:.1f} s")
     # -- 4g. rule repairs and the PMF modes -----------------------------------
     rules_and_pmf(torch, T, traced)
 
+    log(f"[elapsed] 4g done at {time.perf_counter() - t_start:.1f} s")
     # -- 4h. delphi.misc and the batch CLI ------------------------------------
     misc_and_cli(torch, T, traced)
 
+    log(f"[elapsed] 4h done at {time.perf_counter() - t_start:.1f} s")
     # -- 4i. the provenance ledger and the escalation tier -------------------
-    esc = ledger_and_escalation(torch, T, traced, dirty,
-                                int(dirty[cells].isna().to_numpy().sum()))
+    esc = ledger_and_escalation(torch, T, traced)
 
+    log(f"[elapsed] 4i done at {time.perf_counter() - t_start:.1f} s")
+    # -- 4j. incremental and streaming repair --------------------------------
+    incremental_and_stream(torch, T, traced)
+
+    log(f"[elapsed] 4j done at {time.perf_counter() - t_start:.1f} s")
     # -- 4b. each kernel on the inputs each path gave it ---------------------
     def main_path(rows):
         keys = ("ms", "host_ms", "kernel_ms", "plain_ms", "library_ms",
@@ -1994,6 +2336,7 @@ def main() -> None:
     log("[sync] K1 and K2 wrappers ran under set_sync_debug_mode('error') "
         f"at the shapes of paths {list(recorded)} without synchronising")
 
+    log(f"[elapsed] 4b done at {time.perf_counter() - t_start:.1f} s")
     # -- 5. CPU (plain versions) vs card (kernels) ---------------------------
     def both(df):
         """(CPU frame, card frame, CPU models, card models, CPU logistic
@@ -2049,6 +2392,7 @@ def main() -> None:
         f"identical; models CPU {zm_cpu} card {zm_gpu} "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    log(f"[elapsed] 5 done at {time.perf_counter() - t_start:.1f} s")
     # -- 6. kernel device times from torch.profiler, last --------------------
     finish_kernel_ms(torch, flush)
     floor["ms_after_profiler"] = time_ms(torch, empty, flush)

@@ -12,12 +12,23 @@ table without one whole pandas frame; ``--escalate`` (with
 ``--escalate-conf`` and ``--escalate-budget``) runs the escalation pass;
 ``--provenance-out`` writes the per-cell provenance ledger as JSONL.
 
+Incremental mode: ``--incremental --snapshot-dir D`` diffs the input
+against the snapshot manifest in D, repairs only the delta and updates the
+snapshot (the first run populates it). ``--stream N --snapshot-dir D``
+ingests the input as N chained deltas against a durable per-stream cursor
+in D; a killed run resumes at the last committed chunk, and the output
+equals one batch run over the whole input. ``--fsck ROOT`` validates every
+store file under ROOT, quarantines corrupt ones and prints a JSON summary
+(exit code 4 when it found corruption, 0 otherwise;
+``--fsck-report-only`` moves nothing).
+
 Every other flag of the JAX package's CLI is accepted under its own name
 and raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
 brings it.
 """
 
 import argparse
+import json
 import sys
 from typing import List, Optional
 
@@ -28,7 +39,6 @@ from delphi_tpu_torch.errors import ConstraintErrorDetector, NullErrorDetector
 from delphi_tpu_torch.session import get_session
 
 _OBSERVABILITY = "queue 1 item 10 of ROADMAP.md (observability)"
-_INCREMENTAL = "queue 1 item 7 of ROADMAP.md (incremental runs)"
 _PLANES = "queue 1 item 8 of ROADMAP.md (execution planes)"
 _MULTI_GPU = "queue 1 item 9 of ROADMAP.md (multi-GPU)"
 
@@ -48,22 +58,84 @@ _UNPORTED = [
     ("--gauntlet-seed", dict(type=int, default=None), _OBSERVABILITY),
     ("--gauntlet-scenarios", dict(type=str, default=""), _OBSERVABILITY),
     ("--gauntlet-no-repairs", dict(action="store_true"), _OBSERVABILITY),
-    ("--incremental", dict(action="store_true"), _INCREMENTAL),
-    ("--snapshot-dir", dict(type=str, default=""), _INCREMENTAL),
-    ("--stream", dict(type=int, default=0), _INCREMENTAL),
     ("--checkpoint-dir", dict(type=str, default=""), _PLANES),
     ("--fault-plan", dict(type=str, default=""), _PLANES),
     ("--compile-cache-dir", dict(type=str, default=""), _PLANES),
     ("--pipeline", dict(choices=["on", "off", "auto"], default=None), _PLANES),
     ("--plan-report", dict(type=str, default=""), _PLANES),
-    ("--fsck", dict(type=str, default=""), _PLANES),
-    ("--fsck-report-only", dict(action="store_true"), _PLANES),
     ("--collective-timeout-s", dict(type=float, default=None), _MULTI_GPU),
 ]
 
 
 def _dest(flag: str) -> str:
     return flag.lstrip("-").replace("-", "_")
+
+
+def _detectors(args) -> list:
+    detectors = [NullErrorDetector()]
+    if args.constraints:
+        detectors.append(
+            ConstraintErrorDetector(constraint_path=args.constraints))
+    return detectors
+
+
+def _stream_batch(args, session) -> int:
+    """``--stream N``: drives the input through a local
+    :class:`~delphi_tpu_torch.incremental.stream.StreamSession` as N
+    chained deltas. Each chunk cites the previous commit's snapshot id as
+    its parent; the durable cursor under ``--snapshot-dir`` makes a killed
+    run resume at the last committed chunk (committed chunks acknowledge
+    as duplicates). The output equals one batch run over the whole
+    input."""
+    import numpy as np
+
+    from delphi_tpu_torch.incremental.stream import StreamSession
+
+    df = pd.read_csv(args.input,
+                     dtype=str if args.dtype == "str" else None)
+    chunks = np.array_split(np.arange(len(df)), max(1, args.stream))
+    detectors = _detectors(args)
+
+    def run_fn(accumulated, snap_dir, seq):
+        name = session.register(f"stream_input_{seq}", accumulated.copy())
+        try:
+            model = delphi.repair \
+                .setTableName(name) \
+                .setRowId(args.row_id) \
+                .setErrorDetectors(detectors) \
+                .setDiscreteThreshold(args.discrete_threshold) \
+                .option("repair.incremental", "true") \
+                .option("repair.snapshot.dir", snap_dir)
+            if args.targets:
+                model = model.setTargets(args.targets.split(","))
+            out = model.run()
+            return out, model._last_incremental
+        finally:
+            session.drop(name)
+
+    sess = StreamSession("cli", args.snapshot_dir)
+    parent = (sess.durable_cursor() or {}).get("snapshot_id")
+    result = None
+    for seq, idx in enumerate(chunks, start=1):
+        delta = df.iloc[idx].reset_index(drop=True)
+        status, body = sess.apply(seq, parent, delta, run_fn)
+        if status != 200:
+            print(f"stream chunk {seq}/{len(chunks)} failed "
+                  f"({status}): {body.get('error')}", file=sys.stderr)
+            return 1
+        cursor = body.get("cursor") or {}
+        parent = cursor.get("snapshot_id")
+        result = body.get("frame_df", result)
+        print(f"stream chunk {seq}/{len(chunks)} {body['status']}: "
+              f"{cursor.get('rows_total', 0)} rows durable at cursor "
+              f"seq {cursor.get('seq')}", file=sys.stderr)
+    if result is None:
+        print("stream produced no frame (all chunks were stale "
+              "duplicates?)", file=sys.stderr)
+        return 1
+    result.to_csv(args.output, index=False)
+    print(f"wrote {len(result)} rows to {args.output}", file=sys.stderr)
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -115,6 +187,34 @@ def main(argv: Optional[List[str]] = None) -> int:
                         default="",
                         help="write the per-cell repair provenance ledger "
                              "here as JSONL (repair.provenance.path)")
+    parser.add_argument("--incremental", dest="incremental",
+                        action="store_true",
+                        help="repair only what changed since the snapshot "
+                             "in --snapshot-dir, reusing undrifted models "
+                             "and prior decisions, then update it; falls "
+                             "back to a full run when no usable snapshot "
+                             "exists (DELPHI_INCREMENTAL / "
+                             "repair.incremental)")
+    parser.add_argument("--snapshot-dir", dest="snapshot_dir", type=str,
+                        default="",
+                        help="snapshot directory of --incremental and "
+                             "--stream (DELPHI_SNAPSHOT_DIR / "
+                             "repair.snapshot.dir)")
+    parser.add_argument("--stream", dest="stream", type=int, default=0,
+                        metavar="N",
+                        help="ingest the input as N chained deltas against "
+                             "the durable cursor under --snapshot-dir; the "
+                             "output equals one batch run")
+    parser.add_argument("--fsck", dest="fsck", type=str, default="",
+                        metavar="ROOT",
+                        help="validate every store file under ROOT, "
+                             "quarantine corrupt ones, remove temporary "
+                             "files, print per-store health as JSON and "
+                             "exit (4 when corruption was found)")
+    parser.add_argument("--fsck-report-only", dest="fsck_report_only",
+                        action="store_true",
+                        help="with --fsck: report without quarantining, "
+                             "deleting or sweeping")
     for flag, kwargs, item in _UNPORTED:
         parser.add_argument(flag, dest=_dest(flag),
                             help=f"not ported yet ({item})", **kwargs)
@@ -124,10 +224,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         if getattr(args, _dest(flag)) != kwargs.get("default", False):
             raise NotImplementedError(
                 f"{flag} is not ported to delphi_tpu_torch yet ({item})")
+    if args.fsck:
+        # files only: scan the root, print per-store health, exit 0 (clean)
+        # or 4 (corruption found, now quarantined)
+        from delphi_tpu_torch.parallel import store as dstore
+        summary = dstore.fsck(args.fsck, repair=not args.fsck_report_only)
+        print(json.dumps(summary, indent=2, sort_keys=True))
+        return 4 if summary.get("corrupt") else 0
     if not (args.input and args.row_id and args.output):
         parser.error("--input, --row-id and --output are required")
 
     session = get_session()
+    if args.stream > 0:
+        if not args.snapshot_dir:
+            parser.error("--stream requires --snapshot-dir (the stream's "
+                         "durable cursor + snapshot directory)")
+        return _stream_batch(args, session)
     dtype = str if args.dtype == "str" else None
     if args.input.endswith(".csv"):
         if args.chunksize > 0:
@@ -141,18 +253,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         name = session.qualified_name(args.db, args.input)
 
-    detectors = [NullErrorDetector()]
-    if args.constraints:
-        detectors.append(
-            ConstraintErrorDetector(constraint_path=args.constraints))
-
     model = delphi.repair \
         .setTableName(name) \
         .setRowId(args.row_id) \
-        .setErrorDetectors(detectors) \
+        .setErrorDetectors(_detectors(args)) \
         .setDiscreteThreshold(args.discrete_threshold)
     if args.targets:
         model = model.setTargets(args.targets.split(","))
+    if args.incremental:
+        model = model.option("repair.incremental", "true")
+    if args.snapshot_dir:
+        model = model.option("repair.snapshot.dir", args.snapshot_dir)
     if args.escalate:
         model = model.option("repair.escalate", "true")
     if args.escalate_conf is not None:

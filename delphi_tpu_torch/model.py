@@ -11,13 +11,15 @@ rows), the one-tuple denial-constraint repair minimization, repair
 validation against the constraints, and the PMF, score and
 maximal-likelihood modes. Settings of the reference that the port does
 not have yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings them: checkpoints (queue 1 item 8), incremental runs, their
-snapshots and the store's quota sweep (item 7), the run report and live
-telemetry (item 10). With ``DELPHI_PROVENANCE_PATH`` /
+that brings them: checkpoints and every fault-plan entry outside the
+durable store's ``torn_write`` and ``crash`` (queue 1 item 8), the run
+report and live telemetry (item 10). With ``DELPHI_PROVENANCE_PATH`` /
 ``repair.provenance.path`` set, every flagged cell gets a provenance
 ledger entry (:mod:`delphi_tpu_torch.observability.provenance`); with
 ``repair.escalate`` on, the cells the models are unsure about go through
-the escalation tiers (:mod:`delphi_tpu_torch.escalate`).
+the escalation tiers (:mod:`delphi_tpu_torch.escalate`); with
+``repair.incremental`` and a snapshot directory, a run repairs only the
+rows that changed since the snapshot (:mod:`delphi_tpu_torch.incremental`).
 
 DataFrames in and out are pandas.
 """
@@ -33,6 +35,7 @@ import numpy as np
 import pandas as pd
 
 from delphi_tpu_torch import escalate as _escalate
+from delphi_tpu_torch import incremental as _incremental
 from delphi_tpu_torch.constraints import Constant
 from delphi_tpu_torch.costs import UpdateCostFunction
 from delphi_tpu_torch.depgraph import (compute_functional_dep_map,
@@ -43,6 +46,7 @@ from delphi_tpu_torch.errors import (ROW_IDX, ConstraintErrorDetector,
 from delphi_tpu_torch.models.encoding import FeatureEncoder, OrdinalEncoder
 from delphi_tpu_torch.observability import provenance as _prov
 from delphi_tpu_torch.observability.provenance import active_ledger
+from delphi_tpu_torch.parallel import resilience as _resilience
 from delphi_tpu_torch.regex_repair import RegexStructureRepair
 from delphi_tpu_torch.session import AnalysisException, get_session
 from delphi_tpu_torch.ops.detect import (_one_tuple_violations,
@@ -61,11 +65,7 @@ from delphi_tpu_torch.utils import (argtype_check, counter_inc,
 
 _logger = setup_logger()
 
-_TRUTHY = ("1", "true", "yes", "on")
-
 # The ROADMAP.md items that bring the settings run() still rejects
-_STORE_ITEM = "queue 1 item 8 of ROADMAP.md, the durable-store seam"
-_INCREMENTAL_ITEM = "queue 1 item 7 of ROADMAP.md"
 _OBSERVABILITY_ITEM = "queue 1 item 10 of ROADMAP.md, observability"
 
 
@@ -191,18 +191,6 @@ def _env_or_conf(env: str, conf: str, cast: Any) -> bool:
         return False
     try:
         cast(str(raw).strip())
-    except ValueError:
-        return False
-    return True
-
-
-def _store_quota_set() -> bool:
-    """``DELPHI_STORE_QUOTA_GB`` as the JAX package's store parses it."""
-    raw = os.environ.get("DELPHI_STORE_QUOTA_GB")
-    if raw is None or not raw.strip():
-        return False
-    try:
-        float(raw.strip())
     except ValueError:
         return False
     return True
@@ -474,30 +462,6 @@ class RepairModel:
         mask = df["attribute"].isin(targets)
         return df[~mask if negate else mask].reset_index(drop=True)
 
-    def _incremental_requested(self) -> bool:
-        """The JAX package's reading of ``repair.incremental``: the option
-        (Python truthiness of its string), then ``DELPHI_INCREMENTAL``,
-        then the session conf (1/true/yes/on)."""
-        if self._opt_incremental.key in self.opts:
-            return bool(self._get_option_value(*self._opt_incremental))
-        env = os.environ.get("DELPHI_INCREMENTAL")
-        if env is not None:
-            return env.strip().lower() in _TRUTHY
-        conf = get_session().conf.get("repair.incremental")
-        return conf is not None and str(conf).strip().lower() in _TRUTHY
-
-    def _snapshot_dir(self) -> Optional[str]:
-        """``repair.snapshot.dir``: the option, then
-        ``DELPHI_SNAPSHOT_DIR``, then the session conf."""
-        if self._opt_snapshot_dir.key in self.opts:
-            v = str(self._get_option_value(*self._opt_snapshot_dir)).strip()
-            return v or None
-        env = os.environ.get("DELPHI_SNAPSHOT_DIR")
-        if env is not None and env.strip():
-            return env.strip()
-        conf = get_session().conf.get("repair.snapshot.dir")
-        return str(conf).strip() if conf and str(conf).strip() else None
-
     def _reject_unported(self) -> None:
         """Raises for every setting of the reference the port does not
         have yet, before any work starts: none is silently ignored. Each
@@ -510,21 +474,12 @@ class RepairModel:
 
         if self.opts.get(self._opt_checkpoint_path.key):
             unported(f"option {self._opt_checkpoint_path.key} (model "
-                     "checkpoints)", _STORE_ITEM)
+                     "checkpoints)", _resilience.PLANES_ITEM)
         if _phase_checkpoint_dir():
             unported("phase checkpoints (DELPHI_CHECKPOINT_DIR or the "
-                     "session conf repair.checkpoint.dir)", _STORE_ITEM)
-        if self._snapshot_dir():
-            unported("incremental snapshots (option or session conf "
-                     f"{self._opt_snapshot_dir.key}, DELPHI_SNAPSHOT_DIR)",
-                     _INCREMENTAL_ITEM)
-        if self._incremental_requested():
-            unported(f"incremental runs (option or session conf "
-                     f"{self._opt_incremental.key}, DELPHI_INCREMENTAL)",
-                     _INCREMENTAL_ITEM)
-        if _store_quota_set():
-            unported("the durable store's quota sweep "
-                     "(DELPHI_STORE_QUOTA_GB)", _INCREMENTAL_ITEM)
+                     "session conf repair.checkpoint.dir)",
+                     _resilience.PLANES_ITEM)
+        _resilience.check_fault_plan()
         for env, conf, cast, what in _OBSERVABILITY_SETTINGS:
             if _env_or_conf(env, conf, cast):
                 unported(f"{what} ({env} or the session conf {conf})",
@@ -944,7 +899,21 @@ class RepairModel:
         models: Dict[str, Any] = {}
         train_reports.clear()  # the records of this run only
         num_class_map: Dict[str, int] = {}
+        # the incremental executor pre-seeds frozen models for attributes
+        # the drift gate cleared; those targets skip class counting and
+        # training
+        frozen: Dict[str, Any] = getattr(
+            self, "_incremental_frozen_models", None) or {}
+        for y, m in frozen.items():
+            if y in target_columns:
+                models[y] = m
+        if models:
+            _logger.info("Reusing {} frozen repair models: {}".format(
+                len(models), to_list_str(sorted(models))))
+
         for y in target_columns:
+            if y in models:
+                continue
             index = len(models) + 1
             input_columns = [c for c in train_columns if c != y]
             is_discrete = y not in continuous_columns
@@ -1887,6 +1856,9 @@ class RepairModel:
         models = self._build_repair_models(
             masked, float_cols, target_columns, continuous_columns,
             domain_stats, pairwise_attr_stats)
+        # the incremental executor snapshots the trained models after the
+        # run, so a later delta run can freeze undrifted attributes
+        self._last_models = models
         self._count_models(models)
 
         #######################################################################
@@ -2044,7 +2016,11 @@ class RepairModel:
         ``repair.escalate`` (option, ``DELPHI_ESCALATE`` or session conf)
         re-repairs the cells the models are unsure about through the
         escalation tiers; the pass's summary is kept in
-        ``_last_escalation``."""
+        ``_last_escalation``. ``repair.incremental`` (option,
+        ``DELPHI_INCREMENTAL`` or session conf) with a snapshot directory
+        (``repair.snapshot.dir``, ``DELPHI_SNAPSHOT_DIR``) repairs only the
+        rows that changed since the snapshot and updates it; the delta's
+        summary is kept in ``_last_incremental``."""
         if self.input is None or self.row_id is None:
             raise ValueError("`setInput` and `setRowId` should be called before repairing")
 
@@ -2125,10 +2101,17 @@ class RepairModel:
                     f"Target attributes not found in {input_name}: "
                     f"{to_list_str(self.targets)}")
 
-        df, elapsed = self._run(
-            table, input_name, continuous_columns, detect_errors_only,
-            compute_repair_candidate_prob, compute_repair_prob,
-            compute_repair_score, repair_data, maximal_likelihood_repair)
+        run_flags = (detect_errors_only, compute_repair_candidate_prob,
+                     compute_repair_prob, compute_repair_score, repair_data,
+                     maximal_likelihood_repair)
+        self._last_incremental = None
+        if _incremental.incremental_requested(self):
+            df, elapsed, self._last_incremental = \
+                _incremental.run_incremental(
+                    self, table, input_name, continuous_columns, run_flags)
+        else:
+            df, elapsed = self._run(table, input_name, continuous_columns,
+                                    *run_flags)
         _logger.info(f"!!!Total Processing time is {elapsed}(s)!!!")
         return df
 

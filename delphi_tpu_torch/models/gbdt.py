@@ -148,6 +148,25 @@ def _blocked_cumsum(x: torch.Tensor, block: int = 16) -> torch.Tensor:
     return out[..., :n]
 
 
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp of an f32 tensor, computed in f64 and rounded to f32. The CPU's
+    and the card's f32 ``exp`` differ in the last ulp on some inputs,
+    enough to flip a near-tie split, so the trees (and the CV's choice of
+    config) would differ between the two devices; the rounded f64 value
+    is the same on both."""
+    return torch.exp(x.double()).float()
+
+
+def _log(x: torch.Tensor) -> torch.Tensor:
+    """log computed in f64 and rounded to f32, for the reason of ``_exp``."""
+    return torch.log(x.double()).float()
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)) in f32 over :func:`_exp`."""
+    return 1.0 / (1.0 + _exp(-x))
+
+
 def _row_bins(bins: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
     """bins[t, i, feat[t, i]] for per-tree bins [T, n, d]."""
     return torch.gather(bins, 2, feat[..., None])[..., 0]
@@ -267,10 +286,10 @@ def _grad_hess(F: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
     if objective == "regression":
         return (F - y) * weight, weight
     if objective == "binary":
-        p = torch.sigmoid(F)
+        p = _sigmoid(F)
         return (p - y) * weight, torch.clamp_min(p * (1 - p), 1e-6) * weight
     z = F - F.max(dim=1, keepdim=True).values
-    e = torch.exp(z)
+    e = _exp(z)
     p = e / e.sum(dim=1, keepdim=True)
     onehot = torch.nn.functional.one_hot(y.to(torch.int64), k) \
         .permute(0, 2, 1).to(F.dtype)
@@ -393,20 +412,21 @@ def _cv_stats(F: torch.Tensor, y: torch.Tensor, val: torch.Tensor,
     (``inv_scale``) in f32, as in the JAX package, and summed in f64."""
     M = F.shape[0]
     if objective == "regression":
-        pred = torch.where(log_flag[:, None] > 0, torch.expm1(F), F)
+        pred = torch.where(log_flag[:, None] > 0,
+                           torch.expm1(F.double()).float(), F)
         err = (pred - y_cmp) * inv_scale[:, None]
         return torch.stack([(val * err * err).double().sum(1),
                             val.double().sum(1)], dim=1)
     if objective == "binary":
-        p = torch.sigmoid(F)
+        p = _sigmoid(F)
         # deploy parity: importance-correct back to the true priors before
         # the argmax, as predict_proba does
         pred = (p / cw_corr[:, 1:2] > (1 - p) / cw_corr[:, 0:1]) \
             .to(torch.int64)
     else:
         shifted = F - F.max(dim=1, keepdim=True).values
-        logp = shifted - torch.log(torch.exp(shifted).sum(dim=1, keepdim=True))
-        adj = logp - torch.log(cw_corr)[:, :, None]
+        logp = shifted - _log(_exp(shifted).sum(dim=1, keepdim=True))
+        adj = logp - _log(cw_corr)[:, :, None]
         adj = torch.where(class_valid[:, :, None] > 0, adj,
                           torch.full_like(adj, -torch.inf))
         pred = torch.argmax(adj, dim=1)

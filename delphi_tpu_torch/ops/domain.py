@@ -28,6 +28,7 @@ from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.ops import xfer
 from delphi_tpu_torch.ops.freq import FreqStats
 from delphi_tpu_torch.table import NULL_CODE, DiscretizedTable
+from delphi_tpu_torch.utils import counter_inc
 
 # error cells scored per device pass
 _CHUNK_CELLS = 1_000_000
@@ -149,6 +150,9 @@ def compute_weak_label_mask(
     assert max_attrs_to_compute_domains > 0
     table = disc.table
     led = active_ledger()
+    # cells scored this run: the incremental A/B's proof that a delta run
+    # scored the planned rows only
+    counter_inc("domain.cells_scored", int(len(cells[0])))
     demote = np.zeros(len(cells[0]), dtype=bool)
     for group in _iter_attr_groups(
             disc, cells, continuous_attrs, target_attrs, freq,

@@ -1,2 +1,3 @@
-"""Execution planes of the port. So far only the durable store's write and
-read side (:mod:`.store`), which the provenance ledger writes through."""
+"""Execution planes of the port. So far the durable store (:mod:`.store`)
+and the fault plan's store sites with the shared fingerprint digest
+(:mod:`.resilience`)."""

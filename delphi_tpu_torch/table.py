@@ -268,6 +268,25 @@ class EncodedTable:
                 data[c.name] = c.decode(rows)
         return pd.DataFrame(data)
 
+    def take_rows(self, positions: np.ndarray) -> "EncodedTable":
+        """A positional row-subset copy (rows in the given order), the
+        incremental plane's "re-run only the planned rows" table.
+
+        Vocabularies carry over unchanged: a subset column may hold unused
+        vocab entries, which consumers tolerate (class counts and domains
+        come from the codes present). Each subset column is a new object,
+        so the device codes cached on a parent column never serve it."""
+        positions = np.asarray(positions, dtype=np.int64)
+        new_columns = [
+            replace(
+                c,
+                codes=np.ascontiguousarray(c.codes[positions]),
+                numeric=np.ascontiguousarray(c.numeric[positions])
+                if c.numeric is not None else None)
+            for c in self.columns]
+        return replace(self, row_id_values=self.row_id_values[positions],
+                       columns=new_columns)
+
     def with_updates(self, cells: Sequence[Tuple[int, str, Any]]) -> "EncodedTable":
         """Returns a copy with (row_index, attribute, value) cells updated —
         the encoded-tensor equivalent of applying rule repairs with

@@ -180,8 +180,17 @@ counters: Dict[str, int] = {}
 train_reports: List[Dict[str, Any]] = []
 
 
+# Last values of this process's gauges by name (the store's root size, the
+# streams' lag), set where the JAX package sets its gauges.
+gauges: Dict[str, float] = {}
+
+
 def counter_inc(name: str, n: int = 1) -> None:
     counters[name] = counters.get(name, 0) + n
+
+
+def gauge_set(name: str, value: float) -> None:
+    gauges[name] = value
 
 
 class phase_span:

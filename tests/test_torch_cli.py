@@ -5,6 +5,8 @@ package's (``delphi_tpu.main``) on the CPU: the default run,
 ``--escalate-conf`` / ``--escalate-budget``) and ``--provenance-out`` write
 equal CSVs and ledger files on the escalation fixture (the port repairing
 with the JAX package's models, as ``tests/test_torch_escalate.py`` explains);
+``--incremental``, ``--snapshot-dir`` and ``--stream`` write equal CSVs and
+``--fsck`` / ``--fsck-report-only`` give equal exit codes and summaries;
 every flag of the JAX package's CLI that the port does not have yet
 raises, naming the ``ROADMAP.md`` item that brings it.
 
@@ -14,6 +16,7 @@ and a NULL-free integer column, so every repair is a classification and
 the packages' CSVs are byte-identical.
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -24,6 +27,7 @@ import pandas as pd
 import pytest
 import torch
 
+import bench
 import delphi_tpu_torch as T
 from delphi_tpu import main as j_main
 from delphi_tpu_torch import main as t_main
@@ -122,12 +126,9 @@ def test_cli_as_module_matches_in_process(inputs, tmp_path):
     ("--gauntlet-rows", "100", "item 10"), ("--gauntlet-seed", "1", "item 10"),
     ("--gauntlet-scenarios", "wide", "item 10"),
     ("--gauntlet-no-repairs", None, "item 10"),
-    ("--incremental", None, "item 7"), ("--snapshot-dir", "s", "item 7"),
-    ("--stream", "2", "item 7"),
     ("--checkpoint-dir", "c", "item 8"), ("--fault-plan", "x:1:oom", "item 8"),
     ("--compile-cache-dir", "c", "item 8"), ("--pipeline", "on", "item 8"),
-    ("--plan-report", "p", "item 8"), ("--fsck", "root", "item 8"),
-    ("--fsck-report-only", None, "item 8"),
+    ("--plan-report", "p", "item 8"),
     ("--collective-timeout-s", "5", "item 9"),
 ])
 def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
@@ -142,6 +143,85 @@ def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
     assert not (tmp_path / "o.csv").exists()
 
 
+def _fsck_root(root):
+    """A store root holding one good file, one torn file and one file
+    without an envelope."""
+    root.mkdir()
+    t_store.write_json(str(root / "good.json"), {"v": 1},
+                       schema="run_report", site="store.report")
+    t_store.write_json(str(root / "torn.json"), {"v": 2},
+                       schema="launch_plan", site="store.plan")
+    blob = (root / "torn.json").read_bytes()
+    (root / "torn.json").write_bytes(blob[:-3])
+    (root / "old.json").write_text('{"pre": "envelope"}')
+
+
+@pytest.mark.parametrize("flag", ["--incremental", "--snapshot-dir",
+                                  "--stream", "--fsck",
+                                  "--fsck-report-only"])
+def test_incremental_stream_and_fsck_flags_match_jax(inputs, tmp_path,
+                                                     capsys, flag):
+    """The incremental, stream and fsck flags run and give the JAX CLI's
+    result:
+    ``--incremental`` the same CSV on the populating run and on an append
+    delta, ``--snapshot-dir`` alone a plain run, ``--stream 3`` (on
+    ``bench._stream_frames``) the same CSV, equal to one batch run's, ``--fsck`` (and ``--fsck-report-only``) the same exit code
+    and summary on copies of one damaged root."""
+    full = pd.read_csv(inputs / "in.csv")
+    full.iloc[:320].to_csv(tmp_path / "base.csv", index=False)
+    # every chunk of the stream fixture holds a clean example of every
+    # group, which is what makes a streamed run equal one batch run
+    bench._stream_frames(120, 3)[0].to_csv(tmp_path / "stream.csv",
+                                           index=False)
+    results = []
+    for name, main in (("jax", j_main.main), ("torch", t_main.main)):
+        snap = tmp_path / f"snap_{name}"
+        out = tmp_path / f"{name}.csv"
+
+        def cli(*argv, src="in.csv"):
+            args = ["--input", str(inputs / src if src == "in.csv"
+                                   else tmp_path / src),
+                    "--row-id", "tid", "--output", str(out), *argv]
+            assert main(args) == 0
+            return out.read_text()
+
+        if flag == "--incremental":
+            first = cli("--incremental", "--snapshot-dir", str(snap),
+                        src="base.csv")
+            results.append((first, cli("--incremental", "--snapshot-dir",
+                                       str(snap))))
+        elif flag == "--snapshot-dir":
+            results.append(cli("--snapshot-dir", str(snap)))
+            assert not snap.exists()
+        elif flag == "--stream":
+            results.append(cli("--stream", "3", "--snapshot-dir", str(snap),
+                               src="stream.csv"))
+            assert (snap / "snapshot" / "manifest.json").exists()
+            assert (snap / "cursor.00000003.json").exists()
+        else:
+            root = tmp_path / f"root_{name}"
+            _fsck_root(root)
+            capsys.readouterr()
+            argv = ["--fsck", str(root)]
+            if flag == "--fsck-report-only":
+                argv.append("--fsck-report-only")
+            rc = main(argv)
+            summary = json.loads(capsys.readouterr().out)
+            summary.pop("root")
+            results.append((rc, summary,
+                            sorted(p.name for p in root.rglob("*"))))
+    want, got = results
+    assert got == want
+    if flag == "--stream":
+        batch = tmp_path / "batch.csv"
+        assert t_main.main(["--input", str(tmp_path / "stream.csv"),
+                            "--row-id", "tid", "--output", str(batch)]) == 0
+        assert got == batch.read_text()
+    if flag.startswith("--fsck"):
+        assert got[0] == 4 and got[1]["corrupt"] == 1
+        assert ("quarantine" in got[2]) == (flag == "--fsck")
+
+
 def test_cli_requires_input_row_id_output():
     with pytest.raises(SystemExit):
         t_main.main(["--input", "x.csv"])
@@ -149,7 +229,6 @@ def test_cli_requires_input_row_id_output():
 
 @pytest.fixture(scope="module")
 def escalate_csv(tmp_path_factory):
-    import bench
     path = tmp_path_factory.mktemp("cli_esc") / "esc.csv"
     bench._escalate_frames(64)[0].to_csv(path, index=False)
     return path

@@ -170,8 +170,8 @@ def _cv_task(seed, n, kind):
     X = np.column_stack([rng.integers(0, 7, n).astype(np.float64),
                          rng.normal(size=n), np.round(rng.uniform(0, 3, n), 1)])
     X[rng.random(n) < 0.1, 1] = np.nan
-    # little label noise: CUDA's exp and the CPU's differ in the last ulp,
-    # and noisy labels put held-out rows on a decision boundary
+    # little label noise (chosen while the GBDT still used each device's
+    # f32 exp, which differ in the last ulp)
     signal = np.nan_to_num(X[:, 1]) + 0.5 * X[:, 0] + rng.normal(0, 0.05, n)
     if kind == "multiclass":
         y = np.array([f"c{int(v) % 4}" for v in np.clip(signal, 0, 30)],
@@ -543,3 +543,123 @@ def test_escalated_repair_card_matches_cpu(card):
     assert s_gpu["routed_cells"] == s_cpu["routed_cells"]
     assert s_gpu["escalated_cells"] == s_cpu["escalated_cells"]
     assert s_gpu["tiers"] == s_cpu["tiers"] and s_gpu["escalated"] > 0
+
+
+def _incremental_frames(n):
+    """``bench._incremental_frames`` (this file imports no JAX package
+    code): 32 groups keyed by c0, c1 and c3 functions of the group, every
+    11th base row's c1 NULL; an appended tenth in groups 0-3."""
+    def rows(ids, gid, null):
+        return pd.DataFrame({
+            "tid": ids.astype(str), "c0": [f"g{g}" for g in gid],
+            "c1": [None if z else f"v{g % 7}" for g, z in zip(gid, null)],
+            "c2": ((ids * 7) % 5).astype(str),
+            "c3": [f"w{g % 5}" for g in gid]})
+    i = np.arange(n)
+    j = np.arange(max(4, n // 10))
+    base = rows(i, i % 32, i % 11 == 0)
+    extra = rows(n + j, j % 4, j % 3 == 0)
+    return base, pd.concat([base, extra], ignore_index=True)
+
+
+def _delta_run(frame, snap):
+    m = T.delphi.repair.setInput(frame.copy()).setRowId("tid") \
+        .setErrorDetectors([
+            T.NullErrorDetector(),
+            T.ConstraintErrorDetector(
+                constraints="t1&t2&EQ(t1.c0,t2.c0)&IQ(t1.c3,t2.c3)")]) \
+        .option("repair.incremental", "true") \
+        .option("repair.snapshot.dir", str(snap))
+    return m.run(), m._last_incremental
+
+
+@pytest.mark.cuda
+def test_incremental_delta_card_matches_cpu(card, tmp_path):
+    """Populate and clean-append delta at 2,000 rows on the card and on the
+    CPU: the same summaries and frames, K1 and K2 launched by the card's
+    delta run."""
+    base, appended = _incremental_frames(2000)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        _delta_run(base, tmp_path / dev)
+        k_pair.reset_launches()
+        k_entropy.reset_launches()
+        runs.append(_delta_run(appended, tmp_path / dev))
+    (f_cpu, s_cpu), (f_gpu, s_gpu) = runs
+    assert s_gpu["mode"] == "delta" and s_gpu["models_reused"] >= 1
+    drop = ("snapshot_dir",)
+    assert {k: v for k, v in s_gpu.items() if k not in drop} == \
+        {k: v for k, v in s_cpu.items() if k not in drop}
+    pd.testing.assert_frame_equal(f_gpu, f_cpu)
+    assert k_pair.launches >= 1 and k_entropy.launches >= 1
+
+
+@pytest.mark.cuda
+def test_snapshot_holds_no_cuda_tensor(card, tmp_path):
+    """The snapshot a card run writes loads on the CPU and holds no tensor
+    on the card."""
+    import pickle
+    from delphi_tpu_torch.parallel import store
+    T.set_device("cuda")
+    base, _ = _incremental_frames(2000)
+    _delta_run(base, tmp_path)
+    payload, status = store.read_bytes(
+        str(tmp_path / "state.pkl"), schema="snapshot_state",
+        site="store.snapshot_state")
+    assert status == "ok"
+    state = pickle.loads(payload)
+    seen, stack, devices = set(), [state], []
+    while stack:
+        obj = stack.pop()
+        if isinstance(obj, torch.Tensor):
+            devices.append(obj.device.type)
+            continue
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        if isinstance(obj, dict):
+            stack.extend(obj.values())
+        elif isinstance(obj, (list, tuple)):
+            stack.extend(obj)
+        elif type(obj).__module__.startswith("delphi_tpu_torch"):
+            stack.extend(vars(obj).values())
+    assert "cuda" not in devices
+    assert state["models"] and len(state["frame"]) > 0
+
+
+@pytest.mark.cuda
+def test_boosting_rounds_bitwise_card_matches_cpu(card):
+    """Gradients, hessians, 30 multiclass and binary boosting rounds and
+    the CV statistics are bit for bit the CPU's: the f32 ``exp`` of the two
+    devices differ in the last ulp, so the GBDT's transcendentals round an
+    f64 result (at 5,000 rows the card once chose another CV config)."""
+    rng = np.random.default_rng(0)
+    n, d, depth, n_bins = 5000, 4, 5, 33
+    bins = torch.from_numpy(rng.integers(0, n_bins - 1, (1, n, d))).long()
+    w = torch.ones(1, n)
+    for objective, k in (("multiclass", 4), ("binary", 1)):
+        y = torch.from_numpy(rng.integers(0, max(k, 2), (1, n))
+                             .astype(np.float32))
+        shape = (1, k, n) if k > 1 else (1, n)
+        F = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+        g_c, h_c = gbdt._grad_hess(F, y, w, objective, k)
+        g_g, h_g = gbdt._grad_hess(F.to(card), y.to(card), w.to(card),
+                                   objective, k)
+        assert torch.equal(g_g.cpu(), g_c) and torch.equal(h_g.cpu(), h_c)
+        args = (30, depth, n_bins, objective, k, 0.1, 1.0, 0.0, 1e-3, 20.0,
+                True)
+        F_c, t_c = gbdt._boost(bins, y, w, F, *args)
+        F_g, t_g = gbdt._boost(bins.to(card), y.to(card), w.to(card),
+                               F.to(card), *args)
+        assert torch.equal(F_g.cpu(), F_c)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(t_g, t_c))
+        kk = max(k, 2)
+        val = torch.from_numpy((rng.random((1, n)) < 0.3)
+                               .astype(np.float32))
+        consts = (torch.zeros(1, n), torch.zeros(1), torch.ones(1),
+                  torch.ones(1, kk), torch.ones(1, kk))
+        s_c = gbdt._cv_stats(F_c, y, val, *consts, objective, kk)
+        s_g = gbdt._cv_stats(F_g, y.to(card), val.to(card),
+                             *[c.to(card) for c in consts], objective, kk)
+        assert torch.equal(s_g.cpu(), s_c)

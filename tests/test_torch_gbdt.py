@@ -163,3 +163,22 @@ def test_fit_matches_jax_fit(kind):
     else:
         np.testing.assert_allclose(tm.predict(X_test), jm.predict(X_test),
                                    rtol=1e-5, atol=1e-6)
+
+
+def test_transcendentals_round_the_f64_result():
+    """``_exp``, ``_log`` and ``_sigmoid`` give the f64 result rounded to
+    f32 (then f32 arithmetic for the sigmoid), bits that do not depend on
+    the device's f32 ``exp``."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 6, 100_000).astype(np.float32)
+    t = torch.from_numpy(x)
+    np.testing.assert_array_equal(
+        t_gbdt._exp(t).numpy(), np.exp(x.astype(np.float64)).astype(np.float32))
+    pos = np.abs(x) + np.float32(1e-3)
+    np.testing.assert_array_equal(
+        t_gbdt._log(torch.from_numpy(pos)).numpy(),
+        np.log(pos.astype(np.float64)).astype(np.float32))
+    e = np.exp(-x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(
+        t_gbdt._sigmoid(t).numpy(),
+        np.float32(1) / (np.float32(1) + e))

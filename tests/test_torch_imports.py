@@ -243,6 +243,55 @@ print(json.dumps({"repairs": len(frame), "status": status,
 """
 
 
+_RUN_SLICE7 = """
+import json, os, sys, tempfile
+import pandas as pd
+import delphi_tpu_torch as T
+from delphi_tpu_torch import main as cli
+from delphi_tpu_torch.incremental import manifest
+from delphi_tpu_torch.parallel import store
+from delphi_tpu_torch.utils import counters
+
+
+def frame(n):
+    return pd.DataFrame({
+        "tid": [str(i) for i in range(n)],
+        "c0": [f"g{i % 8}" for i in range(n)],
+        "c1": [None if i % 11 == 0 else f"v{(i % 8) % 7}" for i in range(n)],
+        "c2": [str((i * 7) % 5) for i in range(n)],
+        "c3": [f"w{(i % 8) % 5}" for i in range(n)]})
+
+
+out = tempfile.mkdtemp()
+snap = out + "/snap"
+runs = []
+for n in (120, 150):
+    counters.clear()
+    m = T.delphi.repair.setInput(frame(n)).setRowId("tid").setErrorDetectors([
+        T.NullErrorDetector(),
+        T.ConstraintErrorDetector(constraints="t1&t2&EQ(t1.c0,t2.c0)&IQ(t1.c3,t2.c3)")]) \\
+        .option("repair.incremental", "true") \\
+        .option("repair.snapshot.dir", snap)
+    m.run()
+    runs.append(m._last_incremental["mode"])
+frame(96).to_csv(out + "/in.csv", index=False)
+cli.main(["--input", out + "/in.csv", "--row-id", "tid", "--output",
+          out + "/s.csv", "--stream", "3", "--snapshot-dir", out + "/st"])
+with open(snap + "/" + manifest.MANIFEST_FILE, "r+b") as f:
+    f.seek(60)
+    b = f.read(1)
+    f.seek(60)
+    f.write(bytes([b[0] ^ 1]))
+summary = store.fsck(out)
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({"runs": runs, "reused": counters.get("incremental.models_reused", 0),
+                  "stream": len(pd.read_csv(out + "/s.csv")),
+                  "corrupt": summary["corrupt"], "mods": mods}))
+"""
+
+
 def _python(code, **env_over):
     env = {k: v for k, v in os.environ.items()
            if k not in ("DELPHI_TORCH_DEVICE", "PYTHONPATH")}
@@ -322,4 +371,17 @@ def test_escalation_and_provenance_run_without_jax():
     assert out["repairs"] > 0 and out["status"] == "ok"
     assert out["entries"] > 0 and out["escalated"] > 0
     assert out["launches"] >= 1 and out["cli"]
+    assert out["mods"] == []
+
+
+def test_incremental_stream_and_store_run_without_jax():
+    """An incremental populate and delta, the CLI's ``--stream`` and the
+    store's ``fsck`` (which finds a flipped manifest byte) run on the CPU
+    without JAX or ``delphi_tpu`` loaded."""
+    proc = _python(_RUN_SLICE7, DELPHI_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["runs"] == ["full", "delta"] and out["reused"] >= 1
+    assert out["stream"] > 0 and out["corrupt"] == 1
     assert out["mods"] == []

@@ -243,6 +243,20 @@ PORTED = {
         {"repair.escalate": "true"}),
     "provenance ledger": (lambda m: m, {}, {"DELPHI_PROVENANCE_PATH":
                                             ":memory:"}, {}),
+    # incremental settings without a snapshot directory run in full, and a
+    # snapshot directory without incremental runs is not read
+    "snapshot dir": (lambda m: m.option("repair.snapshot.dir", "snap"), {},
+                     {}, {}),
+    "snapshot dir env": (lambda m: m, {}, {"DELPHI_SNAPSHOT_DIR": "snap"},
+                         {}),
+    "snapshot dir conf": (lambda m: m, {}, {},
+                          {"repair.snapshot.dir": "snap"}),
+    "incremental": (lambda m: m.option("repair.incremental", "true"), {},
+                    {}, {}),
+    "incremental env": (lambda m: m, {}, {"DELPHI_INCREMENTAL": "1"}, {}),
+    "incremental conf": (lambda m: m, {}, {},
+                         {"repair.incremental": "true"}),
+    "store quota": (lambda m: m, {}, {"DELPHI_STORE_QUOTA_GB": "1"}, {}),
 }
 
 
@@ -277,26 +291,20 @@ UNPORTED = {
                               {"DELPHI_CHECKPOINT_DIR": "ckpt"}, {}),
     "phase checkpoints conf": (lambda m: m, "phase checkpoints", "item 8",
                                {}, {"repair.checkpoint.dir": "ckpt"}),
-    "snapshot dir": (lambda m: m.option("repair.snapshot.dir", "snap"),
-                     "incremental snapshots", "item 7", {}, {}),
-    "incremental": (lambda m: m.option("repair.incremental", "true"),
-                    "repair.incremental", "item 7", {}, {}),
-    "incremental env": (lambda m: m, "DELPHI_INCREMENTAL", "item 7",
-                        {"DELPHI_INCREMENTAL": "1"}, {}),
-    "incremental conf": (lambda m: m, "repair.incremental", "item 7", {},
-                         {"repair.incremental": "true"}),
-    "snapshot dir env": (lambda m: m, "incremental snapshots", "item 7",
-                         {"DELPHI_SNAPSHOT_DIR": "snap"}, {}),
-    "snapshot dir conf": (lambda m: m, "incremental snapshots", "item 7",
-                          {}, {"repair.snapshot.dir": "snap"}),
+    "fault plan env": (lambda m: m, "fault plan entry", "item 8",
+                       {"DELPHI_FAULT_PLAN": "store.manifest:1:oom"}, {}),
+    "fault plan conf": (lambda m: m, "repair.fault.plan", "item 8", {},
+                        {"repair.fault.plan": "0:store.manifest:1:crash"}),
+    "fault plan non-store site": (
+        lambda m: m, "domain.bucket", "item 8",
+        {"DELPHI_FAULT_PLAN": "store.provenance:1:torn_write,"
+                              "domain.bucket:2:oom"}, {}),
     "run report env": (lambda m: m, "run report", "item 10",
                        {"DELPHI_METRICS_PATH": "r.json"}, {}),
     "run report conf": (lambda m: m, "run report", "item 10", {},
                         {"repair.metrics.path": "r.json"}),
     "live telemetry env": (lambda m: m, "live telemetry", "item 10",
                            {"DELPHI_METRICS_PORT": "0"}, {}),
-    "store quota": (lambda m: m, "quota", "item 7",
-                    {"DELPHI_STORE_QUOTA_GB": "1"}, {}),
 }
 
 
@@ -324,6 +332,7 @@ def test_unported_paths_raise(case, monkeypatch):
     ({}, {"repair.incremental": "off"}),
     ({"DELPHI_METRICS_PORT": "not-a-port"}, {}),
     ({"DELPHI_STORE_QUOTA_GB": ""}, {"repair.metrics.path": ""}),
+    ({"DELPHI_FAULT_PLAN": ""}, {"repair.fault.plan": "domain.bucket:1:oom"}),
 ])
 def test_explicit_false_settings_do_not_raise(env, conf, monkeypatch):
     """Read as the JAX package reads them (the environment before the
