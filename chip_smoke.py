@@ -21,10 +21,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    rounds and chunk steps, and the training wall split into CV search and
    final fit. In 4b each kernel is re-run, held against its plain version
    (K1 bitwise, K2 within 1e-12 relative) and timed on the inputs that each
-   driven path (4, 4c, 4d, 4f, 4g, 4h, 4i, 4j) gave it, reported per path, and both
-   wrappers
-   are run on those inputs under ``torch.cuda.set_sync_debug_mode("error")``
-   (a synchronisation fails);
+   driven path (4, 4c, 4d, 4f, 4g, 4h, 4i, 4j, 4k) gave it, reported per
+   path, and both wrappers are run on those inputs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a synchronisation fails);
    4c. the same table through batched training
    (``setParallelStatTrainingEnabled(True)``): the same frame, at least
    one multi-target CV launch and one batched fit launch, no fallback;
@@ -45,9 +44,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    device steps and K1/K2 launches (each at least one);
    (c) the default detector set, and a run given the injected cells
    through ``setErrorCells`` (precision at least 0.9);
-   (d) 5,000 rows, CPU against card: the full-run, default-detector and
-   ``setErrorCells`` frames identical apart from logistic-head repairs
-   under the CPU's 1e-4 top-two gap;
+   (d) 5,000 rows, CPU against card: the full run's frames identical
+   apart from logistic-head repairs under the CPU's 1e-4 top-two gap (the
+   default-detector and ``setErrorCells`` cross-checks are card tests in
+   ``tests/test_torch_cuda.py``, at 2,000 rows);
    (e) every constraint route on 200,000 rows, card against CPU, which
    also reaches the rank and group-extrema steps the fd table's
    constraints do not;
@@ -107,6 +107,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    table shaped like ``bench._stream_frames``, its CSV equal to one batch
    CLI run's, then ``--fsck D`` exit 0, and exit 4 once a byte of D's
    manifest is flipped (the manifest quarantined);
+   4k. the resilience plane (``parallel/resilience.py``): (a) the 1M
+   ``missing_heavy`` table with ``DELPHI_CHECKPOINT_DIR`` set: run A under
+   the plan ``gbdt.*:1:fatal`` raises ``FaultInjected`` with
+   ``phase_detect.pkl`` on disk, run B resumes (one checkpoint hit) and
+   trains, run C hits both checkpoints and skips training; B's and C's
+   frames identical to 4's; walls, file bytes, save and load seconds;
+   (b) 200,000 rows with an in-memory ledger (the unfaulted frame is
+   (e)'s first run): ``freq.pairs_pallas:1:oom``
+   retries once and K1 launches on the card (a main path, "resilience"),
+   its frame identical to the unfaulted run's; three OOMs there reach the
+   CPU rung, which a run on the card refuses: the run re-raises the OOM
+   (one ``resilience.cpu_refused`` note, nothing latched, K1 never falls
+   back to its plain version), and the next run's frame is the unfaulted
+   one again; a real
+   allocator failure classifies as ``oom``, a failed launch's message as
+   no fault; (c) the CLI at 20,000 rows: ``--checkpoint-dir`` twice (both
+   checkpoints hit, equal CSVs), ``--fault-plan store.checkpoint:1:crash``
+   exits 23 in a subprocess and the re-run's CSV equals the first; (d)
+   20,000 rows at ``model.hp.max_evals=1``, CPU against card under (a)'s
+   plan and (b)'s retry: frames, ``resilience.*`` counters and per-site guarded
+   entries equal; (e) 200,000 rows with ``model.checkpoint_path``: the
+   second run reuses the models (``train.checkpoint_hits``) with an
+   identical frame, and the pickle holds no tensor on the card. Every
+   other phase's run asserts zero ``resilience.faults.*`` and
+   ``resilience.degrade.*`` counts, and prints its guarded entries per
+   site;
 
 5. cross-check at default options, 20,000 rows, CPU (plain versions)
    against card (kernels): identical ``missing_heavy`` repair frames; on
@@ -243,6 +269,20 @@ INC_UPDATE_ROWS = (4_096, 8_192)
 # (c): the CLI's --stream over a table shaped like bench._stream_frames
 STREAM_ROWS = 200_000
 STREAM_CHUNKS = 4
+# 4k: the resilience plane. (a) runs on 4's 1M table; (b) and (e) on
+# RES_ROWS rows; (c) and (d) on RES_CHECK_ROWS rows, (d) with one GBDT
+# config per target (the CPU half's CV grid would dominate the phase)
+RES_ROWS = 200_000
+RES_CHECK_ROWS = 20_000
+RES_CHECK_OPTIONS = {"model.hp.max_evals": "1"}
+PLAN_FATAL = "gbdt.*:1:fatal"
+PLAN_RETRY = "freq.pairs_pallas:1:oom"
+PLAN_LADDER = ("freq.pairs_pallas:1:oom,freq.pairs_pallas:2:oom,"
+               "freq.pairs_pallas:3:oom")
+PLAN_CRASH = "store.checkpoint:1:crash"
+# the 1M missing_heavy run's wall before the guarded seam existed (one
+# NVIDIA H100 80GB HBM3 at 700 W), beside which 4 prints its own
+PRE_SEAM_E2E_WALL_S = 5.584
 
 
 def log(msg: str) -> None:
@@ -620,16 +660,12 @@ def constraints_path(torch, T, traced) -> dict:
     out["default_detectors"] = {"cells": len(ddet), "card_s": ddet_s}
     out["error_cells"] = {"wall_s": given_s, **given_scores}
 
-    # (d) CPU against card at DC_CHECK_ROWS rows: three full runs each
+    # (d) CPU against card at DC_CHECK_ROWS rows: the full run with the
+    # four detectors (the default-detector and setErrorCells cross-checks
+    # are card tests at 2,000 rows, tests/test_torch_cuda.py)
     t0 = time.perf_counter()
     sclean, sdirty, struth = fd_table(DC_CHECK_ROWS, seed=5)
-    scells = truth_cells(struth)
-    builds = {
-        "detectors": lambda: dc_model(T, sdirty),
-        "default detectors": lambda: dc_model(T, sdirty, detectors=False),
-        "error cells": lambda: dc_model(
-            T, sdirty, detectors=False).setErrorCells(scells),
-    }
+    builds = {"detectors": lambda: dc_model(T, sdirty)}
     out["cross_check"] = {}
     for label, build in builds.items():
         ties, restore = near_ties(T)
@@ -1691,6 +1727,325 @@ def incremental_and_stream(torch, T, traced) -> dict:
     return out
 
 
+def fault_counts(counts) -> dict:
+    """The ``resilience.faults.*`` and ``resilience.degrade.*`` counts."""
+    return {k: v for k, v in counts.items()
+            if k.startswith(("resilience.faults.", "resilience.degrade."))}
+
+
+def resilience_plane(torch, T, traced, dirty, frame) -> dict:
+    """Phase 4k: resume, retries, the ladder, the CLI's flags, CPU against
+    card and model checkpoints, on the card. ``dirty`` and ``frame`` are
+    4's 1M table and its repair frame."""
+    import tempfile
+
+    import pandas as pd
+
+    from delphi_tpu_torch import main as cli
+    from delphi_tpu_torch.observability import provenance as prov
+    from delphi_tpu_torch.ops.kernels import build
+    from delphi_tpu_torch.ops.kernels import pair_counts as k_pair
+    from delphi_tpu_torch.parallel import resilience as rz
+    from delphi_tpu_torch.parallel import store
+    from delphi_tpu_torch.utils import counters, phase_walls
+
+    root = tempfile.mkdtemp(prefix="delphi_smoke_4k_")
+    out = {}
+
+    def counted(fn, plan=""):
+        """(result, wall s, counters, phase walls, guarded entries) of
+        ``fn()`` under ``plan``."""
+        os.environ["DELPHI_FAULT_PLAN"] = plan
+        rz.reset_fault_state()
+        counters.clear()
+        phase_walls.clear()
+        rz.entries.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["DELPHI_FAULT_PLAN"]
+            rz.reset_fault_state()
+        return (res, time.perf_counter() - t0, dict(counters),
+                {k: round(v, 3) for k, v in phase_walls.items()},
+                dict(rz.entries))
+
+    # save and load seconds of the phase store
+    io_s = {"save": 0.0, "load": 0.0}
+    orig_io = {k: getattr(rz.PhaseCheckpointStore, k) for k in io_s}
+
+    def timed_io(name):
+        def call(self, *args):
+            t0 = time.perf_counter()
+            try:
+                return orig_io[name](self, *args)
+            finally:
+                io_s[name] += time.perf_counter() - t0
+        return call
+
+    # -- (a) resume at 1M rows ------------------------------------------------
+    ck = os.path.join(root, "a")
+    os.environ["DELPHI_CHECKPOINT_DIR"] = ck
+    for name in io_s:
+        setattr(rz.PhaseCheckpointStore, name, timed_io(name))
+    try:
+        def killed():
+            try:
+                repair(T, dirty)
+            except rz.FaultInjected:
+                return True
+            return False
+
+        died, wall_a, _, _, _ = counted(killed, PLAN_FATAL)
+        if not died:
+            fail(f"4k (a): run A under {PLAN_FATAL} did not raise "
+                 "FaultInjected")
+        detect_pkl = os.path.join(ck, "phase_detect.pkl")
+        if not os.path.isfile(detect_pkl):
+            fail("4k (a): run A left no phase_detect.pkl")
+        saved_a = dict(io_s)
+        b, wall_b, cb, wb, _ = counted(lambda: repair(T, dirty))
+        c, wall_c, cc, wc, _ = counted(lambda: repair(T, dirty))
+    finally:
+        del os.environ["DELPHI_CHECKPOINT_DIR"]
+        for name, fn in orig_io.items():
+            setattr(rz.PhaseCheckpointStore, name, fn)
+    train_b = wb.get("repair model training", 0.0)
+    train_c = wc.get("repair model training", 0.0)
+    if cb.get("resilience.checkpoint.hits") != 1 or train_b <= 0:
+        fail(f"4k (a): run B did not resume and train: {cb}, {wb}")
+    if cc.get("resilience.checkpoint.hits") != 2 or train_c >= 0.05 * train_b:
+        fail(f"4k (a): run C did not skip training: {cc}, {wc}")
+    for label, f in (("B", b), ("C", c)):
+        if not f.equals(frame):
+            fail(f"4k (a): run {label}'s frame differs from 4's 1M frame")
+    files = {f: os.path.getsize(os.path.join(ck, f))
+             for f in sorted(os.listdir(ck)) if f.endswith(".pkl")}
+    out["resume"] = {"rows": len(dirty), "walls_s": [wall_a, wall_b, wall_c],
+                     "bytes": files, "save_s": io_s["save"],
+                     "load_s": io_s["load"], "save_s_run_a": saved_a["save"],
+                     "train_s": [train_b, train_c]}
+    log(f"[resilience] (a) {len(dirty)} rows: A (killed at its first GBDT "
+        f"launch) {wall_a:.3f} s, B (resumed) {wall_b:.3f} s, C (both "
+        f"phases resumed) {wall_c:.3f} s; training {train_b:.3f} / "
+        f"{train_c:.3f} s; files {files} bytes; save {io_s['save']:.3f} s, "
+        f"load {io_s['load']:.3f} s; B and C frames identical to 4's")
+
+    # -- (b) retry and the refused CPU rung at RES_ROWS rows -----------------
+    # the unfaulted frame is (e)'s first run, which saves the models
+    _, d200 = missing_heavy(RES_ROWS, seed=7)
+    mdir = os.path.join(root, "model")
+    model_opts = {"model.checkpoint_path": mdir}
+    base, wall_base, _, _, base_entries = counted(
+        lambda: repair(T, d200, options=model_opts))
+
+    def with_ledger(fn):
+        led = prov.ProvenanceLedger(prov.MEMORY_PATH)
+        with prov.scoped_ledger(led):
+            res = fn()
+        return res, led
+    os.environ["DELPHI_FAULT_PLAN"] = PLAN_RETRY
+    rz.reset_fault_state()
+    try:
+        (retry, _), wall_retry, launches, c_retry, _, _, _ = traced(
+            "resilience", lambda: with_ledger(lambda: repair(T, d200)),
+            faults_ok=True)
+    finally:
+        del os.environ["DELPHI_FAULT_PLAN"]
+        rz.reset_fault_state()
+    if c_retry.get("resilience.faults.oom") != 1 \
+            or c_retry.get("resilience.retries") != 1 \
+            or fault_counts(c_retry) != {"resilience.faults.oom": 1}:
+        fail(f"4k (b): the retry run's counters are {c_retry}")
+    if launches["pair_counts"] < 1 or launches["entropy_terms"] < 1:
+        fail(f"4k (b): the retry run launched {launches}")
+    if not retry.equals(base):
+        fail("4k (b): the retry frame differs from the unfaulted one")
+    led = prov.ProvenanceLedger(prov.MEMORY_PATH)
+    k1_before = k_pair.launches
+
+    def refused():
+        try:
+            with prov.scoped_ledger(led):
+                repair(T, d200)
+        except rz.FaultInjected as e:
+            return rz.classify_fault(e)
+        fail(f"4k (b): {PLAN_LADDER} did not raise on the card")
+
+    ladder_kind, wall_ladder, c_ladder, _, _ = counted(refused, PLAN_LADDER)
+    notes = [(n["note"], n["detail"]) for n in led.notes()]
+    if ladder_kind != "oom" or fault_counts(c_ladder) != {
+            "resilience.faults.oom": 3, "resilience.degrade.cpu_refused": 1} \
+            or notes != [("resilience.cpu_refused", "freq.pairs_pallas: oom")]:
+        fail(f"4k (b): the refused rung raised {ladder_kind}, counters "
+             f"{c_ladder}, notes {notes}")
+    if k_pair.launches != k1_before or rz.cpu_fallback_active():
+        fail("4k (b): the refused rung launched K1 or left the CPU latched")
+    after, wall_after, c_after, _, _ = counted(lambda: repair(T, d200))
+    if not after.equals(base) or fault_counts(c_after) \
+            or k_pair.launches == k1_before:
+        fail(f"4k (b): the run after the refusal: counters {c_after}, frame "
+             f"equal {after.equals(base)}")
+    try:
+        torch.empty(2 ** 40, device="cuda")
+        fail("4k (b): a 2^40-byte allocation succeeded")
+    except torch.cuda.OutOfMemoryError as e:
+        real_oom = rz.classify_fault(e)
+    try:
+        build.check(700, "pair_counts")
+    except build.KernelLaunchError as e:
+        launch_kind = rz.classify_fault(e)
+    if real_oom != "oom" or launch_kind is not None:
+        fail(f"4k (b): real OOM classified {real_oom}, a failed launch "
+             f"{launch_kind}")
+    out["ladder"] = {"rows": RES_ROWS, "walls_s": [wall_base, wall_retry,
+                                                   wall_ladder, wall_after],
+                     "retry_counters": fault_counts(c_retry),
+                     "ladder_counters": fault_counts(c_ladder),
+                     "entries": base_entries}
+    log(f"[resilience] (b) {RES_ROWS} rows: unfaulted {wall_base:.3f} s, "
+        f"one OOM at K1 retried {wall_retry:.3f} s (K1 {launches} on the "
+        f"card, frame identical), three OOMs -> CPU rung refused on the "
+        f"card, {ladder_kind} re-raised after {wall_ladder:.3f} s (note "
+        f"{notes}), the next run {wall_after:.3f} s with an identical frame; "
+        f"real OOM -> {real_oom}, failed launch -> {launch_kind}; guarded "
+        f"entries {json.dumps(base_entries)}")
+
+    # -- (c) the CLI at RES_CHECK_ROWS rows -----------------------------------
+    _, d20 = missing_heavy(RES_CHECK_ROWS, seed=8)
+    csv = os.path.join(root, "in.csv")
+    d20.to_csv(csv, index=False)
+    base_args = ["--input", csv, "--row-id", "tid"]
+
+    def cli_run(name, *flags):
+        path = os.path.join(root, name)
+        rc = cli.main([*base_args, "--output", path, *flags])
+        if rc != 0:
+            fail(f"4k (c): the CLI exited {rc}")
+        with open(path) as f:
+            return f.read()
+
+    d1 = os.path.join(root, "cli1")
+    first, wall_c1, _, _, _ = counted(lambda: cli_run("c1.csv",
+                                                      "--checkpoint-dir", d1))
+    second, wall_c2, c_c2, _, _ = counted(lambda: cli_run(
+        "c2.csv", "--checkpoint-dir", d1))
+    if c_c2.get("resilience.checkpoint.hits") != 2 or second != first:
+        fail(f"4k (c): the second --checkpoint-dir run: {c_c2}, CSV equal "
+             f"{second == first}")
+    d2 = os.path.join(root, "cli2")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "delphi_tpu_torch.main", *base_args,
+         "--output", os.path.join(root, "crash.csv"), "--checkpoint-dir",
+         d2, "--fault-plan", PLAN_CRASH],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall_crash = time.perf_counter() - t0
+    if proc.returncode != 23:
+        fail(f"4k (c): --fault-plan {PLAN_CRASH} exited {proc.returncode}, "
+             f"not 23:\n{proc.stderr[-2000:]}")
+    rerun, wall_rerun, _, _, _ = counted(lambda: cli_run(
+        "rerun.csv", "--checkpoint-dir", d2))
+    if rerun != first:
+        fail("4k (c): the re-run after the crash wrote another CSV")
+    out["cli"] = {"rows": RES_CHECK_ROWS,
+                  "walls_s": [wall_c1, wall_c2, wall_crash, wall_rerun]}
+    log(f"[resilience] (c) CLI on {RES_CHECK_ROWS} rows: --checkpoint-dir "
+        f"{wall_c1:.3f} s, again (both phases resumed) {wall_c2:.3f} s, "
+        f"equal CSVs; --fault-plan {PLAN_CRASH} exited 23 in "
+        f"{wall_crash:.1f} s (subprocess); the re-run {wall_rerun:.3f} s, "
+        "CSV equal to the first")
+
+    # -- (d) CPU against card at RES_CHECK_ROWS rows --------------------------
+    t0 = time.perf_counter()
+    _, d20c = missing_heavy(RES_CHECK_ROWS, seed=9)
+
+    def check_run():
+        return repair(T, d20c, options=RES_CHECK_OPTIONS)
+
+    per_dev = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        runs = {}
+        ckd = os.path.join(root, f"d_{dev}")
+        os.environ["DELPHI_CHECKPOINT_DIR"] = ckd
+        try:
+            def killed_small():
+                try:
+                    check_run()
+                except rz.FaultInjected:
+                    return None
+                fail("4k (d): run A did not raise")
+
+            for label, fn, plan in (("A", killed_small, PLAN_FATAL),
+                                    ("B", check_run, ""),
+                                    ("C", check_run, "")):
+                res, _, cnt, _, ent = counted(fn, plan)
+                runs[label] = (res, cnt, ent)
+        finally:
+            del os.environ["DELPHI_CHECKPOINT_DIR"]
+        res, _, cnt, _, ent = counted(check_run, PLAN_RETRY)
+        runs["retry"] = (res, cnt, ent)
+        per_dev[dev] = runs
+    T.set_device("cuda")
+    entry_diffs = {}
+    for label in per_dev["cpu"]:
+        (f_cpu, c_cpu, e_cpu), (f_gpu, c_gpu, e_gpu) = \
+            per_dev["cpu"][label], per_dev["cuda"][label]
+        if (f_cpu is None) != (f_gpu is None) or (
+                f_cpu is not None and not f_cpu.equals(f_gpu)):
+            fail(f"4k (d) {label}: CPU and card frames differ")
+        rc_cpu = {k: v for k, v in c_cpu.items()
+                  if k.startswith("resilience.")}
+        rc_gpu = {k: v for k, v in c_gpu.items()
+                  if k.startswith("resilience.")}
+        if rc_cpu != rc_gpu:
+            fail(f"4k (d) {label}: resilience counters differ: CPU {rc_cpu} "
+                 f"card {rc_gpu}")
+        if e_cpu != e_gpu:
+            entry_diffs[label] = {"cpu": e_cpu, "cuda": e_gpu}
+    if entry_diffs:
+        fail(f"4k (d): guarded entries per site differ: {entry_diffs}")
+    frames_b = per_dev["cuda"]["B"][0]
+    if not frames_b.equals(per_dev["cuda"]["C"][0]) or not frames_b.equals(
+            per_dev["cuda"]["retry"][0]):
+        fail("4k (d): the resumed, re-run and retried frames differ")
+    out["cross_check"] = {"rows": RES_CHECK_ROWS,
+                          "entries": per_dev["cuda"]["retry"][2],
+                          "wall_s": time.perf_counter() - t0}
+    log(f"[resilience] (d) {RES_CHECK_ROWS} rows, CPU against card under "
+        f"{PLAN_FATAL} (A, B, C) and {PLAN_RETRY}: frames, "
+        f"resilience counters and guarded entries per site equal "
+        f"(retry run: {json.dumps(per_dev['cuda']['retry'][2])}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- (e) model checkpoint at RES_ROWS rows: (b)'s base run saved it -----
+    m2, wall_m2, c_m2, w_m2, _ = counted(lambda: repair(T, d200,
+                                                        options=model_opts))
+    if c_m2.get("train.checkpoint_hits") != 1 or not m2.equals(base):
+        fail(f"4k (e): model checkpoint reuse {c_m2}, frames equal "
+             f"{m2.equals(base)}")
+    payload, status = store.read_pickle(
+        os.path.join(mdir, "repair_models.pkl"), schema="model_ckpt",
+        site="store.model")
+    held = tensor_devices(payload)
+    if status != "ok" or "cuda" in held:
+        fail(f"4k (e): repair_models.pkl read {status}, tensors on {held}")
+    ckpt_bytes = os.path.getsize(os.path.join(mdir, "repair_models.pkl"))
+    out["model_checkpoint"] = {"rows": RES_ROWS,
+                               "walls_s": [wall_base, wall_m2],
+                               "bytes": ckpt_bytes}
+    log(f"[resilience] (e) {RES_ROWS} rows with model.checkpoint_path: "
+        f"{wall_base:.3f} s (b's base), then {wall_m2:.3f} s reusing the "
+        "models "
+        f"(training span {w_m2.get('repair model training', 0.0)} s), "
+        f"identical frames; repair_models.pkl {ckpt_bytes} bytes, tensors "
+        f"on {sorted(held) or 'none'}")
+    return out
+
+
 def repair_accuracy(clean, out) -> float:
     """Share of repaired cells equal to the clean value (tid = row)."""
     if not len(out):
@@ -1706,11 +2061,11 @@ def repair_accuracy(clean, out) -> float:
     return hits / len(out)
 
 
-def repair(T, df, batched: bool = False):
+def repair(T, df, batched: bool = False, options=None):
     m = T.delphi.repair.setInput(df).setRowId("tid") \
         .setErrorDetectors([T.NullErrorDetector()]) \
         .setParallelStatTrainingEnabled(batched)
-    for k, v in RUN_OPTIONS.items():
+    for k, v in {**RUN_OPTIONS, **(options or {})}.items():
         m = m.option(k, v)
     return m.run()
 
@@ -2139,11 +2494,16 @@ def main() -> None:
     recorded, path_launches = {}, {}
     orig_pc, orig_et = k_pair.pair_counts, k_entropy.entropy_terms
 
-    def traced(label, fn):
+    from delphi_tpu_torch.parallel import resilience as rz
+
+    def traced(label, fn, faults_ok=False):
         """Runs ``fn()`` as one main path: every count zeroed just before
         and read just after, its K1 and K2 inputs recorded under
-        ``label``. Returns (result, wall s, launches, counters, phase
-        walls, peak device MiB above what was held, MiB held)."""
+        ``label``. Fails on any ``resilience.faults.*`` or
+        ``resilience.degrade.*`` count unless ``faults_ok``; logs the
+        guarded entries per site. Returns (result, wall s, launches,
+        counters, phase walls, peak device MiB above what was held, MiB
+        held)."""
         rec = recorded[label] = {"pair_counts": [], "entropy_terms": []}
 
         def rec_pair_counts(codes, pairs, vocab):
@@ -2158,6 +2518,7 @@ def main() -> None:
         phase_walls.clear()
         counters.clear()
         train_reports.clear()
+        rz.entries.clear()
         k_pair.reset_launches()
         k_entropy.reset_launches()
         torch.cuda.synchronize()
@@ -2175,6 +2536,11 @@ def main() -> None:
         launches = {"pair_counts": k_pair.launches,
                     "entropy_terms": k_entropy.launches}
         path_launches[label] = launches
+        if not faults_ok and fault_counts(counters):
+            fail(f"{label}: an unfaulted run counted faults or "
+                 f"degradations: {fault_counts(counters)}")
+        log(f"[{label}] guarded entries per site: "
+            f"{json.dumps(dict(sorted(rz.entries.items())))}")
         walls = {k: round(v, 3) for k, v in phase_walls.items()}
         peak = (torch.cuda.max_memory_allocated() - held) / 2**20
         return res, wall, launches, dict(counters), walls, peak, held / 2**20
@@ -2213,6 +2579,10 @@ def main() -> None:
     # the main path: sequential training at default options
     cells = ["tier", "band", "grade"]
     out, launches, _, _, wall = drive("e2e", dirty, clean, cells)
+    log(f"[e2e] wall {wall:.3f} s behind the guarded seam; "
+        f"{PRE_SEAM_E2E_WALL_S} s on the same table before the seam "
+        "existed (another host: the seam's overhead is reported, not "
+        "gated)")
 
     log(f"[elapsed] 4 done at {time.perf_counter() - t_start:.1f} s")
     # -- 4c. batched training on the same table ------------------------------
@@ -2283,6 +2653,10 @@ def main() -> None:
     incremental_and_stream(torch, T, traced)
 
     log(f"[elapsed] 4j done at {time.perf_counter() - t_start:.1f} s")
+    # -- 4k. the resilience plane --------------------------------------------
+    resilience_plane(torch, T, traced, dirty, out)
+
+    log(f"[elapsed] 4k done at {time.perf_counter() - t_start:.1f} s")
     # -- 4b. each kernel on the inputs each path gave it ---------------------
     def main_path(rows):
         keys = ("ms", "host_ms", "kernel_ms", "plain_ms", "library_ms",

@@ -4,7 +4,9 @@ Every tensor the pipeline creates lives on :func:`get_device`. The default
 is ``cuda``; callers that want the CPU (the tests, a cross-check run) ask
 for it explicitly, through :func:`set_device` or ``DELPHI_TORCH_DEVICE=cpu``.
 Asking for ``cuda`` on a host without a card raises: the port never carries
-on silently on the CPU.
+on silently on the CPU. The first time a process resolves ``cuda`` it
+probes the card under the resilience plane's init deadline
+(:func:`delphi_tpu_torch.parallel.resilience.probe_backend`).
 """
 
 import os
@@ -12,8 +14,11 @@ from typing import Optional, Union
 
 import torch
 
+from delphi_tpu_torch.parallel.resilience import probe_backend
+
 _override: Optional[torch.device] = None
 _configured = False
+_probed = False
 
 
 def _configure_precision() -> None:
@@ -36,6 +41,14 @@ def _resolve(name: Union[str, torch.device]) -> torch.device:
             "DELPHI_TORCH_DEVICE=cpu or set_device('cpu')")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device: {dev}")
+    global _probed
+    if dev.type == "cuda" and not _probed:
+        probe_backend()
+        _probed = True
+    if dev.type == "cuda" and dev.index is None:
+        # the index a tensor reports: "cuda" and "cuda:0" compare unequal,
+        # and the device-code cache compares devices
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -11,6 +11,9 @@ ConstraintErrorDetector; ``--chunksize`` streams the CSV into an encoded
 table without one whole pandas frame; ``--escalate`` (with
 ``--escalate-conf`` and ``--escalate-budget``) runs the escalation pass;
 ``--provenance-out`` writes the per-cell provenance ledger as JSONL.
+``--checkpoint-dir D`` keeps each phase's outputs in D, so a run that died
+resumes at its last completed phase; ``--fault-plan PLAN`` injects faults
+at the resilience plane's sites (an injected ``crash`` exits with code 23).
 
 Incremental mode: ``--incremental --snapshot-dir D`` diffs the input
 against the snapshot manifest in D, repairs only the delta and updates the
@@ -39,7 +42,8 @@ from delphi_tpu_torch.errors import ConstraintErrorDetector, NullErrorDetector
 from delphi_tpu_torch.session import get_session
 
 _OBSERVABILITY = "queue 1 item 10 of ROADMAP.md (observability)"
-_PLANES = "queue 1 item 8 of ROADMAP.md (execution planes)"
+_PLANES = ("queue 1 item 8b of ROADMAP.md (the launch planner, the "
+           "pipeline thread and the compile plane)")
 _MULTI_GPU = "queue 1 item 9 of ROADMAP.md (multi-GPU)"
 
 # (flag, argparse keyword arguments, the ROADMAP item that brings it)
@@ -58,8 +62,6 @@ _UNPORTED = [
     ("--gauntlet-seed", dict(type=int, default=None), _OBSERVABILITY),
     ("--gauntlet-scenarios", dict(type=str, default=""), _OBSERVABILITY),
     ("--gauntlet-no-repairs", dict(action="store_true"), _OBSERVABILITY),
-    ("--checkpoint-dir", dict(type=str, default=""), _PLANES),
-    ("--fault-plan", dict(type=str, default=""), _PLANES),
     ("--compile-cache-dir", dict(type=str, default=""), _PLANES),
     ("--pipeline", dict(choices=["on", "off", "auto"], default=None), _PLANES),
     ("--plan-report", dict(type=str, default=""), _PLANES),
@@ -205,6 +207,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="ingest the input as N chained deltas against "
                              "the durable cursor under --snapshot-dir; the "
                              "output equals one batch run")
+    parser.add_argument("--checkpoint-dir", dest="checkpoint_dir", type=str,
+                        default="",
+                        help="phase checkpoint directory: each phase's "
+                             "outputs persist here, so a run that died "
+                             "resumes at its last completed phase "
+                             "(DELPHI_CHECKPOINT_DIR / "
+                             "repair.checkpoint.dir)")
+    parser.add_argument("--fault-plan", dest="fault_plan", type=str,
+                        default="",
+                        help="fault-injection plan, comma-separated "
+                             "site:nth:kind entries (DELPHI_FAULT_PLAN / "
+                             "repair.fault.plan)")
     parser.add_argument("--fsck", dest="fsck", type=str, default="",
                         metavar="ROOT",
                         help="validate every store file under ROOT, "
@@ -235,11 +249,30 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error("--input, --row-id and --output are required")
 
     session = get_session()
-    if args.stream > 0:
-        if not args.snapshot_dir:
-            parser.error("--stream requires --snapshot-dir (the stream's "
-                         "durable cursor + snapshot directory)")
-        return _stream_batch(args, session)
+    # the settings belong to this invocation, not the session; a stream
+    # takes the fault plan only, as in the JAX package
+    conf = {"repair.fault.plan": args.fault_plan}
+    if args.stream <= 0:
+        conf.update({"repair.checkpoint.dir": args.checkpoint_dir,
+                     "repair.provenance.path": args.provenance_out})
+    prior = {k: session.conf.get(k) for k, v in conf.items() if v}
+    session.conf.update((k, v) for k, v in conf.items() if v)
+    try:
+        if args.stream > 0:
+            if not args.snapshot_dir:
+                parser.error("--stream requires --snapshot-dir (the "
+                             "stream's durable cursor + snapshot directory)")
+            return _stream_batch(args, session)
+        return _batch(args, session)
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                session.conf.pop(k, None)
+            else:
+                session.conf[k] = v
+
+
+def _batch(args, session) -> int:
     dtype = str if args.dtype == "str" else None
     if args.input.endswith(".csv"):
         if args.chunksize > 0:
@@ -271,19 +304,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.escalate_budget is not None:
         model = model.option("repair.escalate.budget",
                              str(args.escalate_budget))
-    prior = session.conf.get("repair.provenance.path")
-    if args.provenance_out:
-        session.conf["repair.provenance.path"] = args.provenance_out
-    try:
-        result = model.run(detect_errors_only=args.detect_only,
-                           repair_data=args.repair_data)
-    finally:
-        if args.provenance_out:
-            # the setting belongs to this invocation, not the session
-            if prior is None:
-                session.conf.pop("repair.provenance.path", None)
-            else:
-                session.conf["repair.provenance.path"] = prior
+    result = model.run(detect_errors_only=args.detect_only,
+                       repair_data=args.repair_data)
     result.to_csv(args.output, index=False)
     print(f"wrote {len(result)} rows to {args.output}", file=sys.stderr)
     return 0

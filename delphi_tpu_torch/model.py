@@ -9,11 +9,16 @@ training on rows whose target is clean (sequential, or batched behind
 the dirty rows (at once, or in blocks of ``DELPHI_REPAIR_CHUNK_ROWS``
 rows), the one-tuple denial-constraint repair minimization, repair
 validation against the constraints, and the PMF, score and
-maximal-likelihood modes. Settings of the reference that the port does
-not have yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings them: checkpoints and every fault-plan entry outside the
-durable store's ``torn_write`` and ``crash`` (queue 1 item 8), the run
-report and live telemetry (item 10). With ``DELPHI_PROVENANCE_PATH`` /
+maximal-likelihood modes. Phase checkpoints (``DELPHI_CHECKPOINT_DIR`` /
+``repair.checkpoint.dir``) let a run that died resume at its last
+completed phase, model checkpoints (``model.checkpoint_path``) let a later
+run skip training, and a fault plan (``DELPHI_FAULT_PLAN`` /
+``repair.fault.plan``) injects faults at the resilience plane's guarded
+sites (:mod:`delphi_tpu_torch.parallel.resilience`). Settings of the
+reference that the port does not have yet raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that brings them: the launch planner, the
+pipeline thread and the compile plane (queue 1 item 8b), the run report
+and live telemetry (item 10). With ``DELPHI_PROVENANCE_PATH`` /
 ``repair.provenance.path`` set, every flagged cell gets a provenance
 ledger entry (:mod:`delphi_tpu_torch.observability.provenance`); with
 ``repair.escalate`` on, the cells the models are unsure about go through
@@ -26,8 +31,10 @@ DataFrames in and out are pandas.
 
 import contextlib
 import copy
+import hashlib
 import heapq
 import os
+import zlib
 from collections import namedtuple
 from typing import Any, Dict, List, Optional, Set, Tuple, Union
 
@@ -66,6 +73,8 @@ from delphi_tpu_torch.utils import (argtype_check, counter_inc,
 _logger = setup_logger()
 
 # The ROADMAP.md items that bring the settings run() still rejects
+_PLANES_8B_ITEM = ("queue 1 item 8b of ROADMAP.md, the launch planner, "
+                   "the pipeline thread and the compile plane")
 _OBSERVABILITY_ITEM = "queue 1 item 10 of ROADMAP.md, observability"
 
 
@@ -158,16 +167,6 @@ def repair_attrs_from(updates_df: pd.DataFrame, base_df: pd.DataFrame,
     return out
 
 
-def _phase_checkpoint_dir() -> Optional[str]:
-    """``DELPHI_CHECKPOINT_DIR`` / the session conf ``repair.checkpoint.dir``
-    (the JAX package's phase checkpoints), or None when neither is set."""
-    env = os.environ.get("DELPHI_CHECKPOINT_DIR")
-    if env is not None and env.strip():
-        return env.strip()
-    conf = get_session().conf.get("repair.checkpoint.dir")
-    return str(conf).strip() if conf and str(conf).strip() else None
-
-
 # (environment variable, session conf key, how the JAX package parses it,
 # what it turns on) of the observability planes the port does not have yet
 _OBSERVABILITY_SETTINGS = [
@@ -175,6 +174,75 @@ _OBSERVABILITY_SETTINGS = [
     ("DELPHI_METRICS_PORT", "repair.metrics.port", int, "live telemetry"),
     ("DELPHI_STALL_TIMEOUT_S", "repair.metrics.stall_timeout_s", float,
      "the stall watchdog"),
+]
+
+
+_FALSY = frozenset({"0", "false", "off", "no"})
+
+
+def _toggle_on(env: str, conf: str) -> bool:
+    """An on/off toggle as the JAX package reads it: the environment
+    variable, when present at all, beats the session conf. Anything but an
+    empty value or an explicit false spelling (0, false, off, no) counts:
+    ``auto`` turns the JAX plane on on an accelerator."""
+    raw = os.environ.get(env)
+    if raw is None:
+        raw = get_session().conf.get(conf)
+    v = "" if raw is None else str(raw).strip().lower()
+    return v != "" and v not in _FALSY
+
+
+def _env_parses(env: str, cast: Any, legacy: Optional[str] = None) -> bool:
+    """An environment-only knob (the launch planner's): set when ``cast``
+    parses it; ``legacy`` is its older spelling, read when ``env`` is
+    absent."""
+    raw = os.environ.get(env)
+    if raw is None and legacy is not None:
+        raw = os.environ.get(legacy)
+    if raw is None:
+        return False
+    try:
+        cast(raw)
+    except ValueError:
+        return False
+    return True
+
+
+# (what the setting turns on, whether the JAX package would see it) for
+# the launch planner, the pipeline thread and the compile plane
+_PLANES_8B_SETTINGS = [
+    ("the pipeline thread (DELPHI_PIPELINE or the session conf "
+     "repair.pipeline.enabled)",
+     lambda: _toggle_on("DELPHI_PIPELINE", "repair.pipeline.enabled")),
+    ("the launch planner (DELPHI_PLAN)",
+     lambda: bool(os.environ.get("DELPHI_PLAN", "").strip())),
+    ("the launch planner's bucket merging (DELPHI_PLAN_MERGE)",
+     lambda: _env_parses("DELPHI_PLAN_MERGE", int)),
+    ("the launch planner's cell budget (DELPHI_PLAN_CHUNK_CELLS or "
+     "DELPHI_DOMAIN_CHUNK_CELLS)",
+     lambda: _env_parses("DELPHI_PLAN_CHUNK_CELLS", int,
+                         "DELPHI_DOMAIN_CHUNK_CELLS")),
+    ("the launch planner's CV instance cap (DELPHI_PLAN_CV_INSTANCE_CAP or "
+     "DELPHI_CV_INSTANCE_CAP)",
+     lambda: _env_parses("DELPHI_PLAN_CV_INSTANCE_CAP", int,
+                         "DELPHI_CV_INSTANCE_CAP")),
+    ("persisted launch plans (DELPHI_PLAN_DIR)",
+     lambda: bool(os.environ.get("DELPHI_PLAN_DIR"))),
+    ("the compile cache (DELPHI_COMPILE_CACHE_DIR or the session conf "
+     "repair.compile.cache_dir)",
+     lambda: _env_or_conf("DELPHI_COMPILE_CACHE_DIR",
+                          "repair.compile.cache_dir", None)),
+    ("the compile cache's threshold (DELPHI_COMPILE_CACHE_MIN_S or the "
+     "session conf repair.compile.min_compile_secs)",
+     lambda: _env_or_conf("DELPHI_COMPILE_CACHE_MIN_S",
+                          "repair.compile.min_compile_secs", float)),
+    ("the prewarm thread (DELPHI_PREWARM or the session conf "
+     "repair.compile.prewarm)",
+     lambda: _toggle_on("DELPHI_PREWARM", "repair.compile.prewarm")),
+    ("the prewarm budget (DELPHI_PREWARM_BUDGET or the session conf "
+     "repair.compile.prewarm_budget)",
+     lambda: _env_or_conf("DELPHI_PREWARM_BUDGET",
+                          "repair.compile.prewarm_budget", int)),
 ]
 
 
@@ -472,14 +540,9 @@ class RepairModel:
             raise NotImplementedError(
                 f"{what} is not ported to delphi_tpu_torch yet ({later})")
 
-        if self.opts.get(self._opt_checkpoint_path.key):
-            unported(f"option {self._opt_checkpoint_path.key} (model "
-                     "checkpoints)", _resilience.PLANES_ITEM)
-        if _phase_checkpoint_dir():
-            unported("phase checkpoints (DELPHI_CHECKPOINT_DIR or the "
-                     "session conf repair.checkpoint.dir)",
-                     _resilience.PLANES_ITEM)
-        _resilience.check_fault_plan()
+        for what, is_set in _PLANES_8B_SETTINGS:
+            if is_set():
+                unported(what, _PLANES_8B_ITEM)
         for env, conf, cast, what in _OBSERVABILITY_SETTINGS:
             if _env_or_conf(env, conf, cast):
                 unported(f"{what} ({env} or the session conf {conf})",
@@ -1793,19 +1856,177 @@ class RepairModel:
                 elif is_discrete is True:
                     counter_inc("train.classifiers")
 
+    # -- checkpoint/resume -----------------------------------------------------
+    #
+    # `option("model.checkpoint_path", dir)` saves the trained models after
+    # phase 2 and reuses them on a later run whose masked table, targets
+    # and options match; `DELPHI_CHECKPOINT_DIR` / `repair.checkpoint.dir`
+    # persists each phase's outputs keyed on the input table, so a run that
+    # died resumes at its last completed phase. Both fingerprints equal the
+    # JAX package's for the same table and options; the pickles hold this
+    # package's classes, and tensors on the CPU only.
+
+    def _checkpoint_file(self) -> str:
+        path = self._get_option_value(*self._opt_checkpoint_path)
+        return os.path.join(path, "repair_models.pkl") if path else ""
+
+    @staticmethod
+    def _table_content_sha1(table: EncodedTable) -> str:
+        """Content hash of an encoded table: every vocabulary and a crc32 of
+        every code column (``DELPHI_CHECKPOINT_SAMPLED_HASH=1``: a stride
+        sample of about 65,536 rows instead), as the JAX package hashes."""
+        sampled = os.environ.get("DELPHI_CHECKPOINT_SAMPLED_HASH") == "1"
+        stride = max(1, table.n_rows // 65536) if sampled else 1
+        h = hashlib.sha1()
+        h.update(b"sampled" if sampled else b"full")
+        h.update(np.int64(table.n_rows).tobytes())
+        for c in table.columns:
+            h.update(c.name.encode("utf-8", "replace"))
+            h.update("\x00".join(str(v) for v in c.vocab).encode(
+                "utf-8", "replace"))
+            if sampled:
+                h.update(np.ascontiguousarray(c.codes[::stride]).tobytes())
+                if table.n_rows:
+                    h.update(np.ascontiguousarray(c.codes[-1:]).tobytes())
+            else:
+                crc = zlib.crc32(np.ascontiguousarray(c.codes))
+                h.update(np.uint32(crc).tobytes())
+        return h.hexdigest()
+
+    def _input_identity(self) -> str:
+        return self._session.qualified_name(
+            self.db_name,
+            self.input if isinstance(self.input, str) else "<dataframe>")
+
+    def _checkpoint_fingerprint(self, masked: EncodedTable,
+                                target_columns: List[str]) -> Dict[str, Any]:
+        """Identity of a trained-model set: the input's name, shape, schema
+        and content, and every option but ``model.checkpoint_path`` (so a
+        moved checkpoint directory still validates)."""
+        return {
+            "version": 4,
+            "input": self._input_identity(),
+            "targets": sorted(target_columns),
+            "columns": [self._row_id] + masked.column_names,
+            "n_rows": int(masked.n_rows),
+            "content_sha1": self._table_content_sha1(masked),
+            "opts": {k: v for k, v in sorted(self.opts.items())
+                     if k != self._opt_checkpoint_path.key},
+            "discrete_thres": int(self.discrete_thres),
+            "repair_by_rules": bool(self.repair_by_rules),
+            "rebalancing": bool(self.training_data_rebalancing_enabled),
+        }
+
+    def _load_model_checkpoint(self, fingerprint: Dict[str, Any]) \
+            -> Optional[List[Any]]:
+        # Pickles run code as they load: point `model.checkpoint_path` only
+        # at directories this package wrote
+        ckpt = self._checkpoint_file()
+        if not ckpt:
+            return None
+        from delphi_tpu_torch.parallel import store as dstore
+        payload, status = dstore.read_pickle(
+            ckpt, schema="model_ckpt", site="store.model")
+        if status == "missing":
+            return None
+        if status == "corrupt":
+            _logger.warning(f"Ignoring corrupt model checkpoint {ckpt}")
+            return None
+        if not isinstance(payload, dict) or "models" not in payload:
+            _logger.warning(
+                f"Ignoring model checkpoint {ckpt}: unrecognized format")
+            return None
+        if payload.get("fingerprint") != fingerprint:
+            _logger.warning(
+                f"Ignoring stale model checkpoint {ckpt}: "
+                "input/targets/options changed since it was written")
+            return None
+        _logger.info(f"Loaded {len(payload['models'])} repair models from {ckpt}")
+        return payload["models"]
+
+    def _save_model_checkpoint(self, models: List[Any],
+                               fingerprint: Dict[str, Any]) -> None:
+        ckpt = self._checkpoint_file()
+        if not ckpt:
+            return
+        from delphi_tpu_torch.parallel import store as dstore
+        try:
+            dstore.write_pickle(
+                ckpt, {"fingerprint": fingerprint, "models": models},
+                schema="model_ckpt", site="store.model")
+            _logger.info(f"Saved {len(models)} repair models to {ckpt}")
+        except Exception as e:
+            _logger.warning(f"Failed to write model checkpoint {ckpt}: {e}")
+
+    def _phase_fingerprint(self, table: EncodedTable,
+                           continuous_columns: List[str]) -> Dict[str, Any]:
+        """Identity of a run's phase outputs: the input table (name,
+        schema, content), the continuous columns and every option and
+        setter that shapes them."""
+        return {
+            "version": 1,
+            "input": self._input_identity(),
+            "columns": [self._row_id] + table.column_names,
+            "n_rows": int(table.n_rows),
+            "content_sha1": self._table_content_sha1(table),
+            "continuous": sorted(continuous_columns),
+            "opts": dict(sorted(self.opts.items())),
+            "targets": sorted(self.cf.targets) if self.cf is not None else [],
+            "discrete_thres": int(self.discrete_thres),
+            "repair_by_rules": bool(self.repair_by_rules),
+            "rebalancing": bool(self.training_data_rebalancing_enabled),
+        }
+
+    def _phase_checkpoint_store(
+            self, table: EncodedTable, continuous_columns: List[str]
+    ) -> Optional[_resilience.PhaseCheckpointStore]:
+        directory = _resilience.checkpoint_dir()
+        if not directory:
+            return None
+        try:
+            fp = self._phase_fingerprint(table, continuous_columns)
+        except Exception as e:  # checkpointing never fails the run
+            _logger.warning(f"phase checkpointing disabled: {e}")
+            return None
+        return _resilience.PhaseCheckpointStore(directory, fp)
+
+    @staticmethod
+    def _models_on_device(models: List[Any]) -> List[Any]:
+        """Loaded models with their tensors on the run's device (the
+        checkpoint holds them on the CPU)."""
+        from delphi_tpu_torch.device import get_device
+        from delphi_tpu_torch.incremental.executor import models_to
+        moved = models_to(dict(models), get_device())
+        return [(y, moved[y]) for y, _ in models]
+
     @elapsed_time  # type: ignore
     def _run(self, table: EncodedTable, input_name: str,
              continuous_columns: List[str], detect_errors_only: bool,
              compute_repair_candidate_prob: bool, compute_repair_prob: bool,
              compute_repair_score: bool, repair_data: bool,
              maximal_likelihood_repair: bool) -> pd.DataFrame:
+        phase_store = self._phase_checkpoint_store(table, continuous_columns)
+
         #######################################################################
         # 1. Error Detection Phase
         #######################################################################
-        _logger.info(
-            f"[Error Detection Phase] Detecting errors in a table `{input_name}`... ")
-        error_cells_df, target_columns, pairwise_attr_stats, domain_stats = \
-            self._detect_errors(table, input_name, continuous_columns)
+        detect_ckpt = phase_store.load("detect") if phase_store else None
+        if detect_ckpt is not None:
+            error_cells_df, target_columns, pairwise_attr_stats, \
+                domain_stats = detect_ckpt
+        else:
+            _logger.info(
+                f"[Error Detection Phase] Detecting errors in a table "
+                f"`{input_name}`... ")
+            error_cells_df, target_columns, pairwise_attr_stats, \
+                domain_stats = self._detect_errors(
+                    table, input_name, continuous_columns)
+            if phase_store:
+                phase_store.save("detect", (error_cells_df, target_columns,
+                                            pairwise_attr_stats, domain_stats))
+        # an abort lands between phases: the completed phase's checkpoint
+        # is already on disk
+        _resilience.maybe_abort()
 
         if detect_errors_only:
             return error_cells_df.drop(columns=[ROW_IDX], errors="ignore")
@@ -1853,12 +2074,31 @@ class RepairModel:
         error_row_pos = np.unique(
             error_cells_df[ROW_IDX].to_numpy().astype(np.int64))
 
-        models = self._build_repair_models(
-            masked, float_cols, target_columns, continuous_columns,
-            domain_stats, pairwise_attr_stats)
+        fingerprint = self._checkpoint_fingerprint(masked, target_columns) \
+            if self._checkpoint_file() else {}
+        # resume layering: the phase store (keyed on the input table), then
+        # the model checkpoint (keyed on the masked table), then training
+        models = phase_store.load("train") if phase_store else None
+        if models is None:
+            models = self._load_model_checkpoint(fingerprint) \
+                if fingerprint else None
+            if models is None:
+                models = self._build_repair_models(
+                    masked, float_cols, target_columns, continuous_columns,
+                    domain_stats, pairwise_attr_stats)
+                if fingerprint:
+                    self._save_model_checkpoint(models, fingerprint)
+            else:
+                counter_inc("train.checkpoint_hits")
+                models = self._models_on_device(models)
+            if phase_store:
+                phase_store.save("train", models)
+        else:
+            models = self._models_on_device(models)
         # the incremental executor snapshots the trained models after the
         # run, so a later delta run can freeze undrifted attributes
         self._last_models = models
+        _resilience.maybe_abort()
         self._count_models(models)
 
         #######################################################################
@@ -2062,6 +2302,11 @@ class RepairModel:
         if compute_repair_score:
             maximal_likelihood_repair = True
         self._reject_unported()
+        # a run starts with clear latches: an earlier run's abort or CPU
+        # rung must not leak in (a request scope keeps its own)
+        if _resilience.current_scope() is None:
+            _resilience.clear_abort()
+            _resilience.clear_cpu_fallback()
 
         holder = _prov.maybe_start()
         # the escalation router reads the live ledger: a run that escalates

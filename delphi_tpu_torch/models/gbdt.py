@@ -27,6 +27,11 @@ whose order changes from run to run and can flip near-tie splits, are
 never used. Rows and features added to stack unequal fits into one launch
 carry zero weight and a constant bin, so they add exact zeros to every
 sum and never win a split.
+
+Each CV launch and each chunk of a final fit runs behind the resilience
+plane's guarded seam (``gbdt.cv_chunk``, ``gbdt.fit_chunk``). A launch
+returns new margins and never updates a tensor in place that outlives it,
+so a retried launch starts from the same carry.
 """
 
 import time
@@ -37,6 +42,7 @@ import pandas as pd
 import torch
 
 from delphi_tpu_torch.ops.xfer import to_device
+from delphi_tpu_torch.parallel.resilience import run_guarded
 from delphi_tpu_torch.utils import counter_inc
 
 MAX_MULTICLASS = 24
@@ -605,6 +611,21 @@ class _CVSlab:
         self.inst = [self.inst[r] for r in rows]
 
 
+def _cv_chunk(slab: _CVSlab, chunk: int, depth: int, n_bins: int,
+              objective: str, k: int, kk: int) -> Tuple[torch.Tensor,
+                                                        np.ndarray]:
+    """One guarded CV launch: ``chunk`` rounds from the slab's margins,
+    then the held-out stats. Returns the new margins without touching the
+    slab, so a retried launch starts from the same carry."""
+    lr, lam, msg, mcw = slab.hyper
+    F, _ = _boost(slab.bins, slab.y, slab.w, slab.F, chunk, depth, n_bins,
+                  objective, k, lr, lam, msg, mcw, 0.0, use_counts=False,
+                  collect_trees=False)
+    return F, _cv_stats(F, slab.y, slab.val, slab.y_cmp, slab.log,
+                        slab.iscale, slab.cw, slab.valid, objective,
+                        kk).cpu().numpy()
+
+
 def gbdt_cv_grid_search_multi(preps: List[Optional[dict]],
                               configs: List[dict], timeout_s: float = 0.0,
                               good_enough: float = _GOOD_ENOUGH_F1) \
@@ -700,14 +721,10 @@ def gbdt_cv_grid_search_multi(preps: List[Optional[dict]],
                     continue
                 if len(live) < len(slab.inst):
                     slab.keep(live)
-                lr, lam, msg, mcw = slab.hyper
-                slab.F, _ = _boost(
-                    slab.bins, slab.y, slab.w, slab.F, chunk, g_depth,
-                    n_bins, objective, k, lr, lam, msg, mcw, 0.0,
-                    use_counts=False, collect_trees=False)
-                s = _cv_stats(slab.F, slab.y, slab.val, slab.y_cmp, slab.log,
-                              slab.iscale, slab.cw, slab.valid, objective,
-                              kk).cpu().numpy()
+                slab.F, s = run_guarded(
+                    "gbdt.cv_chunk",
+                    lambda slab=slab, chunk=chunk: _cv_chunk(
+                        slab, chunk, g_depth, n_bins, objective, k, kk))
                 counter_inc("gbdt.cv_launches")
                 if len({t for t, _ in slab.inst}) > 1:
                     counter_inc("gbdt.cv_multi_target_launches")
@@ -937,11 +954,15 @@ class GradientBoostedTreesModel:
         F = to_device(F0[None])
         parts = []
         for chunk in round_chunks(self.n_estimators):
-            F, trees = _boost(
-                bins, y_d, w_d, F, chunk, self.max_depth, self._n_bins,
-                self._objective, max(self._k, 1), float(self.learning_rate),
-                float(self.reg_lambda), float(self.min_split_gain),
-                float(self.min_child_weight), float(mcs), use_counts=mcs > 0)
+            F, trees = run_guarded(
+                "gbdt.fit_chunk",
+                lambda F=F, chunk=chunk: _boost(
+                    bins, y_d, w_d, F, chunk, self.max_depth,
+                    self._n_bins, self._objective,
+                    max(self._k, 1), float(self.learning_rate),
+                    float(self.reg_lambda), float(self.min_split_gain),
+                    float(self.min_child_weight), float(mcs),
+                    use_counts=mcs > 0))
             parts.append(trees)
         self._set_trees([torch.cat([p[i] for p in parts]).cpu().numpy()
                          for i in range(3)])
@@ -1057,8 +1078,12 @@ def gbdt_fit_batch(entries: List[Tuple[GradientBoostedTreesModel,
                 [p[5] for p in sub])]
             parts = []
             for chunk in round_chunks(max(m.n_estimators for m in models)):
-                F, trees = _boost(bins, ys, ws, F, chunk, depth, n_bins,
-                                  objective, k, *hyper, use_counts=use_counts)
+                F, trees = run_guarded(
+                    "gbdt.fit_chunk",
+                    lambda F=F, chunk=chunk, bins=bins, ys=ys, ws=ws,
+                    hyper=hyper: _boost(
+                        bins, ys, ws, F, chunk, depth, n_bins, objective, k,
+                        *hyper, use_counts=use_counts))
                 counter_inc("gbdt.fit_batch_launches")
                 parts.append(trees)
             per_round = k if objective == "multiclass" else 1

@@ -37,6 +37,7 @@ from delphi_tpu_torch.constraints import (AttrRef, Constant,
 from delphi_tpu_torch.device import get_device
 from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.ops import xfer
+from delphi_tpu_torch.parallel.resilience import ShrinkBatch, run_guarded
 from delphi_tpu_torch.table import NULL_CODE, EncodedTable
 from delphi_tpu_torch.utils import counter_inc, setup_logger
 
@@ -143,8 +144,29 @@ def percentile_batch(pools: Sequence[torch.Tensor],
     padding, so its order statistics are its own. The lerp is numpy's
     (``a + d*g`` below g = 0.5, ``b - d*(1-g)`` above), one elementwise op
     at a time so that no multiply-add fuses. Returns f64
-    ``[len(pools), len(percents)]``."""
+    ``[len(pools), len(percents)]``.
+
+    Runs behind the guarded seam (site ``detect.percentile``): when an OOM
+    outlasts its retries, the ladder's shrink rung halves the pools and
+    each half runs on its own, recursively, with the same values (every
+    row's order statistics are its own)."""
     counter_inc("detect.percentile")
+
+    def guarded(block: Sequence[torch.Tensor]) -> torch.Tensor:
+        try:
+            return run_guarded(
+                "detect.percentile",
+                lambda: _percentiles(block, percents),
+                can_shrink=len(block) > 1)
+        except ShrinkBatch:
+            half = (len(block) + 1) // 2
+            return torch.cat([guarded(block[:half]), guarded(block[half:])])
+
+    return guarded(list(pools))
+
+
+def _percentiles(pools: Sequence[torch.Tensor],
+                 percents: Sequence[float]) -> torch.Tensor:
     dev = pools[0].device
     sizes = torch.tensor([len(p) for p in pools], dtype=torch.int64,
                          device=dev)
@@ -267,16 +289,25 @@ def _sorted_count(keys2: torch.Tensor, keys1: torch.Tensor) -> torch.Tensor:
     and two searchsorted passes: O(n log n), no dense (group x value)
     table to size."""
     counter_inc("detect.sorted_count")
-    s = torch.sort(keys2).values
-    return torch.searchsorted(s, keys1, right=True) \
-        - torch.searchsorted(s, keys1, right=False)
+
+    def count() -> torch.Tensor:
+        s = torch.sort(keys2).values
+        return torch.searchsorted(s, keys1, right=True) \
+            - torch.searchsorted(s, keys1, right=False)
+
+    return run_guarded("detect.sorted_count", count)
 
 
 def _rank(keys: torch.Tensor) -> torch.Tensor:
     """Each key's rank in the sorted keys (equal keys share the rank of
     their first occurrence): comparable ids in [0, len)."""
     counter_inc("detect.rank")
-    return torch.searchsorted(torch.sort(keys).values, keys, right=False)
+
+    def rank() -> torch.Tensor:
+        return torch.searchsorted(torch.sort(keys).values, keys,
+                                  right=False)
+
+    return run_guarded("detect.rank", rank)
 
 
 def _fused_ranks(halves: Sequence[Tuple[np.ndarray, np.ndarray]],
@@ -308,12 +339,16 @@ def _group_extrema(values: torch.Tensor, groups: torch.Tensor,
     [0, n_groups)."""
     counter_inc("detect.group_extrema")
     init = float("-inf") if want_max else float("inf")
-    safe = torch.where(torch.isnan(values),
-                       torch.full_like(values, init), values)
-    ext = torch.full((n_groups,), init, dtype=torch.float64,
-                     device=values.device)
-    return ext.scatter_reduce(0, groups, safe,
-                              reduce="amax" if want_max else "amin")
+
+    def extrema() -> torch.Tensor:
+        safe = torch.where(torch.isnan(values),
+                           torch.full_like(values, init), values)
+        ext = torch.full((n_groups,), init, dtype=torch.float64,
+                         device=values.device)
+        return ext.scatter_reduce(0, groups, safe,
+                                  reduce="amax" if want_max else "amin")
+
+    return run_guarded("detect.group_extrema", extrema)
 
 
 def _two_tuple_violations(table: EncodedTable, preds: Sequence[Predicate]) \

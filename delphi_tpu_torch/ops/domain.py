@@ -15,6 +15,12 @@ its current value. Semantics of the JAX package's host route
 * big/tiny recombine on the host in f64 (the same numpy reduction as the
   reference, so a probability within one ulp of beta cannot flip), then the
   beta mask and the rank tie-break pick the top value.
+
+Each chunk's device pass runs behind the resilience plane's guarded seam,
+named by the route the JAX package takes: ``domain.score`` when a
+provenance ledger needs every cell's probabilities, ``domain.weak_label``
+(its fused weak-label route) otherwise. The evict rung drops the
+correlates' cached device codes, which the retry uploads afresh.
 """
 
 from dataclasses import dataclass
@@ -27,6 +33,7 @@ import torch
 from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.ops import xfer
 from delphi_tpu_torch.ops.freq import FreqStats
+from delphi_tpu_torch.parallel.resilience import run_guarded
 from delphi_tpu_torch.table import NULL_CODE, DiscretizedTable
 from delphi_tpu_torch.utils import counter_inc
 
@@ -93,17 +100,17 @@ def _iter_attr_groups(disc: DiscretizedTable,
                          _ctx=(pair_tables, taus, corr_cols, has_single, n))
 
 
-def _score_chunks(group: _AttrGroup):
+def _score_chunks(group: _AttrGroup, site: str):
     """Yields (chunk offset, big, tiny, contributed) for the group's cells:
     the integer accumulators run on the device over the correlates'
-    resident code columns, and come back as int64 / bool host arrays."""
+    resident code columns, one guarded ``site`` entry per chunk, and come
+    back as int64 / bool host arrays."""
     pair_tables, taus, corr_cols, has_single, _ = group._ctx
     tables = [xfer.to_device(t, torch.int64) for t in pair_tables]
     hs = xfer.to_device(has_single, torch.bool)
-    for lo in range(0, len(group.rows), _CHUNK_CELLS):
-        rows = xfer.to_device(group.rows[lo:lo + _CHUNK_CELLS], torch.int64)
-        v_a = int(hs.shape[0])
-        big = torch.zeros((len(rows), v_a), dtype=torch.int64,
+
+    def launch(rows: torch.Tensor):
+        big = torch.zeros((len(rows), int(hs.shape[0])), dtype=torch.int64,
                           device=rows.device)
         tiny = torch.zeros_like(big)
         contributed = torch.zeros_like(big, dtype=torch.bool)
@@ -117,8 +124,15 @@ def _score_chunks(group: _AttrGroup):
                                torch.zeros_like(gathered))
             tiny += (active & (gathered == 1)).long()
             contributed |= active
-        yield lo, big.cpu().numpy(), tiny.cpu().numpy(), \
+        return big.cpu().numpy(), tiny.cpu().numpy(), \
             contributed.cpu().numpy()
+
+    for lo in range(0, len(group.rows), _CHUNK_CELLS):
+        rows = xfer.to_device(group.rows[lo:lo + _CHUNK_CELLS], torch.int64)
+        big, tiny, contributed = run_guarded(
+            site, lambda rows=rows: launch(rows),
+            evict=lambda: xfer.evict_device_codes(corr_cols))
+        yield lo, big, tiny, contributed
 
 
 def _combine_scores(big: np.ndarray, tiny: np.ndarray, contributed: np.ndarray,
@@ -172,7 +186,8 @@ def compute_weak_label_mask(
         vocab_rank = np.empty(len(vocab), dtype=np.int64)
         vocab_rank[order] = np.arange(len(vocab))
         n_rows = group._ctx[4]
-        for lo, big, tiny, contributed in _score_chunks(group):
+        site = "domain.score" if led is not None else "domain.weak_label"
+        for lo, big, tiny, contributed in _score_chunks(group, site):
             prob, contributed = _combine_scores(big, tiny, contributed, n_rows)
             keep = contributed & (prob > beta)
             if led is not None and len(prob):

@@ -9,6 +9,10 @@
   sort the fused key and count transitions.
 
 NULL is a first-class value (slot 0), matching SQL GROUP BY semantics.
+Each device step runs behind the resilience plane's guarded seam (sites
+``freq.singles``, ``freq.pairs_pallas`` and ``freq.distinct``, as in the
+JAX package; the JAX package enters ``freq.pairs_pallas`` once per pair,
+the port once per K1 call).
 """
 
 from dataclasses import dataclass, field
@@ -19,6 +23,7 @@ import torch
 
 from delphi_tpu_torch.ops import xfer
 from delphi_tpu_torch.ops.kernels import pair_counts as k_pair_counts
+from delphi_tpu_torch.parallel.resilience import run_guarded
 from delphi_tpu_torch.table import EncodedTable
 
 Pair = Tuple[str, str]
@@ -110,18 +115,27 @@ def compute_freq_stats(table: EncodedTable,
 
     # singles: one bincount over keys offset per column
     stride = max((vocab_sizes[a] for a in needed), default=0) + 1
-    col_base = torch.arange(len(needed), device=codes.device,
-                            dtype=torch.int64)[:, None] * stride
-    single_buffer = torch.bincount(
-        (codes.long() + 1 + col_base).reshape(-1),
-        minlength=len(needed) * stride).to(torch.int32)
+
+    def singles_counts() -> torch.Tensor:
+        col_base = torch.arange(len(needed), device=codes.device,
+                                dtype=torch.int64)[:, None] * stride
+        return torch.bincount((codes.long() + 1 + col_base).reshape(-1),
+                              minlength=len(needed) * stride).to(torch.int32)
+
+    single_buffer = run_guarded("freq.singles", singles_counts)
     singles_np = single_buffer.cpu().numpy().reshape(len(needed), stride)
     singles = {a: singles_np[name_to_idx[a], : vocab_sizes[a] + 1]
                for a in needed}
 
-    flat, offsets = k_pair_counts.pair_counts(
-        codes, [(name_to_idx[x], name_to_idx[y]) for x, y in pairs],
-        [vocab_sizes[a] for a in needed])
+    pair_idx = [(name_to_idx[x], name_to_idx[y]) for x, y in pairs]
+    vocab = [vocab_sizes[a] for a in needed]
+    if pair_idx:
+        flat, offsets = run_guarded(
+            "freq.pairs_pallas", lambda: k_pair_counts.pair_counts(
+                codes, pair_idx, vocab))
+    else:
+        # no pair, no launch and no seam entry, as in the JAX package
+        flat, offsets = k_pair_counts.pair_counts(codes, pair_idx, vocab)
     flat_np = flat.cpu().numpy()
     pair_mats: Dict[Pair, np.ndarray] = {}
     for p, (x, y) in enumerate(pairs):
@@ -160,11 +174,16 @@ class PairDistinctCounter:
     def _count(self, x: str, y: str) -> int:
         if self._table.n_rows == 0:
             return 0
-        cx = xfer.device_codes(self._table.column(x)).long()
-        cy = xfer.device_codes(self._table.column(y)).long()
-        key = (cx + 1) * (self._table.column(y).domain_size + 1) + (cy + 1)
-        s = torch.sort(key).values
-        return int(1 + (s[1:] != s[:-1]).sum().item())
+        cx = xfer.device_codes(self._table.column(x))
+        cy = xfer.device_codes(self._table.column(y))
+        stride = self._table.column(y).domain_size + 1
+
+        def count() -> int:
+            key = (cx.long() + 1) * stride + (cy.long() + 1)
+            s = torch.sort(key).values
+            return int(1 + (s[1:] != s[:-1]).sum().item())
+
+        return run_guarded("freq.distinct", count)
 
     def distinct_pair_count(self, x: str, y: str) -> int:
         key = frozenset((x, y))

@@ -15,10 +15,13 @@ contraction is a full-precision f32 batched matmul). It runs on the
 device its inputs live on, with no copy to the host between iterations.
 
 Written as plain tensor ops (a gather, one ``einsum``, softmax, the damped
-update); no hand kernel yet. :data:`launches` counts the calls.
+update); no hand kernel yet. :data:`launches` counts the calls. Each call
+runs behind the resilience plane's guarded seam (site ``escalate.joint``).
 """
 
 import torch
+
+from delphi_tpu_torch.parallel.resilience import run_guarded
 
 #: damping factor for the synchronous belief updates
 DAMPING = 0.5
@@ -44,6 +47,12 @@ def joint_ascent(unary: torch.Tensor, nbr_idx: torch.Tensor,
     nbr = u). Returns beliefs f32[n, V] on the inputs' device."""
     global launches
     launches += 1
+    return run_guarded("escalate.joint", lambda: _ascent(
+        unary, nbr_idx, nbr_pot, iters))
+
+
+def _ascent(unary: torch.Tensor, nbr_idx: torch.Tensor,
+            nbr_pot: torch.Tensor, iters: int) -> torch.Tensor:
     valid = (nbr_idx >= 0).to(unary.dtype)              # [n, K]
     idx = nbr_idx.clamp(min=0).long()                   # [n, K]
     b = torch.softmax(unary, dim=-1)

@@ -9,6 +9,10 @@ entry point takes a host pointer to its parameter table (a ``ctypes``
 structure the kernel receives by value) and the stream as ``void*``, and
 returns the first ``cudaError_t`` it met; :func:`check` raises on a
 non-zero code. No entry point waits for the device.
+
+A failed build raises :class:`KernelBuildError` and a failed launch
+:class:`KernelLaunchError`: the resilience plane classifies neither as a
+fault, so neither is retried or sent down the degradation ladder.
 """
 
 import ctypes
@@ -31,6 +35,14 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing, or compiling or linking a source failed."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's entry point returned a CUDA error."""
+
+
 def sources() -> List[str]:
     return sorted(os.path.join(_CSRC_DIR, f) for f in os.listdir(_CSRC_DIR)
                   if f.endswith(".cu"))
@@ -41,7 +53,7 @@ def _nvcc() -> str:
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise KernelBuildError("nvcc not found: the CUDA kernels cannot be built")
     return path
 
 
@@ -77,7 +89,7 @@ def build(ptxas_verbose: bool = False) -> Tuple[str, str]:
         if proc.returncode != 0:
             failed.append(src)
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+        raise KernelBuildError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs))
     tmp = lib_path + f".{os.getpid()}.tmp"
     link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
@@ -86,7 +98,7 @@ def build(ptxas_verbose: bool = False) -> Tuple[str, str]:
     for obj in objs:
         os.remove(obj)
     if link.returncode != 0:
-        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        raise KernelBuildError("nvcc link failed:\n" + link.stdout)
     os.replace(tmp, lib_path)
     return lib_path, "\n".join(logs + [link.stdout])
 
@@ -113,7 +125,7 @@ def library() -> ctypes.CDLL:
 
 def check(err: int, kernel: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed (cudaError {err})")
+        raise KernelLaunchError(f"{kernel}: CUDA launch failed (cudaError {err})")
 
 
 def current_stream() -> int:

@@ -6,6 +6,9 @@ with fresh objects (``dataclasses.replace`` copies declared fields only) and
 keep unchanged ones, so invalidation is object identity: a masked column can
 never serve a stale device buffer, and an untouched column keeps its buffer
 across every phase.
+
+Every upload runs behind the resilience plane's guarded seam (site
+``xfer.upload``, :func:`delphi_tpu_torch.parallel.resilience.run_guarded`).
 """
 
 from typing import Any
@@ -14,28 +17,44 @@ import numpy as np
 import torch
 
 from delphi_tpu_torch.device import get_device
+from delphi_tpu_torch.parallel.resilience import run_guarded
 
 _DEVICE_CODES_ATTR = "_delphi_torch_codes"
 
 
 def to_device(x: Any, dtype: Any = None) -> torch.Tensor:
-    """Uploads a host array to the port's device."""
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=get_device())
+    """Uploads a host array to the port's device, under the guarded seam:
+    a transient or transfer fault retries with backoff."""
+    arr = np.asarray(x)
+    return run_guarded(
+        "xfer.upload",
+        lambda: torch.as_tensor(arr, dtype=dtype, device=get_device()))
+
+
+def evict_device_codes(cols) -> None:
+    """Drops the cached device codes of ``cols`` and returns the freed
+    blocks to the card (the ``evict`` rung of a guarded site that reads
+    them); the next :func:`device_codes` uploads afresh."""
+    for col in cols:
+        if getattr(col, _DEVICE_CODES_ATTR, None) is not None:
+            setattr(col, _DEVICE_CODES_ATTR, None)
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
 
 
 def device_codes(col) -> torch.Tensor:
     """Device-resident int32 codes of one encoded column, uploaded on first
     use. The upload checks that every code lies in ``[-1, domain_size)``:
     the count kernels index their histograms with these codes unchecked."""
-    dev = get_device()
     cached = getattr(col, _DEVICE_CODES_ATTR, None)
-    if cached is not None and cached.device == dev:
+    if cached is not None and cached.device == get_device():
         return cached
     codes = np.ascontiguousarray(col.codes, dtype=np.int32)
     if codes.size and (int(codes.min()) < -1
                        or int(codes.max()) >= col.domain_size):
         raise ValueError(
             f"column '{col.name}': codes outside [-1, {col.domain_size})")
-    arr = torch.from_numpy(codes).to(dev)
+    arr = run_guarded("xfer.upload",
+                      lambda: torch.from_numpy(codes).to(get_device()))
     setattr(col, _DEVICE_CODES_ATTR, arr)
     return arr

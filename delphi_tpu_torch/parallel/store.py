@@ -44,6 +44,7 @@ import time
 import zlib
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+from delphi_tpu_torch.parallel.resilience import StoreCorrupt, note_fault
 from delphi_tpu_torch.utils import counter_inc, gauge_set, setup_logger
 
 _logger = setup_logger()
@@ -105,11 +106,6 @@ _seen_lock = threading.Lock()
 
 # per-root monotonic stamp of the last post-write sweep; under _seen_lock
 _last_gc: Dict[str, float] = {}
-
-
-class StoreCorrupt(RuntimeError):
-    """An envelope failed validation: a garbled header, another version or
-    schema, a truncated payload or a crc mismatch."""
 
 
 # -- envelope ---------------------------------------------------------------
@@ -221,9 +217,7 @@ def quarantine(path: str, root: str, reason: str, site: str) -> Optional[str]:
 
 def _note_corrupt(path: str, site: str, root: str, exc: BaseException) -> None:
     counter_inc("store.corrupt")
-    counter_inc("resilience.faults.store_corrupt")
-    _logger.warning(f"{site}: classified store_corrupt fault: "
-                    f"{type(exc).__name__}: {exc}")
+    note_fault(exc, site)
     quarantine(path, root, str(exc), site)
 
 
@@ -374,9 +368,22 @@ class _PortUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+class _HostPickler(pickle.Pickler):
+    """Pickles every tensor as its CPU copy: no store file holds a CUDA
+    tensor, and the objects pickled stay where they are."""
+
+    def reducer_override(self, obj: Any) -> Any:
+        import torch
+        if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+            return obj.detach().cpu().__reduce_ex__(pickle.DEFAULT_PROTOCOL)
+        return NotImplemented
+
+
 def write_pickle(path: str, obj: Any, *, schema: str, site: str,
                  root: Optional[str] = None) -> None:
-    write_bytes(path, pickle.dumps(obj), schema=schema, site=site, root=root)
+    buf = io.BytesIO()
+    _HostPickler(buf).dump(obj)
+    write_bytes(path, buf.getvalue(), schema=schema, site=site, root=root)
 
 
 def read_pickle(path: str, *, schema: str, site: str,
@@ -660,7 +667,7 @@ def fsck(root: str, repair: bool = True) -> Dict[str, Any]:
                 if repair:
                     site = SCHEMA_SITES.get(tag, "store.fsck")
                     counter_inc("store.corrupt")
-                    counter_inc("resilience.faults.store_corrupt")
+                    note_fault(StoreCorrupt(f"fsck: {path}: {e}"), site)
                     if quarantine(path, root, str(e), site):
                         summary["quarantined"] += 1
                 continue

@@ -7,6 +7,7 @@ import functools
 import inspect
 import logging
 import os
+import threading
 import time
 import typing
 from typing import Any, Dict, List, Optional
@@ -185,28 +186,61 @@ train_reports: List[Dict[str, Any]] = []
 gauges: Dict[str, float] = {}
 
 
+# Every value observed per histogram name (the resilience plane's backoff
+# delays); read and cleared like the counters.
+histograms: Dict[str, List[float]] = {}
+
+
 def counter_inc(name: str, n: int = 1) -> None:
     counters[name] = counters.get(name, 0) + n
+
+
+def histogram_observe(name: str, value: float) -> None:
+    histograms.setdefault(name, []).append(float(value))
 
 
 def gauge_set(name: str, value: float) -> None:
     gauges[name] = value
 
 
+_spans = threading.local()
+
+
+def current_phase() -> Optional["phase_span"]:
+    """The innermost :class:`phase_span` open on this thread, or None
+    outside every phase (the resilience plane scopes its CPU latch by
+    it)."""
+    stack = getattr(_spans, "stack", None)
+    return stack[-1] if stack else None
+
+
 class phase_span:
     """Phase-scoped timing span: logs the phase's wall time and adds it to
     :data:`phase_walls`. When the port's device is a card, the span
-    synchronises it on exit so the wall covers the phase's device work."""
+    synchronises it on exit so the wall covers the phase's device work.
+    ``open`` is True from entry to exit."""
 
     def __init__(self, name: str) -> None:
         self.name = name
+        self.open = False
         self._t0 = 0.0
 
     def __enter__(self) -> "phase_span":
+        stack = getattr(_spans, "stack", None)
+        if stack is None:
+            stack = _spans.stack = []
+        stack.append(self)
+        self.open = True
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc: Any) -> None:
+        self.open = False
+        stack = _spans.stack
+        if self in stack:
+            # pop through any span an exception left open below this one
+            while stack.pop() is not self:
+                pass
         import torch
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()

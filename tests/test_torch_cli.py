@@ -7,7 +7,8 @@ equal CSVs and ledger files on the escalation fixture (the port repairing
 with the JAX package's models, as ``tests/test_torch_escalate.py`` explains);
 ``--incremental``, ``--snapshot-dir`` and ``--stream`` write equal CSVs and
 ``--fsck`` / ``--fsck-report-only`` give equal exit codes and summaries;
-every flag of the JAX package's CLI that the port does not have yet
+``--checkpoint-dir`` and ``--fault-plan`` write equal CSVs, and an
+injected ``crash`` exits with code 23 in both; every flag of the JAX package's CLI that the port does not have yet
 raises, naming the ``ROADMAP.md`` item that brings it.
 
 Both CLIs run in this process (``main(argv)``); one case also runs the
@@ -126,9 +127,8 @@ def test_cli_as_module_matches_in_process(inputs, tmp_path):
     ("--gauntlet-rows", "100", "item 10"), ("--gauntlet-seed", "1", "item 10"),
     ("--gauntlet-scenarios", "wide", "item 10"),
     ("--gauntlet-no-repairs", None, "item 10"),
-    ("--checkpoint-dir", "c", "item 8"), ("--fault-plan", "x:1:oom", "item 8"),
-    ("--compile-cache-dir", "c", "item 8"), ("--pipeline", "on", "item 8"),
-    ("--plan-report", "p", "item 8"),
+    ("--compile-cache-dir", "c", "item 8b"), ("--pipeline", "on", "item 8b"),
+    ("--plan-report", "p", "item 8b"),
     ("--collective-timeout-s", "5", "item 9"),
 ])
 def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
@@ -141,6 +141,95 @@ def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
                        match=f"{flag} .*queue 1 {item} of ROADMAP.md"):
         t_main.main(argv)
     assert not (tmp_path / "o.csv").exists()
+
+
+@pytest.fixture
+def _restore_jax_conf():
+    """The JAX CLI leaves the settings of its flags in its session conf."""
+    keys = ("repair.checkpoint.dir", "repair.fault.plan")
+    prior = {k: j_session().conf.get(k) for k in keys}
+    yield
+    for k, v in prior.items():
+        if v is None:
+            j_session().conf.pop(k, None)
+        else:
+            j_session().conf[k] = v
+
+
+@pytest.mark.parametrize("flags", [
+    ("--checkpoint-dir", "{d}"),
+    ("--fault-plan", "freq.pair*:1:oom"),
+    ("--fault-plan", "gbdt.*:1:transient,xfer.upload:2:transfer"),
+    ("--fault-plan", "store.checkpoint:1:torn_write", "--checkpoint-dir",
+     "{d}"),
+], ids=["checkpoint-dir", "fault-plan-pairs", "fault-plan-gbdt-upload",
+        "torn-checkpoint"])
+def test_checkpoint_and_fault_plan_flags_match_jax(inputs, tmp_path, flags,
+                                                   _restore_jax_conf):
+    """Each package writes its own checkpoint directory; the CSVs equal
+    each other and an unflagged run's, and a second port run with the same
+    directory resumes both phases (a torn detect checkpoint reads as
+    corrupt and is recomputed)."""
+    from delphi_tpu.parallel import resilience as j_rz
+    from delphi_tpu_torch.parallel import resilience as t_rz
+    from delphi_tpu_torch.utils import counters
+    plain = tmp_path / "plain.csv"
+    assert t_main.main(["--input", str(inputs / "in.csv"), "--row-id", "tid",
+                        "--output", str(plain)]) == 0
+    out = []
+    for name, main, rz in (("jax", j_main.main, j_rz),
+                           ("torch", t_main.main, t_rz)):
+        rz.reset_fault_state()
+        path = tmp_path / f"{name}.csv"
+        argv = ["--input", str(inputs / "in.csv"), "--row-id", "tid",
+                "--output", str(path)]
+        argv += [f.format(d=tmp_path / f"ckpt_{name}") for f in flags]
+        assert main(argv) == 0
+        out.append(path.read_text())
+    assert out[1] == out[0] == plain.read_text()
+    assert t_session().conf.get("repair.fault.plan") is None
+    assert t_session().conf.get("repair.checkpoint.dir") is None
+    if "--checkpoint-dir" in flags:
+        counters.clear()
+        t_rz.reset_fault_state()
+        again = tmp_path / "again.csv"
+        assert t_main.main(
+            ["--input", str(inputs / "in.csv"), "--row-id", "tid",
+             "--output", str(again), "--checkpoint-dir",
+             str(tmp_path / "ckpt_torch")]) == 0
+        assert again.read_text() == out[1]
+        torn = "torn_write" in "".join(flags)
+        assert counters["resilience.checkpoint.hits"] == (1 if torn else 2)
+
+
+def test_injected_crash_exits_23_and_the_rerun_resumes(inputs, tmp_path):
+    """``--fault-plan store.checkpoint:1:crash`` kills the port's CLI (as
+    the JAX package's) with code 23 while the detect checkpoint is being
+    written; a re-run without the plan exits 0 with the unflagged CSV."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(DELPHI_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1",
+               JAX_PLATFORMS="cpu")
+    base = ["--input", str(inputs / "in.csv"), "--row-id", "tid"]
+    codes = []
+    for pkg in ("delphi_tpu.main", "delphi_tpu_torch.main"):
+        d = tmp_path / pkg
+        proc = subprocess.run(
+            [sys.executable, "-m", pkg, *base, "--output", str(d) + ".csv",
+             "--checkpoint-dir", str(d), "--fault-plan",
+             "store.checkpoint:1:crash"],
+            cwd=REPO_ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        codes.append(proc.returncode)
+        assert not (d / "phase_detect.pkl").exists()
+    assert codes == [23, 23]
+    d = tmp_path / "delphi_tpu_torch.main"
+    rerun = tmp_path / "rerun.csv"
+    assert t_main.main([*base, "--output", str(rerun), "--checkpoint-dir",
+                        str(d)]) == 0
+    plain = tmp_path / "plain.csv"
+    assert t_main.main([*base, "--output", str(plain)]) == 0
+    assert rerun.read_text() == plain.read_text()
+    assert (d / "phase_detect.pkl").is_file()
 
 
 def _fsck_root(root):

@@ -663,3 +663,148 @@ def test_boosting_rounds_bitwise_card_matches_cpu(card):
         s_g = gbdt._cv_stats(F_g, y.to(card), val.to(card),
                              *[c.to(card) for c in consts], objective, kk)
         assert torch.equal(s_g.cpu(), s_c)
+
+
+# -- the resilience plane on the card -----------------------------------------
+
+def _null_table(n, seed=0):
+    rng = np.random.RandomState(seed)
+    level = rng.randint(0, 10, n)
+    df = pd.DataFrame({
+        "tid": np.arange(n),
+        "level": [f"lv{i}" for i in level],
+        "tier": [f"t{i // 2}" for i in level],
+        "band": [f"b{i % 5}" for i in level],
+        "segment": [f"s{i}" for i in rng.randint(0, 4, n)],
+    })
+    for col in ("tier", "band"):
+        vals = df[col].to_numpy(dtype=object).copy()
+        vals[rng.choice(n, n // 5, replace=False)] = None
+        df[col] = vals
+    return df
+
+
+def _null_run(df):
+    return T.delphi.repair.setInput(df).setRowId("tid") \
+        .setErrorDetectors([T.NullErrorDetector()]) \
+        .option("model.hp.max_evals", "1").run()
+
+
+@pytest.fixture
+def clean_plan(monkeypatch):
+    from delphi_tpu_torch.parallel import resilience as rz
+    monkeypatch.delenv("DELPHI_FAULT_PLAN", raising=False)
+    monkeypatch.delenv("DELPHI_CHECKPOINT_DIR", raising=False)
+    rz.reset_fault_state()
+    yield rz
+    rz.reset_fault_state()
+    rz.clear_cpu_fallback()
+
+
+@pytest.mark.cuda
+def test_real_oom_classifies_as_oom(card, clean_plan):
+    """The allocator's own failure classifies as oom; a failed launch's
+    error never classifies as a fault."""
+    from delphi_tpu_torch.ops.kernels import build
+    with pytest.raises(torch.cuda.OutOfMemoryError) as e:
+        torch.empty(2 ** 40, device="cuda")
+    assert clean_plan.classify_fault(e.value) == "oom"
+    with pytest.raises(build.KernelLaunchError) as e:
+        build.check(700, "pair_counts")
+    assert clean_plan.classify_fault(e.value) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site,n_faults", [("freq.pair*", 3),
+                                           ("gbdt.fit_chunk", 3),
+                                           ("domain.weak_label", 6)])
+def test_cpu_rung_reraises_on_the_card(card, clean_plan, monkeypatch, site,
+                                       n_faults):
+    """A classified fault that outlasts its retries (and the evict rung,
+    where the site has one) on a run on the card re-raises instead of
+    moving work to the CPU: the refusal is counted, nothing is latched,
+    and the next run on the card returns the unfaulted frame (without a
+    ledger, so that the domain chunks enter domain.weak_label)."""
+    from delphi_tpu_torch.utils import counters
+    df = _null_table(3000)
+    T.set_device("cuda")
+    want = _null_run(df)
+    monkeypatch.setenv("DELPHI_FAULT_PLAN", ",".join(
+        f"{site}:{n}:oom" for n in range(1, n_faults + 1)))
+    counters.clear()
+    with pytest.raises(clean_plan.FaultInjected) as exc:
+        _null_run(df)
+    assert clean_plan.classify_fault(exc.value) == "oom"
+    assert counters["resilience.degrade.cpu_refused"] == 1
+    assert "resilience.degrade.cpu_fallback" not in counters
+    assert counters["resilience.faults.oom"] == n_faults
+    assert not clean_plan.cpu_fallback_active()
+    monkeypatch.delenv("DELPHI_FAULT_PLAN")
+    clean_plan.reset_fault_state()
+    pd.testing.assert_frame_equal(_null_run(df), want)
+
+
+@pytest.mark.cuda
+def test_resumed_run_on_card_equals_cpu(card, clean_plan, monkeypatch,
+                                        tmp_path):
+    """At 2,000 rows a run killed at its first GBDT launch resumes from
+    its detect checkpoint to the unfaulted frame, on the card as on the
+    CPU, and the two frames are equal."""
+    df = _null_table(2000, seed=1)
+    frames = []
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        base = _null_run(df)
+        monkeypatch.setenv("DELPHI_CHECKPOINT_DIR", str(tmp_path / dev))
+        monkeypatch.setenv("DELPHI_FAULT_PLAN", "gbdt.*:1:fatal")
+        with pytest.raises(clean_plan.FaultInjected):
+            _null_run(df)
+        monkeypatch.delenv("DELPHI_FAULT_PLAN")
+        clean_plan.reset_fault_state()
+        resumed = _null_run(df)
+        monkeypatch.delenv("DELPHI_CHECKPOINT_DIR")
+        pd.testing.assert_frame_equal(resumed, base)
+        frames.append(resumed)
+    pd.testing.assert_frame_equal(frames[1], frames[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default detectors", "error cells"])
+def test_constraints_table_card_matches_cpu(card, mode):
+    """The constraints path's default-detector and setErrorCells runs on
+    a 2,000-row fd_categorical-shaped table: the card's frame equals the
+    CPU's outside logistic-head near-ties."""
+    import chip_smoke as cs
+    _, dirty, truth = cs.fd_table(2000, seed=5)
+
+    def build():
+        m = cs.dc_model(T, dirty, detectors=False)
+        return m.setErrorCells(cs.truth_cells(truth)) \
+            if mode == "error cells" else m
+
+    ties, restore = cs.near_ties(T)
+    try:
+        T.set_device("cpu")
+        on_cpu = build().run()
+    finally:
+        restore()
+    T.set_device("cuda")
+    on_gpu = build().run()
+    assert len(on_gpu) > 0
+    cs.frames_match(mode, on_cpu, on_gpu, ties)
+
+
+@pytest.mark.cuda
+def test_device_codes_cache_hits_on_the_card(card):
+    """A column's codes upload once: the run's device carries the card's
+    index, as the cached tensor's device does."""
+    from delphi_tpu_torch.ops import xfer
+    from delphi_tpu_torch.parallel import resilience as rz
+    from delphi_tpu_torch.table import encode_table
+    T.set_device("cuda")
+    table = encode_table(pd.DataFrame({"tid": range(10),
+                                       "a": list("xyxyxyxyxz")}), "tid")
+    rz.entries.clear()
+    first = xfer.device_codes(table.column("a"))
+    assert xfer.device_codes(table.column("a")) is first
+    assert rz.entries == {"xfer.upload": 1}

@@ -292,6 +292,67 @@ print(json.dumps({"runs": runs, "reused": counters.get("incremental.models_reuse
 """
 
 
+_RUN_SLICE8 = """
+import json, os, sys, tempfile
+import pandas as pd
+import delphi_tpu_torch as T
+from delphi_tpu_torch import main as cli
+from delphi_tpu_torch.parallel import resilience as rz
+from delphi_tpu_torch.utils import counters
+
+df = pd.DataFrame({
+    "tid": [str(i) for i in range(60)],
+    "a": [f"a{i % 3}" for i in range(60)],
+    "b": [None if i % 9 == 0 else f"b{i % 3}" for i in range(60)],
+    "c": [f"c{i % 2}" for i in range(60)]})
+
+
+def run(**opts):
+    m = T.delphi.repair.setInput(df).setRowId("tid") \\
+        .setErrorDetectors([T.NullErrorDetector()])
+    for k, v in opts.items():
+        m = m.option(k, v)
+    return m.run()
+
+
+out = tempfile.mkdtemp()
+base = run()
+os.environ["DELPHI_CHECKPOINT_DIR"] = out + "/phase"
+os.environ["DELPHI_FAULT_PLAN"] = "gbdt.*:1:fatal"
+try:
+    run()
+    killed = False
+except rz.FaultInjected:
+    killed = True
+del os.environ["DELPHI_FAULT_PLAN"]
+rz.reset_fault_state()
+counters.clear()
+resumed = run()
+hits = counters.get("resilience.checkpoint.hits", 0)
+del os.environ["DELPHI_CHECKPOINT_DIR"]
+os.environ["DELPHI_FAULT_PLAN"] = "freq.pair*:1:oom,freq.pair*:2:oom,freq.pair*:3:oom"
+counters.clear()
+laddered = run(**{"model.checkpoint_path": out + "/model"})
+rungs = counters.get("resilience.degrade.cpu_fallback", 0)
+del os.environ["DELPHI_FAULT_PLAN"]
+counters.clear()
+reused = run(**{"model.checkpoint_path": out + "/model"})
+df.to_csv(out + "/in.csv", index=False)
+code = cli.main(["--input", out + "/in.csv", "--row-id", "tid", "--output",
+                 out + "/o.csv", "--checkpoint-dir", out + "/cli",
+                 "--fault-plan", "xfer.upload:1:transfer"])
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({"killed": killed, "hits": hits,
+                  "equal": all(f.equals(base) for f in (resumed, laddered,
+                                                        reused)),
+                  "rungs": rungs,
+                  "model_hits": counters.get("train.checkpoint_hits", 0),
+                  "cli": code, "mods": mods}))
+"""
+
+
 def _python(code, **env_over):
     env = {k: v for k, v in os.environ.items()
            if k not in ("DELPHI_TORCH_DEVICE", "PYTHONPATH")}
@@ -384,4 +445,19 @@ def test_incremental_stream_and_store_run_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["runs"] == ["full", "delta"] and out["reused"] >= 1
     assert out["stream"] > 0 and out["corrupt"] == 1
+    assert out["mods"] == []
+
+
+def test_resilience_and_checkpoints_run_without_jax():
+    """A run killed by an injected fault and its resume from the phase
+    checkpoints, the CPU rung, a model checkpoint's save and reuse, and
+    the CLI's ``--checkpoint-dir`` / ``--fault-plan`` run on the CPU
+    without JAX or ``delphi_tpu`` loaded."""
+    proc = _python(_RUN_SLICE8, DELPHI_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["killed"] and out["hits"] == 1 and out["equal"]
+    assert out["rungs"] == 1 and out["model_hits"] == 1
+    assert out["cli"] == 0
     assert out["mods"] == []

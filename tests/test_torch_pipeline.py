@@ -257,14 +257,34 @@ PORTED = {
     "incremental conf": (lambda m: m, {}, {},
                          {"repair.incremental": "true"}),
     "store quota": (lambda m: m, {}, {"DELPHI_STORE_QUOTA_GB": "1"}, {}),
+    # the checkpoint directories are relative: each package writes its own
+    "checkpoints": (lambda m: m.option("model.checkpoint_path", "ckpt"), {},
+                    {}, {}),
+    "phase checkpoints env": (lambda m: m, {},
+                              {"DELPHI_CHECKPOINT_DIR": "ckpt"}, {}),
+    "phase checkpoints conf": (lambda m: m, {}, {},
+                               {"repair.checkpoint.dir": "ckpt"}),
+    # plans at sites both packages enter on this table: each fires once
+    "fault plan env": (lambda m: m, {},
+                       {"DELPHI_FAULT_PLAN": "freq.pair*:1:oom"}, {}),
+    "fault plan conf": (lambda m: m, {}, {},
+                        {"repair.fault.plan": "0:gbdt.*:1:oom"}),
+    "fault plan non-store site": (
+        lambda m: m, {}, {"DELPHI_FAULT_PLAN": "store.provenance:1:torn_write,"
+                                               "domain.bucket:2:oom"}, {}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PORTED))
-def test_formerly_unported_paths_match_jax(case, monkeypatch):
+def test_formerly_unported_paths_match_jax(case, monkeypatch, tmp_path):
     """Paths that raised NotImplementedError in an earlier slice now run
-    and return the JAX package's frame."""
+    and return the JAX package's frame and ``resilience.*`` counters (the
+    JAX package counts in its recorder's registry)."""
+    from delphi_tpu import observability as j_obs
     from delphi_tpu.session import get_session as j_session
+    from delphi_tpu.parallel import resilience as j_rz
+    from delphi_tpu_torch.parallel import resilience as t_rz
+    from delphi_tpu_torch.utils import counters
     setup, run_kw, env, conf = PORTED[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -273,32 +293,72 @@ def test_formerly_unported_paths_match_jax(case, monkeypatch):
         monkeypatch.setitem(j_session().conf, k, v)
 
     def run(lib):
+        (j_rz if lib is J else t_rz).reset_fault_state()
+        d = tmp_path / lib.__name__
+        d.mkdir()
+        monkeypatch.chdir(d)
         m = lib.delphi.repair.setInput(_tiny()).setRowId("tid") \
             .setErrorDetectors([lib.NullErrorDetector()])
-        return setup(m).run(**run_kw)
+        counters.clear()
+        rec = j_obs.start_recording("t") if lib is J else None
+        try:
+            frame = setup(m).run(**run_kw)
+        finally:
+            if rec is not None:
+                j_obs.stop_recording(rec)
+        got = rec.registry.snapshot()["counters"] if rec is not None \
+            else dict(counters)
+        return frame, {k: v for k, v in got.items()
+                       if k.startswith("resilience.")}
 
-    want, got = run(J), run(T)
+    (want, want_rz), (got, got_rz) = run(J), run(T)
     assert len(got) > 0
     pd.testing.assert_frame_equal(got, want)
+    assert got_rz == want_rz
+    if case in ("fault plan env", "fault plan conf"):
+        assert got_rz["resilience.faults.oom"] == 1
 
 
 # case -> (model setup, words of the message, ROADMAP item, environment,
 # session conf)
 UNPORTED = {
-    "checkpoints": (lambda m: m.option("model.checkpoint_path", "ckpt"),
-                    "model checkpoints", "item 8", {}, {}),
-    "phase checkpoints env": (lambda m: m, "phase checkpoints", "item 8",
-                              {"DELPHI_CHECKPOINT_DIR": "ckpt"}, {}),
-    "phase checkpoints conf": (lambda m: m, "phase checkpoints", "item 8",
-                               {}, {"repair.checkpoint.dir": "ckpt"}),
-    "fault plan env": (lambda m: m, "fault plan entry", "item 8",
-                       {"DELPHI_FAULT_PLAN": "store.manifest:1:oom"}, {}),
-    "fault plan conf": (lambda m: m, "repair.fault.plan", "item 8", {},
-                        {"repair.fault.plan": "0:store.manifest:1:crash"}),
-    "fault plan non-store site": (
-        lambda m: m, "domain.bucket", "item 8",
-        {"DELPHI_FAULT_PLAN": "store.provenance:1:torn_write,"
-                              "domain.bucket:2:oom"}, {}),
+    "pipeline env": (lambda m: m, "pipeline thread", "item 8b",
+                     {"DELPHI_PIPELINE": "1"}, {}),
+    "pipeline conf": (lambda m: m, "pipeline thread", "item 8b", {},
+                      {"repair.pipeline.enabled": "auto"}),
+    "planner": (lambda m: m, "launch planner", "item 8b",
+                {"DELPHI_PLAN": "0"}, {}),
+    "planner merge": (lambda m: m, "bucket merging", "item 8b",
+                      {"DELPHI_PLAN_MERGE": "4"}, {}),
+    "planner chunk cells": (lambda m: m, "cell budget", "item 8b",
+                            {"DELPHI_PLAN_CHUNK_CELLS": "1000"}, {}),
+    "planner chunk cells legacy": (lambda m: m, "cell budget", "item 8b",
+                                   {"DELPHI_DOMAIN_CHUNK_CELLS": "1000"},
+                                   {}),
+    "planner cv cap": (lambda m: m, "CV instance cap", "item 8b",
+                       {"DELPHI_PLAN_CV_INSTANCE_CAP": "8"}, {}),
+    "planner cv cap legacy": (lambda m: m, "CV instance cap", "item 8b",
+                              {"DELPHI_CV_INSTANCE_CAP": "8"}, {}),
+    "plan dir": (lambda m: m, "persisted launch plans", "item 8b",
+                 {"DELPHI_PLAN_DIR": "plans"}, {}),
+    "compile cache env": (lambda m: m, "compile cache", "item 8b",
+                          {"DELPHI_COMPILE_CACHE_DIR": "cc"}, {}),
+    "compile cache conf": (lambda m: m, "compile cache", "item 8b", {},
+                           {"repair.compile.cache_dir": "cc"}),
+    "compile cache threshold env": (lambda m: m, "threshold", "item 8b",
+                                    {"DELPHI_COMPILE_CACHE_MIN_S": "0.5"},
+                                    {}),
+    "compile cache threshold conf": (
+        lambda m: m, "threshold", "item 8b", {},
+        {"repair.compile.min_compile_secs": "0"}),
+    "prewarm env": (lambda m: m, "prewarm thread", "item 8b",
+                    {"DELPHI_PREWARM": "on"}, {}),
+    "prewarm conf": (lambda m: m, "prewarm thread", "item 8b", {},
+                     {"repair.compile.prewarm": "true"}),
+    "prewarm budget env": (lambda m: m, "prewarm budget", "item 8b",
+                           {"DELPHI_PREWARM_BUDGET": "4"}, {}),
+    "prewarm budget conf": (lambda m: m, "prewarm budget", "item 8b", {},
+                            {"repair.compile.prewarm_budget": "4"}),
     "run report env": (lambda m: m, "run report", "item 10",
                        {"DELPHI_METRICS_PATH": "r.json"}, {}),
     "run report conf": (lambda m: m, "run report", "item 10", {},
@@ -333,6 +393,13 @@ def test_unported_paths_raise(case, monkeypatch):
     ({"DELPHI_METRICS_PORT": "not-a-port"}, {}),
     ({"DELPHI_STORE_QUOTA_GB": ""}, {"repair.metrics.path": ""}),
     ({"DELPHI_FAULT_PLAN": ""}, {"repair.fault.plan": "domain.bucket:1:oom"}),
+    ({"DELPHI_PIPELINE": "off"}, {"repair.pipeline.enabled": "on"}),
+    ({}, {"repair.pipeline.enabled": "false"}),
+    ({"DELPHI_PREWARM": "0"}, {"repair.compile.prewarm": "1"}),
+    ({}, {"repair.compile.prewarm": "no"}),
+    # values the JAX package's parse ignores
+    ({"DELPHI_PLAN_MERGE": "x", "DELPHI_PREWARM_BUDGET": "many",
+      "DELPHI_PLAN_CHUNK_CELLS": ""}, {"repair.compile.min_compile_secs": ""}),
 ])
 def test_explicit_false_settings_do_not_raise(env, conf, monkeypatch):
     """Read as the JAX package reads them (the environment before the

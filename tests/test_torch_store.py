@@ -494,23 +494,44 @@ def test_manifest_chain_archives_and_compacts(tmp_path, monkeypatch):
 
 
 def test_fault_plan_check_counts_unmatched_and_refuses_unported(
-        monkeypatch):
-    """A store pattern that names no store site is counted and never fires;
-    an entry outside the store's sites and kinds raises naming item 8; a
-    malformed plan raises ValueError, as in the JAX package."""
+        monkeypatch, tmp_path):
+    """A pattern that names no guarded site is counted and never fires;
+    every other entry, at any site and of any kind, now fires as in the
+    JAX package (none raises NotImplementedError); a malformed plan raises
+    ValueError in both packages."""
     monkeypatch.setenv("DELPHI_FAULT_PLAN",
                        "store.nonexistent:1:crash,store.*:2:torn_write")
-    t_rz.check_fault_plan()
+    t_rz.reset_fault_state()
+    t_store.write_json(str(tmp_path / "a.json"), {"v": 1},
+                       schema="launch_plan", site="store.plan")
     assert counters["resilience.plan.unmatched"] == 1
-    for plan in ("xfer.upload:1:transfer", "store.plan:1:oom",
-                 "1:store.plan:1:crash", "store.plan:1:stall"):
+    for plan, site in (("xfer.upload:1:transfer", "xfer.upload"),
+                       ("store.plan:1:oom", "store.plan")):
         monkeypatch.setenv("DELPHI_FAULT_PLAN", plan)
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 8 of ROADMAP.md"):
-            t_rz.check_fault_plan()
+        fired = []
+        for rz, store in ((j_rz, j_store), (t_rz, t_store)):
+            rz.reset_fault_state()
+            with pytest.raises(rz.FaultInjected) as e:
+                if site.startswith("store."):
+                    store.write_json(str(tmp_path / "b.json"), {"v": 2},
+                                     schema="launch_plan", site=site)
+                else:
+                    rz._maybe_inject(site)
+            fired.append((str(e.value), rz.classify_fault(e.value)))
+        assert fired[0] == fired[1]
+    # a rank-scoped entry for another rank never fires here; a stall wedges
+    stalls = []
+    monkeypatch.setattr(t_rz, "_stall_forever", lambda: stalls.append(1))
+    for plan in ("1:store.plan:1:crash", "store.plan:1:stall"):
+        monkeypatch.setenv("DELPHI_FAULT_PLAN", plan)
+        t_rz.reset_fault_state()
+        t_store.write_json(str(tmp_path / "c.json"), {"v": 3},
+                           schema="launch_plan", site="store.plan")
+    assert stalls == [1]
     for plan in ("store.plan:0:crash", "store.plan:1:melt", "nonsense"):
         monkeypatch.setenv("DELPHI_FAULT_PLAN", plan)
         with pytest.raises(ValueError):
             j_rz.parse_fault_plan(plan)
+        t_rz.reset_fault_state()
         with pytest.raises(ValueError):
-            t_rz.check_fault_plan()
+            t_rz._maybe_inject("store.plan")
