@@ -19,10 +19,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    grade), with the kernels' launch counts zeroed just before and read
    just after; it prints each target's chosen config, CV score, CV-proven
    rounds and chunk steps, and the training wall split into CV search and
-   final fit. In 4b each kernel is re-run, held against its plain version
-   (K1 bitwise, K2 within 1e-12 relative) and timed on the inputs that each
-   driven path (4, 4c, 4d, 4f, 4g, 4h, 4i, 4j, 4k) gave it, reported per
-   path, and both wrappers are run on those inputs under
+   final fit; sequential training runs through the pipeline thread (on by
+   default on the card) and weak-label demotion through the bucketed domain
+   route, whose kernel K5 ``domain_scores`` must launch. In 4b each kernel
+   is re-run, held against its plain version (K1 and K5 bitwise, K2 within
+   1e-12 relative) and timed on the inputs that each driven path (4, 4c,
+   4d, 4f, 4g, 4h, 4i, 4j, 4k, 4l) gave it, reported per path, and the
+   three wrappers are run on those inputs under
    ``torch.cuda.set_sync_debug_mode("error")`` (a synchronisation fails);
    4c. the same table through batched training
    (``setParallelStatTrainingEnabled(True)``): the same frame, at least
@@ -44,10 +47,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    device steps and K1/K2 launches (each at least one);
    (c) the default detector set, and a run given the injected cells
    through ``setErrorCells`` (precision at least 0.9);
-   (d) 5,000 rows, CPU against card: the full run's frames identical
-   apart from logistic-head repairs under the CPU's 1e-4 top-two gap (the
-   default-detector and ``setErrorCells`` cross-checks are card tests in
-   ``tests/test_torch_cuda.py``, at 2,000 rows);
+   (d), CPU against card (the full run with these detectors, the default
+   detectors and ``setErrorCells``), is a card test at 2,000 rows
+   (``tests/test_torch_cuda.py``);
    (e) every constraint route on 200,000 rows, card against CPU, which
    also reaches the rank and group-extrema steps the fd table's
    constraints do not;
@@ -61,9 +63,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``compute_repair_candidate_prob`` (a main path, "pmf"),
    ``compute_repair_prob``, ``compute_repair_score`` and
    ``maximal_likelihood_repair`` (Levenshtein, delta 10,000), each run
-   again in blocks of 25,000 dirty rows: the same frame; (c) 5,000
-   rows, CPU against card: rule repairs identical, PMF probabilities
-   within 1e-4, maximal-likelihood selections equal off the percentile;
+   again in blocks of 25,000 dirty rows: the same frame; (c), CPU against
+   card, is a card test at 2,000 rows since slice 9
+   (``tests/test_torch_cuda.py``, :func:`rules_pmf_cross_check`);
    4h. misc and CLI: (a) ``generateDepGraph`` on 200,000 rows of
    ``fd_table`` as a main path ("depgraph"), and its dot text at 20,000
    rows equal on the CPU and the card; (b) ``splitInputTable`` at 200,000
@@ -82,12 +84,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    each tier's attempts, repairs and wall, K8's launches with their
    ``(n_pad, V_pad)`` and each one's ms against its bound, the cell F1
    against the generator's truth off and on (on no lower; tier B on at
-   least 4,096 cells); (c) 20,000 rows at a budget of 4,096, CPU against
-   card: frames, routed and escalated cells and ledger entries equal
-   (confidences and top-k probabilities within 1e-5); (d) ``python -m
-   delphi_tpu_torch.main --escalate --provenance-out`` on (c)'s table in a
-   subprocess, its CSV equal to the in-process run's and its ledger file
-   starting with the store's envelope header;
+   least 4,096 cells); (c), CPU against card with ledger entries, is a
+   card test at 2,000 rows since slice 9 (``tests/test_torch_cuda.py``,
+   :func:`escalation_cross_check`); (d) ``python -m
+   delphi_tpu_torch.main --escalate --provenance-out`` on 20,000 rows at a
+   budget of 4,096 in a subprocess, its CSV equal to the in-process run's
+   and its ledger file starting with the store's envelope header;
    4j. incremental and streaming repair on ``incremental_table`` (the JAX
    package's ``bench._incremental_frames``, rebuilt with numpy; NULL and
    ``EQ(t1.c0,t2.c0)&IQ(t1.c3,t2.c3)`` detectors, an in-memory ledger):
@@ -133,6 +135,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    other phase's run asserts zero ``resilience.faults.*`` and
    ``resilience.degrade.*`` counts, and prints its guarded entries per
    site;
+   4l. the planes of slice 9: (a) 4's 1M run (pipelined, the default on
+   the card) against the same table with ``DELPHI_PIPELINE=0``: the same
+   frame, both walls, training spans, ``pipeline.*`` counters and the
+   consumer's wait; (b) ``fd_table`` at 200,000 rows with 4f's detectors
+   at one GBDT config per target, under the bucketed domain route (traced
+   as path "bucketed") and ``DELPHI_DEVICE_TABLE=0``: error cells after
+   demotion and frames identical, both domain spans, K5's launches (none
+   on the legacy route) and the ``launch.phase.domain.*`` counters; (c) a
+   200,000-row ``missing_heavy`` table at ``model.hp.max_evals=1`` twice
+   with ``DELPHI_PLAN_DIR``: the second run loads its plans
+   (``launch.plan_cache.hits`` > 0, ``launch.replans`` = 0), frames
+   identical; (d) ``DELPHI_COMPILE_CACHE_DIR`` at phase 2's build: the
+   library's load counts one request and one hit;
+
+   ``python3 chip_smoke.py --ab N`` runs phases 1 and 2, then N
+   same-host pairs of 4l(a) and of 4l(b) in alternating order
+   (:func:`planes_ab`), and prints their walls and spans with median and
+   spread instead of the kernels line;
 
 5. cross-check at default options, 20,000 rows, CPU (plain versions)
    against card (kernels): identical ``missing_heavy`` repair frames; on
@@ -153,7 +173,8 @@ behind the same ctypes path (``launch_floor_ms``), the bound, the plain
 version and one library call.
 
 The last lines are a ``{"kernels": [...], "pytorch_programs": [...]}``
-JSON line (the hand kernels K1 and K2, and K8, which is plain PyTorch),
+JSON line (the hand kernels K1, K2 and K5, and K8, which is plain
+PyTorch),
 the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -232,10 +253,11 @@ SPLIT_K = 4
 CLI_ROWS = 100_000
 # The CPU halves of 4f(d) and 4g(c) (20,000 rows) and of 4h(b) (200,000
 # rows) took much of the script's time (PERF.md §4), so they were cut; the
-# card side of 4h(b) stays at SPLIT_ROWS.
-DC_CHECK_ROWS = 5_000
-RULES_CHECK_ROWS = 5_000
+# card side of 4h(b) stays at SPLIT_ROWS. Slice 9 moved 4f(d), 4g(c) and
+# 4i(c) (CPU against card) into card tests (tests/test_torch_cuda.py), at
+# CHECK_2K_ROWS rows, to pay for 4l.
 SPLIT_CHECK_ROWS = 50_000
+CHECK_2K_ROWS = 2_000
 # 4i: the provenance ledger on a missing_heavy run, and the escalation
 # tier on escalation_table (NULL and regex detectors on c2). 4i(a) ran the
 # 1M table of 4 and 4i(b) 1,000,000 rows at a budget of 131,072 at first;
@@ -280,6 +302,17 @@ PLAN_RETRY = "freq.pairs_pallas:1:oom"
 PLAN_LADDER = ("freq.pairs_pallas:1:oom,freq.pairs_pallas:2:oom,"
                "freq.pairs_pallas:3:oom")
 PLAN_CRASH = "store.checkpoint:1:crash"
+# 4l: the planes of slice 9. (a) reruns 4's 1M table with the pipeline
+# off; (b) runs fd_table at BUCKET_ROWS rows under the bucketed domain
+# route and under DELPHI_DEVICE_TABLE=0; (c) runs a PLAN_ROWS-row
+# missing_heavy table twice at one GBDT config per target with a plan
+# store (a CV search persists one `gbdt.cv[0]` plan per target under one
+# key, as in the JAX package, so CV runs replan on a warm store). The
+# first run of the script (566 s on one H100) ran (a) twice and (b) and (c)
+# at default options on 1M rows; they were cut to these sizes
+BUCKET_ROWS = 200_000
+PLAN_ROWS = 200_000
+PLAN_OPTIONS = {"model.hp.max_evals": "1"}
 # the 1M missing_heavy run's wall before the guarded seam existed (one
 # NVIDIA H100 80GB HBM3 at 700 W), beside which 4 prints its own
 PRE_SEAM_E2E_WALL_S = 5.584
@@ -660,30 +693,9 @@ def constraints_path(torch, T, traced) -> dict:
     out["default_detectors"] = {"cells": len(ddet), "card_s": ddet_s}
     out["error_cells"] = {"wall_s": given_s, **given_scores}
 
-    # (d) CPU against card at DC_CHECK_ROWS rows: the full run with the
-    # four detectors (the default-detector and setErrorCells cross-checks
-    # are card tests at 2,000 rows, tests/test_torch_cuda.py)
-    t0 = time.perf_counter()
-    sclean, sdirty, struth = fd_table(DC_CHECK_ROWS, seed=5)
-    builds = {"detectors": lambda: dc_model(T, sdirty)}
-    out["cross_check"] = {}
-    for label, build in builds.items():
-        ties, restore = near_ties(T)
-        try:
-            on_cpu, _, _ = timed("cpu", lambda: build().run())
-        finally:
-            restore()
-        on_gpu, _, _ = timed("cuda", lambda: build().run())
-        if not len(on_gpu):
-            fail(f"constraints (d) {label}: no repairs")
-        differ = frames_match(f"constraints (d) {label}", on_cpu, on_gpu,
-                              ties)
-        out["cross_check"][label] = {"repairs": len(on_gpu),
-                                     "near_ties": len(ties),
-                                     "near_ties_differing": differ}
-    log(f"[constraints] (d) {DC_CHECK_ROWS} rows, CPU against card: "
-        f"{json.dumps(out['cross_check'])} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    # (d), CPU against card, is a card test at 2,000 rows: the detectors
+    # run since slice 9, the default-detector and setErrorCells runs since
+    # slice 8 (tests/test_torch_cuda.py::test_constraints_table_card_matches_cpu)
 
     # (e) every constraint route on the card against the CPU
     df = suite_table(DC_SUITE_ROWS, seed=6)
@@ -796,6 +808,52 @@ def pmf_gaps_and_check(label, cpu, gpu) -> int:
     return on_cut
 
 
+def rules_pmf_cross_check(T, rows: int) -> dict:
+    """4g's CPU-against-card check (a card test since slice 9): rule
+    repairs identical, PMF probabilities within PROB_TOL, scores within
+    PROB_TOL and maximal-likelihood selections equal off the percentile
+    cut, on ``rows`` rows."""
+    t0 = time.perf_counter()
+    sclean, sdirty, _ = fd_table(rows, seed=9)
+    _, spdirty = missing_heavy(rows, seed=10)
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        frames[dev] = {
+            "rules": rules_model(T, sdirty).run(),
+            "pmf": pmf_model(T, spdirty).run(
+                compute_repair_candidate_prob=True),
+            "score": pmf_model(T, spdirty).run(compute_repair_score=True),
+            "ml": pmf_model(T, spdirty).run(maximal_likelihood_repair=True)}
+    cpu, gpu = frames["cpu"], frames["cuda"]
+    if not len(gpu["rules"]) or records(cpu["rules"]) != records(gpu["rules"]):
+        fail("rules (c): the CPU and card rule-repair frames differ")
+    on_cut = pmf_gaps_and_check("pmf (c)", cpu["pmf"], gpu["pmf"])
+    w, g = cpu["score"]["score"].to_numpy(), gpu["score"]["score"].to_numpy()
+    if records(cpu["score"][["tid", "attribute", "repaired"]]) != records(
+            gpu["score"][["tid", "attribute", "repaired"]]) \
+            or not np.allclose(w, g, rtol=PROB_TOL, atol=PROB_TOL):
+        fail("pmf (c): the CPU and card scores differ")
+    pct = (1.0 - (PMF_DELTA * rows // PMF_ROWS) / len(w)) * 100.0
+    thres = np.percentile(w, pct)
+    near = np.abs(w - thres) <= PROB_TOL * max(1.0, abs(thres))
+    keys = lambda f: set(zip(f["tid"].tolist(), f["attribute"].tolist()))  # noqa: E731
+    near_keys = set(zip(cpu["score"]["tid"][near].tolist(),
+                        cpu["score"]["attribute"][near].tolist()))
+    flipped = keys(cpu["ml"]) ^ keys(gpu["ml"])
+    if not flipped <= near_keys:
+        fail(f"pmf (c): maximal-likelihood selections differ off the cut: "
+             f"{sorted(flipped - near_keys)[:10]}")
+    T.set_device("cuda")
+    out = {"rows": rows, "rules_repairs": len(gpu["rules"]),
+           "pmf_cells": len(gpu["pmf"]), "pmf_on_threshold_cut": on_cut,
+           "ml_cells_near_cut": int(near.sum()), "ml_flipped": len(flipped)}
+    log(f"[rules-pmf] (c) {rows} rows, CPU against card: rule repairs "
+        f"identical; PMF probabilities within {PROB_TOL}; "
+        f"{json.dumps(out)} ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def rules_and_pmf(torch, T, traced) -> dict:
     """Phase 4g (module docstring): rule repairs, the PMF / score /
     maximal-likelihood modes whole and chunked, and a CPU cross-check."""
@@ -885,49 +943,9 @@ def rules_and_pmf(torch, T, traced) -> dict:
         del os.environ["DELPHI_REPAIR_CHUNK_ROWS"]
     out["pmf"] = {"rows": PMF_ROWS, "runs": runs}
 
-    # (c) RULES_CHECK_ROWS rows, CPU against card
-    t0 = time.perf_counter()
-    sclean, sdirty, _ = fd_table(RULES_CHECK_ROWS, seed=9)
-    _, spdirty = missing_heavy(RULES_CHECK_ROWS, seed=10)
-    frames = {}
-    for dev in ("cpu", "cuda"):
-        T.set_device(dev)
-        frames[dev] = {
-            "rules": rules_model(T, sdirty).run(),
-            "pmf": pmf_model(T, spdirty).run(
-                compute_repair_candidate_prob=True),
-            "score": pmf_model(T, spdirty).run(compute_repair_score=True),
-            "ml": pmf_model(T, spdirty).run(maximal_likelihood_repair=True)}
-    cpu, gpu = frames["cpu"], frames["cuda"]
-    if not len(gpu["rules"]) or records(cpu["rules"]) != records(gpu["rules"]):
-        fail("rules (c): the CPU and card rule-repair frames differ")
-    on_cut = pmf_gaps_and_check("pmf (c)", cpu["pmf"], gpu["pmf"])
-    w, g = cpu["score"]["score"].to_numpy(), gpu["score"]["score"].to_numpy()
-    if records(cpu["score"][["tid", "attribute", "repaired"]]) != records(
-            gpu["score"][["tid", "attribute", "repaired"]]) \
-            or not np.allclose(w, g, rtol=PROB_TOL, atol=PROB_TOL):
-        fail("pmf (c): the CPU and card scores differ")
-    pct = (1.0 - (PMF_DELTA * RULES_CHECK_ROWS // PMF_ROWS) / len(w)) * 100.0
-    thres = np.percentile(w, pct)
-    near = np.abs(w - thres) <= PROB_TOL * max(1.0, abs(thres))
-    keys = lambda f: set(zip(f["tid"].tolist(), f["attribute"].tolist()))  # noqa: E731
-    near_keys = set(zip(cpu["score"]["tid"][near].tolist(),
-                        cpu["score"]["attribute"][near].tolist()))
-    flipped = keys(cpu["ml"]) ^ keys(gpu["ml"])
-    if not flipped <= near_keys:
-        fail(f"pmf (c): maximal-likelihood selections differ off the cut: "
-             f"{sorted(flipped - near_keys)[:10]}")
-    T.set_device("cuda")
-    out["cross_check"] = {"rules_repairs": len(gpu["rules"]),
-                          "pmf_cells": len(gpu["pmf"]),
-                          "pmf_on_threshold_cut": on_cut,
-                          "ml_cells_near_cut": int(near.sum()),
-                          "ml_flipped": len(flipped)}
-    log(f"[rules-pmf] (c) {RULES_CHECK_ROWS} rows, CPU against card: rule "
-        "repairs "
-        f"identical; PMF probabilities within {PROB_TOL}; "
-        f"{json.dumps(out['cross_check'])} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    # (c), CPU against card, is a card test since slice 9
+    # (tests/test_torch_cuda.py::test_rules_and_pmf_modes_card_match_cpu,
+    # rules_pmf_cross_check at CHECK_2K_ROWS rows)
     log(f"[rules-pmf] summary {json.dumps(out, default=str)}")
     return out
 
@@ -1257,6 +1275,44 @@ def k8_bound_ms(args) -> float:
     return iters * pot.numel() * 4 / HBM_BYTES_PER_S * 1e3
 
 
+def escalation_cross_check(T, rows: int, budget: int) -> dict:
+    """4i's CPU-against-card check (a card test since slice 9): frames,
+    routed and escalated cells, budget and tiers equal, and the in-memory
+    ledgers' entries within LEDGER_TOL, on ``rows`` rows of
+    ``escalation_table`` at ``budget``."""
+    t0 = time.perf_counter()
+    sdirty, _ = escalation_table(rows)
+    runs = {}
+    os.environ["DELPHI_PROVENANCE_PATH"] = ":memory:"
+    try:
+        for dev in ("cpu", "cuda"):
+            T.set_device(dev)
+            m = escalation_model(T, sdirty, budget)
+            with LedgerCapture() as cap:
+                frame = m.run()
+            runs[dev] = (frame, m._last_escalation, cap.ledgers[0].entries())
+    finally:
+        del os.environ["DELPHI_PROVENANCE_PATH"]
+        T.set_device("cuda")
+    (f_cpu, s_cpu, e_cpu), (f_gpu, s_gpu, e_gpu) = runs["cpu"], runs["cuda"]
+    if not f_gpu.equals(f_cpu):
+        fail("escalation (c): the card's frame differs from the CPU's")
+    for key in ("routed_cells", "escalated_cells", "routed", "escalated",
+                "budget", "tiers"):
+        if s_gpu[key] != s_cpu[key]:
+            fail(f"escalation (c): {key} differs between CPU and card")
+    entries_match("escalation (c)", e_gpu, e_cpu)
+    if not s_gpu["escalated"]:
+        fail("escalation (c): nothing escalated")
+    out = {"rows": rows, "repairs": len(f_gpu), "routed": s_gpu["routed"],
+           "escalated": s_gpu["escalated"], "entries": len(e_gpu)}
+    log(f"[escalation] (c) {rows} rows, budget {budget}, CPU against card: "
+        f"frames, routed and escalated cells equal, ledger entries equal "
+        f"within {LEDGER_TOL}: {json.dumps(out)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def ledger_and_escalation(torch, T, traced) -> dict:
     """Phase 4i (module docstring): the provenance ledger on a
     missing_heavy run, the escalation tier at full width, CPU against card,
@@ -1374,41 +1430,12 @@ def ledger_and_escalation(torch, T, traced) -> dict:
         "tiers": tiers, "joint_cells": joint_cells, "f1_off": f1_off,
         "f1_on": f1_on, "k8": k8, "k8_launches": k_joint.launches}
 
-    # (c) CPU against card, ledger entries included
-    t0 = time.perf_counter()
-    sdirty, _ = escalation_table(ESC_CHECK_ROWS)
-    runs = {}
-    os.environ["DELPHI_PROVENANCE_PATH"] = ":memory:"
-    try:
-        for dev in ("cpu", "cuda"):
-            T.set_device(dev)
-            m = escalation_model(T, sdirty, ESC_CHECK_BUDGET)
-            with LedgerCapture() as cap:
-                frame = m.run()
-            runs[dev] = (frame, m._last_escalation, cap.ledgers[0].entries())
-    finally:
-        del os.environ["DELPHI_PROVENANCE_PATH"]
-        T.set_device("cuda")
-    (f_cpu, s_cpu, e_cpu), (f_gpu, s_gpu, e_gpu) = runs["cpu"], runs["cuda"]
-    if not f_gpu.equals(f_cpu):
-        fail("escalation (c): the card's frame differs from the CPU's")
-    for key in ("routed_cells", "escalated_cells", "routed", "escalated",
-                "budget", "tiers"):
-        if s_gpu[key] != s_cpu[key]:
-            fail(f"escalation (c): {key} differs between CPU and card")
-    entries_match("escalation (c)", e_gpu, e_cpu)
-    if not s_gpu["escalated"]:
-        fail("escalation (c): nothing escalated")
-    out["cross_check"] = {"rows": ESC_CHECK_ROWS, "repairs": len(f_gpu),
-                          "routed": s_gpu["routed"],
-                          "escalated": s_gpu["escalated"],
-                          "entries": len(e_gpu)}
-    log(f"[escalation] (c) {ESC_CHECK_ROWS} rows, budget {ESC_CHECK_BUDGET}, "
-        f"CPU against card: frames, routed and escalated cells equal, ledger "
-        f"entries equal within {LEDGER_TOL}: {json.dumps(out['cross_check'])}"
-        f" ({time.perf_counter() - t0:.1f} s)")
+    # (c), CPU against card, is a card test since slice 9
+    # (tests/test_torch_cuda.py::test_escalation_and_ledger_card_match_cpu,
+    # escalation_cross_check at CHECK_2K_ROWS rows)
 
     # (d) the CLI with --escalate and --provenance-out in a subprocess
+    sdirty, _ = escalation_table(ESC_CHECK_ROWS)
     csv_in = os.path.join(tmp, "esc.csv")
     sdirty.to_csv(csv_in, index=False)
     csv_out, led = os.path.join(tmp, "esc_out.csv"), os.path.join(
@@ -1731,6 +1758,209 @@ def fault_counts(counts) -> dict:
     """The ``resilience.faults.*`` and ``resilience.degrade.*`` counts."""
     return {k: v for k, v in counts.items()
             if k.startswith(("resilience.faults.", "resilience.degrade."))}
+
+
+def timed_run(torch, fn):
+    """(result, wall s, counters, phase walls, histograms) of ``fn()``
+    with every count cleared just before."""
+    from delphi_tpu_torch.utils import counters, histograms, phase_walls
+    counters.clear()
+    phase_walls.clear()
+    histograms.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, wall, dict(counters),
+            {k: round(v, 3) for k, v in phase_walls.items()},
+            {k: list(v) for k, v in histograms.items()})
+
+
+def pipeline_summary(wall, counts, walls, hists) -> dict:
+    """4l(a)'s numbers of one 1M run: wall, training span, ``pipeline.*``
+    counters and the consumer's wait for prepared items."""
+    wait = hists.get("pipeline.consumer_wait_seconds", [])
+    return {"wall_s": wall, "training_s": walls.get("repair model training"),
+            "pipeline": {k: v for k, v in counts.items()
+                         if k.startswith("pipeline.")},
+            "consumer_wait_s": sum(wait),
+            "consumer_wait_max_s": max(wait) if wait else 0.0}
+
+
+def planes(torch, T, traced, dirty, out, e2e_run) -> dict:
+    """Phase 4l (module docstring): the pipeline thread, the bucketed
+    domain route, persisted launch plans and the build cache on the card.
+    ``e2e_run`` is phase 4's pipelined run (:func:`pipeline_summary`)."""
+    import tempfile
+
+    from delphi_tpu_torch.ops.kernels import build
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+    from delphi_tpu_torch.utils import counters
+    res = {}
+
+    # (a) the 1M missing_heavy run of 4, pipelined (the default on the
+    # card), against the same run with DELPHI_PIPELINE=0: 4's frame
+    runs = {"pipelined": e2e_run}
+    os.environ["DELPHI_PIPELINE"] = "0"
+    try:
+        frame, wall, counts, walls, hists = timed_run(
+            torch, lambda: repair(T, dirty))
+    finally:
+        del os.environ["DELPHI_PIPELINE"]
+    if not frame.equals(out):
+        fail("planes (a): the frame with DELPHI_PIPELINE=0 differs from 4's")
+    runs["sequential"] = pipeline_summary(wall, counts, walls, hists)
+    if runs["pipelined"]["pipeline"].get("pipeline.items", 0) < 2 \
+            or runs["sequential"]["pipeline"]:
+        fail(f"planes (a): pipeline counters {runs}")
+    res["pipeline"] = runs
+    log(f"[planes] (a) {E2E_ROWS} rows missing_heavy, pipelined against "
+        f"DELPHI_PIPELINE=0: frames identical to 4's; {json.dumps(runs)}")
+
+    # (b) fd_table at BUCKET_ROWS rows: the bucketed domain route (traced
+    # as a path, "bucketed") against DELPHI_DEVICE_TABLE=0, at one GBDT
+    # config per target (training is not what differs)
+    _, fdirty, _ = fd_table(BUCKET_ROWS, seed=11)
+    routes = {}
+    for label, env in (("bucketed", None), ("legacy", "0")):
+        if env is not None:
+            os.environ["DELPHI_DEVICE_TABLE"] = env
+        try:
+            cells, _, _, _, _ = timed_run(
+                torch, lambda: dc_model(T, fdirty).run(
+                    detect_errors_only=True))
+            k_domain.reset_launches()
+            run = lambda: dc_model(T, fdirty).option(  # noqa: E731
+                "model.hp.max_evals", "1").run()
+            if label == "bucketed":
+                frame, wall, _, counts, walls, _, _ = traced(label, run)
+            else:
+                frame, wall, counts, walls, _ = timed_run(torch, run)
+        finally:
+            os.environ.pop("DELPHI_DEVICE_TABLE", None)
+        routes[label] = (cells, frame, {
+            "wall_s": wall, "domain_s": walls.get("cell domain analysis"),
+            "error_cells": len(cells), "repairs": len(frame),
+            "k5_launches": k_domain.launches,
+            "counters": {k: v for k, v in counts.items()
+                         if k.startswith(("launch.phase.domain.",
+                                          "domain."))}})
+    (c_b, f_b, r_b), (c_l, f_l, r_l) = routes["bucketed"], routes["legacy"]
+    if not c_b.equals(c_l) or not f_b.equals(f_l):
+        fail("planes (b): the bucketed and legacy routes' error cells or "
+             "frames differ")
+    if r_b["k5_launches"] < 1 or r_l["k5_launches"] != 0:
+        fail(f"planes (b): K5 launches {r_b['k5_launches']} bucketed, "
+             f"{r_l['k5_launches']} legacy")
+    res["domain_routes"] = {"bucketed": r_b, "legacy": r_l}
+    log(f"[planes] (b) {BUCKET_ROWS} rows fd_table: error cells after "
+        f"demotion and frames identical on both routes; "
+        f"{json.dumps(res['domain_routes'])}")
+
+    # (c) two runs with DELPHI_PLAN_DIR: the second loads every plan
+    _, pdirty = missing_heavy(PLAN_ROWS, seed=12)
+    plan_dir = tempfile.mkdtemp(prefix="delphi_plans_")
+    os.environ["DELPHI_PLAN_DIR"] = plan_dir
+    try:
+        cold, cold_s, c_cold, _, _ = timed_run(
+            torch, lambda: repair(T, pdirty, options=PLAN_OPTIONS))
+        warm, warm_s, c_warm, _, _ = timed_run(
+            torch, lambda: repair(T, pdirty, options=PLAN_OPTIONS))
+    finally:
+        del os.environ["DELPHI_PLAN_DIR"]
+    plan_counts = lambda c: {k: v for k, v in c.items()  # noqa: E731
+                             if k in ("launch.plan_cache.hits",
+                                      "launch.replans")}
+    if not warm.equals(cold) or c_warm.get("launch.plan_cache.hits", 0) < 1 \
+            or c_warm.get("launch.replans", 0) != 0:
+        fail(f"planes (c): warm run {plan_counts(c_warm)}, frames equal "
+             f"{warm.equals(cold)}")
+    res["plans"] = {"cold_s": cold_s, "warm_s": warm_s,
+                    "cold": plan_counts(c_cold), "warm": plan_counts(c_warm),
+                    "files": sorted(os.listdir(plan_dir))}
+    log(f"[planes] (c) {PLAN_ROWS} rows missing_heavy at {PLAN_OPTIONS} with "
+        f"DELPHI_PLAN_DIR: {json.dumps(res['plans'])}; frames identical")
+
+    # (d) the build cache pointed at the library phase 2 built: a hit
+    os.environ["DELPHI_COMPILE_CACHE_DIR"] = build.BUILD_DIR
+    try:
+        counters.clear()
+        build.reset_library()
+        t0 = time.perf_counter()
+        build.library()
+        load_s = time.perf_counter() - t0
+    finally:
+        del os.environ["DELPHI_COMPILE_CACHE_DIR"]
+    cache = {k: v for k, v in counters.items()
+             if k.startswith("compile_cache.")}
+    if cache != {"compile_cache.requests": 1, "compile_cache.hits": 1}:
+        fail(f"planes (d): build cache counters {cache}")
+    res["compile_cache"] = {"load_s": load_s, **cache}
+    log(f"[planes] (d) DELPHI_COMPILE_CACHE_DIR at phase 2's build: "
+        f"{json.dumps(res['compile_cache'])}")
+    return res
+
+
+def spread(values) -> dict:
+    """Median, least and largest of ``values``."""
+    return {"median": statistics.median(values), "min": min(values),
+            "max": max(values)}
+
+
+def planes_ab(torch, T, pairs: int) -> dict:
+    """``python3 chip_smoke.py --ab N``: N same-host pairs of 4l(a) (the
+    1M ``missing_heavy`` run of 4, pipelined against
+    ``DELPHI_PIPELINE=0``) and of 4l(b) (``fd_table`` at BUCKET_ROWS rows,
+    one GBDT config, the bucketed domain route against
+    ``DELPHI_DEVICE_TABLE=0``), each pair in alternating order (on, off,
+    then off, on) after one unmeasured run of each: frames identical
+    within each A/B; per run the wall and the span the setting moves
+    (training, cell domain analysis), their median and spread, and the
+    same of each pair's difference (on minus off)."""
+    _, dirty = missing_heavy(E2E_ROWS, seed=0)
+    _, fdirty, _ = fd_table(BUCKET_ROWS, seed=11)
+    dc_run = lambda: dc_model(T, fdirty).option(  # noqa: E731
+        "model.hp.max_evals", "1").run()
+    cases = {"pipeline": ("DELPHI_PIPELINE", lambda: repair(T, dirty),
+                          "repair model training"),
+             "domain_route": ("DELPHI_DEVICE_TABLE", dc_run,
+                              "cell domain analysis")}
+    out = {}
+    for name, (env, run, span) in cases.items():
+        def one(on: bool):
+            if not on:
+                os.environ[env] = "0"
+            try:
+                frame, wall, _, walls, _ = timed_run(torch, run)
+            finally:
+                os.environ.pop(env, None)
+            return frame, wall, walls.get(span, 0.0)
+
+        want = one(True)[0]
+        runs = {True: [], False: []}
+        for i in range(pairs):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                frame, wall, span_s = one(on)
+                if not frame.equals(want):
+                    fail(f"ab {name}: the frame with {env} "
+                         f"{'unset' if on else '0'} differs")
+                runs[on].append((wall, span_s))
+        res = {"pairs": pairs, "span": span}
+        for label, on in (("on", True), ("off", False)):
+            res[label] = {"wall_s": [w for w, _ in runs[on]],
+                          "span_s": [t for _, t in runs[on]]}
+            res[label]["wall"] = spread(res[label]["wall_s"])
+            res[label]["span_stats"] = spread(res[label]["span_s"])
+        res["diff"] = {
+            "wall": spread([a[0] - b[0] for a, b in zip(runs[True],
+                                                        runs[False])]),
+            "span": spread([a[1] - b[1] for a, b in zip(runs[True],
+                                                        runs[False])])}
+        out[name] = res
+        log(f"[ab] {name} ({env} unset against 0), {pairs} pairs, frames "
+            f"identical: {json.dumps(res)}")
+    return out
 
 
 def resilience_plane(torch, T, traced, dirty, frame) -> dict:
@@ -2308,6 +2538,79 @@ def k2_bound_ms(counts, offsets):
     return bytes_ms, 1e3 * K2_OPS_PER_NONZERO * nnz / FP64_OPS_PER_S
 
 
+def k5_bound_ms(extents) -> float:
+    """The bytes K5 must move for one launch's real pieces, each given as
+    (error cells m, values v_a, real rows of each correlate's pair table):
+    the m row indices and k * m gathered codes, the k pair tables at their
+    real size, the k taus and column indices and the v_a flags read once,
+    and 9 bytes (two int32 sums and a flag) written per cell and value,
+    over the HBM rate. Padding of the launch (rows of shorter spans, values
+    up to va_pad, table rows up to vc_pad) is not counted."""
+    total = 0
+    for m, v_a, vc in extents:
+        k = len(vc)
+        total += 4 * (m + k * m + sum(c * (v_a + 1) for c in vc) + 2 * k
+                      + v_a) + 9 * m * v_a
+    return 1e3 * total / HBM_BYTES_PER_S
+
+
+def check_k5(torch, k_domain, args):
+    """K5 against its plain version on the card, bitwise (integers)."""
+    got = k_domain.domain_scores(*args)
+    want = k_domain.domain_scores_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"K5 domain_scores differs from its plain version at "
+             f"{[tuple(a.shape) for a in args]}")
+    return max(int((g.int() - w.int()).abs().max().item())
+               if g.numel() else 0 for g, w in zip(got, want))
+
+
+def k5_bare(torch, k_domain, build, args):
+    """One K5 launch through ctypes alone (its table packed once)."""
+    import ctypes
+    codes, col_idx, taus, hs, row_idx, tables = args
+    b, k = (int(d) for d in col_idx.shape)
+    rows_pad, va_pad = int(row_idx.shape[1]), int(hs.shape[1])
+    outs = [torch.empty((b, rows_pad, va_pad), dtype=dt, device=codes.device)
+            for dt in (torch.int32, torch.int32, torch.uint8)]
+    t = k_domain.DomainTable(
+        codes=codes.data_ptr(), col_idx=col_idx.data_ptr(),
+        taus=taus.data_ptr(), hs=hs.data_ptr(), row_idx=row_idx.data_ptr(),
+        tables=tables.data_ptr(), big=outs[0].data_ptr(),
+        tiny=outs[1].data_ptr(), contributed=outs[2].data_ptr(),
+        codes_stride=int(codes.shape[1]), b=b, k=k, va_pad=va_pad,
+        vc_pad=int(tables.shape[2]), rows_pad=rows_pad, pad=0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = k_domain.grid_size(b * rows_pad * va_pad, sms)
+    lib, stream = build.library(), build.current_stream()
+
+    def launch():
+        build.check(lib.delphi_domain_scores(ctypes.addressof(t), grid,
+                                             stream), "domain_scores")
+    launch.keep = (t, outs)
+    return launch
+
+
+def measure_k5(torch, k_domain, build, flush, args, extents, label):
+    """One K5 input: wrapper, kernel and plain times, and its bound (ms)
+    from the launch's real pieces (``extents``, :func:`k5_bound_ms`); no
+    single library call computes it."""
+    fn = lambda: k_domain.domain_scores(*args)  # noqa: E731
+    row = {
+        "ms": time_ms(torch, fn, flush),
+        "host_ms": host_ms(torch, fn),
+        "plain_ms": time_ms(
+            torch, lambda: k_domain.domain_scores_plain(*args), flush),
+        "library_ms": None,
+        "bound_ms": k5_bound_ms(extents),
+    }
+    defer_kernel_ms(f"K5 {label}", row, fn,
+                    k5_bare(torch, k_domain, build, args),
+                    ["domain_scores_kernel"], 1)
+    return row
+
+
 def fused_keys(torch, codes, pairs, vocab):
     """The fused bin index of every (pair, row), offset per pair: the
     input of the one-call library yardstick for K1."""
@@ -2453,12 +2756,14 @@ def main() -> None:
     sys.path.insert(0, HERE)
     import delphi_tpu_torch as T
     from delphi_tpu_torch.ops.kernels import build
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
     from delphi_tpu_torch.ops.kernels import entropy as k_entropy
     from delphi_tpu_torch.ops.kernels import pair_counts as k_pair
     from delphi_tpu_torch.models import gbdt
     from delphi_tpu_torch.models.encoding import FeatureEncoder
     from delphi_tpu_torch.models.linear import LogisticRegressionModel
-    from delphi_tpu_torch.utils import counters, phase_walls, train_reports
+    from delphi_tpu_torch.utils import (counters, histograms, phase_walls,
+                                        train_reports)
     T.set_device("cuda")
 
     log(f"[elapsed] 1 done at {time.perf_counter() - t_start:.1f} s")
@@ -2474,6 +2779,17 @@ def main() -> None:
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
 
     log(f"[elapsed] 2 done at {time.perf_counter() - t_start:.1f} s")
+    if "--ab" in sys.argv[1:]:
+        pairs = int(sys.argv[sys.argv.index("--ab") + 1])
+        ab = planes_ab(torch, T, pairs)
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ab": ab}))
+        print(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+
     # -- 3. kernels at the stand-alone shapes --------------------------------
     lib, stream = build.library(), build.current_stream()
     empty = lambda: lib.delphi_launch_floor(stream)  # noqa: E731
@@ -2490,9 +2806,12 @@ def main() -> None:
     t0 = time.perf_counter()
     clean, dirty = missing_heavy(E2E_ROWS, seed=0)
     log(f"[e2e] generated {E2E_ROWS} rows in {time.perf_counter() - t0:.1f} s")
-    # each driven path's K1 and K2 inputs, by path label, for 4b
+    # each driven path's K1, K2 and K5 inputs, by path label, for 4b
     recorded, path_launches = {}, {}
     orig_pc, orig_et = k_pair.pair_counts, k_entropy.entropy_terms
+    orig_ds = k_domain.domain_scores
+    from delphi_tpu_torch.ops import domain as t_domain
+    orig_bucket = t_domain._launch_bucket_once
 
     from delphi_tpu_torch.parallel import resilience as rz
 
@@ -2504,7 +2823,8 @@ def main() -> None:
         guarded entries per site. Returns (result, wall s, launches,
         counters, phase walls, peak device MiB above what was held, MiB
         held)."""
-        rec = recorded[label] = {"pair_counts": [], "entropy_terms": []}
+        rec = recorded[label] = {"pair_counts": [], "entropy_terms": [],
+                                 "domain_scores": []}
 
         def rec_pair_counts(codes, pairs, vocab):
             rec["pair_counts"].append((codes, list(pairs), list(vocab)))
@@ -2515,17 +2835,33 @@ def main() -> None:
                 (counts, np.asarray(offsets, dtype=np.int64), n_rows))
             return orig_et(counts, offsets, n_rows)
 
+        # the real pieces of the bucket launch in flight, for K5's bound
+        extents = []
+
+        def rec_launch_bucket(batch, *rest):
+            extents[:] = [(len(sub), prep["v_a"], tuple(prep["vc"]))
+                          for _, _, sub, prep, _ in batch]
+            return orig_bucket(batch, *rest)
+
+        def rec_domain_scores(*args):
+            rec["domain_scores"].append((args, list(extents)))
+            return orig_ds(*args)
+
         phase_walls.clear()
         counters.clear()
+        histograms.clear()
         train_reports.clear()
         rz.entries.clear()
         k_pair.reset_launches()
         k_entropy.reset_launches()
+        k_domain.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         k_pair.pair_counts = rec_pair_counts
         k_entropy.entropy_terms = rec_entropy_terms
+        k_domain.domain_scores = rec_domain_scores
+        t_domain._launch_bucket_once = rec_launch_bucket
         try:
             t0 = time.perf_counter()
             res = fn()
@@ -2533,9 +2869,14 @@ def main() -> None:
             wall = time.perf_counter() - t0
         finally:
             k_pair.pair_counts, k_entropy.entropy_terms = orig_pc, orig_et
+            k_domain.domain_scores = orig_ds
+            t_domain._launch_bucket_once = orig_bucket
         launches = {"pair_counts": k_pair.launches,
                     "entropy_terms": k_entropy.launches}
-        path_launches[label] = launches
+        # K5 launches only where weak-label demotion scores cells (every
+        # path but the dependency graph's): checked per path below
+        path_launches[label] = {**launches,
+                                "domain_scores": k_domain.launches}
         if not faults_ok and fault_counts(counters):
             fail(f"{label}: an unfaulted run counted faults or "
                  f"degradations: {fault_counts(counters)}")
@@ -2579,6 +2920,12 @@ def main() -> None:
     # the main path: sequential training at default options
     cells = ["tier", "band", "grade"]
     out, launches, _, _, wall = drive("e2e", dirty, clean, cells)
+    # the pipeline's numbers of this (pipelined) run, for 4l(a)
+    e2e_run = pipeline_summary(
+        wall, dict(counters),
+        {k: round(v, 3) for k, v in phase_walls.items()}, dict(histograms))
+    if path_launches["e2e"]["domain_scores"] < 1:
+        fail("e2e: kernel domain_scores (K5) was not launched by the run")
     log(f"[e2e] wall {wall:.3f} s behind the guarded seam; "
         f"{PRE_SEAM_E2E_WALL_S} s on the same table before the seam "
         "existed (another host: the seam's overhead is reported, not "
@@ -2635,6 +2982,8 @@ def main() -> None:
     log(f"[elapsed] 4e done at {time.perf_counter() - t_start:.1f} s")
     # -- 4f. the constraints path ---------------------------------------------
     constraints_path(torch, T, traced)
+    if path_launches["constraints"]["domain_scores"] < 1:
+        fail("constraints: kernel domain_scores (K5) was not launched")
 
     log(f"[elapsed] 4f done at {time.perf_counter() - t_start:.1f} s")
     # -- 4g. rule repairs and the PMF modes -----------------------------------
@@ -2657,6 +3006,10 @@ def main() -> None:
     resilience_plane(torch, T, traced, dirty, out)
 
     log(f"[elapsed] 4k done at {time.perf_counter() - t_start:.1f} s")
+    # -- 4l. the pipeline, the bucketed domain route, plans, build cache -----
+    planes(torch, T, traced, dirty, out, e2e_run)
+
+    log(f"[elapsed] 4l done at {time.perf_counter() - t_start:.1f} s")
     # -- 4b. each kernel on the inputs each path gave it ---------------------
     def main_path(rows):
         keys = ("ms", "host_ms", "kernel_ms", "plain_ms", "library_ms",
@@ -2688,10 +3041,24 @@ def main() -> None:
                                       f"{path} call {len(k2_rows)}"))
             log(f"[{path}-kernels] K2 segments={len(offsets) - 1} "
                 f"counts={int(offsets[-1] - offsets[0])}: {fmt(k2_rows[-1])}")
-        path_rows[path] = (k1_rows, k2_rows, k1_err, k2_err)
-        log(f"[{path}-kernels] K1 ({len(k1_rows)} calls) bitwise equal and "
-            f"K2 ({len(k2_rows)} calls) within 1e-12 relative of their plain "
-            f"versions on this path's inputs: max |err| {k1_err}, {k2_err}")
+        k5_err, k5_rows = 0, []
+        for args, extents in rec["domain_scores"]:
+            if not extents:
+                fail(f"{path}: K5 launched outside a bucket launch")
+            k5_err = max(k5_err, check_k5(torch, k_domain, args))
+            k5_rows.append(measure_k5(torch, k_domain, build, flush, args,
+                                      extents, f"{path} call {len(k5_rows)}"))
+            b, k, vc_pad, w = (int(d) for d in args[5].shape)
+            log(f"[{path}-kernels] K5 (b, k, vc_pad, va_pad, rows)="
+                f"{(b, k, vc_pad, w - 1, int(args[4].shape[1]))}, real "
+                f"(cells, v_a) per piece "
+                f"{[(m, v_a) for m, v_a, _ in extents]}: "
+                f"{fmt(k5_rows[-1])}")
+        path_rows[path] = (k1_rows, k2_rows, k1_err, k2_err, k5_rows, k5_err)
+        log(f"[{path}-kernels] K1 ({len(k1_rows)} calls) and K5 "
+            f"({len(k5_rows)} calls) bitwise equal and K2 ({len(k2_rows)} "
+            f"calls) within 1e-12 relative of their plain versions on this "
+            f"path's inputs: max |err| {k1_err}, {k5_err}, {k2_err}")
 
     # neither wrapper may wait for the card at any path's shapes
     torch.cuda.synchronize()
@@ -2702,12 +3069,15 @@ def main() -> None:
                 k_pair.pair_counts(codes, pairs, vocab)
             for counts, offsets, n_rows in rec["entropy_terms"]:
                 k_entropy.entropy_terms(counts, offsets, n_rows)
+            for args, _ in rec["domain_scores"]:
+                k_domain.domain_scores(*args)
     except RuntimeError as exc:
         fail(f"a kernel wrapper synchronised with the card: {exc}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log("[sync] K1 and K2 wrappers ran under set_sync_debug_mode('error') "
+    log("[sync] K1, K2 and K5 wrappers ran under "
+        "set_sync_debug_mode('error') "
         f"at the shapes of paths {list(recorded)} without synchronising")
 
     log(f"[elapsed] 4b done at {time.perf_counter() - t_start:.1f} s")
@@ -2773,19 +3143,24 @@ def main() -> None:
     floor["host_ms_after_profiler"] = host_ms(torch, empty)
     log(f"[timing] every kernel_ms from complete torch.profiler records: "
         f"{all(PROFILER_SEES_KERNELS)}; launch floor {fmt(floor)}")
-    paths = {"pair_counts": [], "entropy_terms": []}
-    for path, (k1_rows, k2_rows, k1_err, k2_err) in path_rows.items():
+    paths = {"pair_counts": [], "entropy_terms": [], "domain_scores": []}
+    for path, (k1_rows, k2_rows, k1_err, k2_err, k5_rows,
+               k5_err) in path_rows.items():
         for name, rows, err in (("pair_counts", k1_rows, k1_err),
-                                ("entropy_terms", k2_rows, k2_err)):
+                                ("entropy_terms", k2_rows, k2_err),
+                                ("domain_scores", k5_rows, k5_err)):
+            if name == "domain_scores" and not rows:
+                continue
             total = main_path(rows)
             log(f"[{path}-kernels] {name}: {fmt(total)}")
             paths[name].append({"path": path,
                                 "launches": path_launches[path][name],
                                 "max_abs_err": err, **total})
-    k1_rows, k2_rows, _, _ = path_rows["e2e"]
-    k1, k2 = main_path(k1_rows), main_path(k2_rows)
+    k1_rows, k2_rows, _, _, k5_rows, _ = path_rows["e2e"]
+    k1, k2, k5 = main_path(k1_rows), main_path(k2_rows), main_path(k5_rows)
     k1_err = max(p["max_abs_err"] for p in paths["pair_counts"])
     k2_err = max(p["max_abs_err"] for p in paths["entropy_terms"])
+    k5_err = max(p["max_abs_err"] for p in paths["domain_scores"])
     k2_bytes = sum(r["bytes_ms"] for r in k2_rows)
     k2_ops = sum(r["ops_ms"] for r in k2_rows)
 
@@ -2816,6 +3191,18 @@ def main() -> None:
          "bound_by": "bytes" if k2_bytes >= k2_ops else "operations",
          "library_ms": None, "shapes": shapes(k2_shapes),
          "paths": paths["entropy_terms"], "ok": True},
+        {"name": "domain_scores", "route": "cuda",
+         "source": "delphi_tpu_torch/csrc/domain_scores.cu",
+         "replaces": "delphi_tpu/ops/domain.py:734",
+         "tpu_source": "delphi_tpu/ops/domain.py:_jit_bucket_kernel "
+                       "(integer mode of _int_score_body :432; jitted XLA, "
+                       "not Pallas)",
+         "launches": path_launches["e2e"]["domain_scores"],
+         "max_abs_err": k5_err, "ms": k5["ms"],
+         "kernel_ms": k5["kernel_ms"], "launch_floor_ms": floor["ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "paths": paths["domain_scores"], "ok": True},
     ]
     k8 = esc["escalation"]["k8"]
     programs = [

@@ -34,6 +34,7 @@ from delphi_tpu_torch.escalate.router import RoutedCell
 from delphi_tpu_torch.ops import joint as k_joint
 from delphi_tpu_torch.ops.freq import compute_freq_stats
 from delphi_tpu_torch.ops.joint import NEG_INF
+from delphi_tpu_torch.parallel import planner
 from delphi_tpu_torch.utils import counter_inc
 
 #: Laplace smoothing for every count-derived log potential
@@ -56,21 +57,22 @@ class JointProposal:
         self.belief = belief
 
 
-def pow2_pad(n: int) -> int:
-    """Next power of two >= max(n, 1)."""
-    return 1 << max(int(n) - 1, 0).bit_length()
-
-
 def plan_buckets(v_sizes: List[int]) -> List[Tuple[int, int, List[int]]]:
     """``(v_pad, n_pad, members)`` per launch for cells whose candidate
-    domains have ``v_sizes``: one launch per power-of-two band, in
-    ascending band order, members (indices into ``v_sizes``) in
-    first-occurrence order, the cell axis padded to a power of two."""
-    bands: Dict[int, List[int]] = {}
-    for i, v in enumerate(v_sizes):
-        bands.setdefault(pow2_pad(v), []).append(i)
-    return [(v_pad, pow2_pad(len(members)), members)
-            for v_pad, members in sorted(bands.items())]
+    domains have ``v_sizes``, from the launch planner's recorded
+    ``escalation.joint`` plan: one launch per power-of-two band (the
+    band is the piece shape, never merged), in ascending band order,
+    members (indices into ``v_sizes``) in first-occurrence order, the cell
+    axis padded to a power of two."""
+    plan = planner.plan_launches(
+        "escalation.joint",
+        [planner.Piece(key=i, size=1, shape=(planner.pow2_pad(v),))
+         for i, v in enumerate(v_sizes)],
+        pad_batch=True, persist=False)
+    plan.record()
+    return [(int(l.shape[0]), int(l.batch_pad),
+             [int(s.key) for s in l.spans])
+            for l in sorted(plan.launches, key=lambda l: l.shape[0])]
 
 
 def _log_cond(pair_uv: np.ndarray, single_u: np.ndarray,

@@ -14,6 +14,10 @@ table without one whole pandas frame; ``--escalate`` (with
 ``--checkpoint-dir D`` keeps each phase's outputs in D, so a run that died
 resumes at its last completed phase; ``--fault-plan PLAN`` injects faults
 at the resilience plane's sites (an injected ``crash`` exits with code 23).
+``--pipeline on|off|auto`` sets the training pipeline thread and
+``--compile-cache-dir D`` the kernel library's build cache;
+``--plan-report ROOT`` prints the launch-cost ledgers persisted under ROOT
+as JSON and exits.
 
 Incremental mode: ``--incremental --snapshot-dir D`` diffs the input
 against the snapshot manifest in D, repairs only the delta and updates the
@@ -42,8 +46,6 @@ from delphi_tpu_torch.errors import ConstraintErrorDetector, NullErrorDetector
 from delphi_tpu_torch.session import get_session
 
 _OBSERVABILITY = "queue 1 item 10 of ROADMAP.md (observability)"
-_PLANES = ("queue 1 item 8b of ROADMAP.md (the launch planner, the "
-           "pipeline thread and the compile plane)")
 _MULTI_GPU = "queue 1 item 9 of ROADMAP.md (multi-GPU)"
 
 # (flag, argparse keyword arguments, the ROADMAP item that brings it)
@@ -62,9 +64,6 @@ _UNPORTED = [
     ("--gauntlet-seed", dict(type=int, default=None), _OBSERVABILITY),
     ("--gauntlet-scenarios", dict(type=str, default=""), _OBSERVABILITY),
     ("--gauntlet-no-repairs", dict(action="store_true"), _OBSERVABILITY),
-    ("--compile-cache-dir", dict(type=str, default=""), _PLANES),
-    ("--pipeline", dict(choices=["on", "off", "auto"], default=None), _PLANES),
-    ("--plan-report", dict(type=str, default=""), _PLANES),
     ("--collective-timeout-s", dict(type=float, default=None), _MULTI_GPU),
 ]
 
@@ -229,6 +228,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                         action="store_true",
                         help="with --fsck: report without quarantining, "
                              "deleting or sweeping")
+    parser.add_argument("--pipeline", dest="pipeline",
+                        choices=["on", "off", "auto"], default="auto",
+                        help="the pipeline thread of sequential training: "
+                             "'auto' (default) turns it on for a run on "
+                             "the card (DELPHI_PIPELINE / "
+                             "repair.pipeline.enabled)")
+    parser.add_argument("--compile-cache-dir", dest="compile_cache_dir",
+                        type=str, default="",
+                        help="directory of the kernel library's build "
+                             "cache: a later run loads the library built "
+                             "there instead of building it "
+                             "(DELPHI_COMPILE_CACHE_DIR / "
+                             "repair.compile.cache_dir)")
+    parser.add_argument("--plan-report", dest="plan_report", type=str,
+                        default="", metavar="ROOT",
+                        help="print the launch-cost ledgers persisted "
+                             "under ROOT (a plans directory, or a directory "
+                             "holding one) as JSON and exit: buckets "
+                             "ranked by pad-adjusted device milliseconds")
     for flag, kwargs, item in _UNPORTED:
         parser.add_argument(flag, dest=_dest(flag),
                             help=f"not ported yet ({item})", **kwargs)
@@ -245,6 +263,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         summary = dstore.fsck(args.fsck, repair=not args.fsck_report_only)
         print(json.dumps(summary, indent=2, sort_keys=True))
         return 4 if summary.get("corrupt") else 0
+    if args.plan_report:
+        # files only, like --fsck: rank the persisted ledgers' buckets
+        from delphi_tpu_torch.observability.trace import plan_report
+        print(json.dumps(plan_report(args.plan_report), indent=2,
+                         sort_keys=True))
+        return 0
     if not (args.input and args.row_id and args.output):
         parser.error("--input, --row-id and --output are required")
 
@@ -254,7 +278,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     conf = {"repair.fault.plan": args.fault_plan}
     if args.stream <= 0:
         conf.update({"repair.checkpoint.dir": args.checkpoint_dir,
-                     "repair.provenance.path": args.provenance_out})
+                     "repair.provenance.path": args.provenance_out,
+                     "repair.compile.cache_dir": args.compile_cache_dir,
+                     "repair.pipeline.enabled":
+                         "" if args.pipeline == "auto" else args.pipeline})
     prior = {k: session.conf.get(k) for k, v in conf.items() if v}
     session.conf.update((k, v) for k, v in conf.items() if v)
     try:

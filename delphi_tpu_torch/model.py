@@ -14,13 +14,18 @@ maximal-likelihood modes. Phase checkpoints (``DELPHI_CHECKPOINT_DIR`` /
 completed phase, model checkpoints (``model.checkpoint_path``) let a later
 run skip training, and a fault plan (``DELPHI_FAULT_PLAN`` /
 ``repair.fault.plan``) injects faults at the resilience plane's guarded
-sites (:mod:`delphi_tpu_torch.parallel.resilience`). Settings of the
+sites (:mod:`delphi_tpu_torch.parallel.resilience`). Launch plans persist
+per table fingerprint with ``DELPHI_PLAN_DIR``
+(:mod:`delphi_tpu_torch.parallel.planner`), sequential training runs
+through the pipeline thread (:mod:`delphi_tpu_torch.parallel.pipeline`),
+and the prewarm thread loads the kernel library at run start
+(:mod:`delphi_tpu_torch.parallel.compile_plane`). Settings of the
 reference that the port does not have yet raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings them: the launch planner, the
-pipeline thread and the compile plane (queue 1 item 8b), the run report
-and live telemetry (item 10). With ``DELPHI_PROVENANCE_PATH`` /
-``repair.provenance.path`` set, every flagged cell gets a provenance
-ledger entry (:mod:`delphi_tpu_torch.observability.provenance`); with
+naming the ``ROADMAP.md`` item that brings them: multi-GPU (queue 1 item
+9) and the run report, traces and live telemetry (item 10). With
+``DELPHI_PROVENANCE_PATH`` / ``repair.provenance.path`` set, every flagged
+cell gets a provenance ledger entry
+(:mod:`delphi_tpu_torch.observability.provenance`); with
 ``repair.escalate`` on, the cells the models are unsure about go through
 the escalation tiers (:mod:`delphi_tpu_torch.escalate`); with
 ``repair.incremental`` and a snapshot directory, a run repairs only the
@@ -53,7 +58,9 @@ from delphi_tpu_torch.errors import (ROW_IDX, ConstraintErrorDetector,
 from delphi_tpu_torch.models.encoding import FeatureEncoder, OrdinalEncoder
 from delphi_tpu_torch.observability import provenance as _prov
 from delphi_tpu_torch.observability.provenance import active_ledger
+from delphi_tpu_torch.parallel import compile_plane, planner
 from delphi_tpu_torch.parallel import resilience as _resilience
+from delphi_tpu_torch.parallel.pipeline import run_pipelined
 from delphi_tpu_torch.regex_repair import RegexStructureRepair
 from delphi_tpu_torch.session import AnalysisException, get_session
 from delphi_tpu_torch.ops.detect import (_one_tuple_violations,
@@ -73,8 +80,7 @@ from delphi_tpu_torch.utils import (argtype_check, counter_inc,
 _logger = setup_logger()
 
 # The ROADMAP.md items that bring the settings run() still rejects
-_PLANES_8B_ITEM = ("queue 1 item 8b of ROADMAP.md, the launch planner, "
-                   "the pipeline thread and the compile plane")
+_MULTI_GPU_ITEM = "queue 1 item 9 of ROADMAP.md, multi-GPU"
 _OBSERVABILITY_ITEM = "queue 1 item 10 of ROADMAP.md, observability"
 
 
@@ -167,38 +173,31 @@ def repair_attrs_from(updates_df: pd.DataFrame, base_df: pd.DataFrame,
     return out
 
 
-# (environment variable, session conf key, how the JAX package parses it,
-# what it turns on) of the observability planes the port does not have yet
-_OBSERVABILITY_SETTINGS = [
-    ("DELPHI_METRICS_PATH", "repair.metrics.path", None, "the run report"),
-    ("DELPHI_METRICS_PORT", "repair.metrics.port", int, "live telemetry"),
-    ("DELPHI_STALL_TIMEOUT_S", "repair.metrics.stall_timeout_s", float,
-     "the stall watchdog"),
-]
-
-
 _FALSY = frozenset({"0", "false", "off", "no"})
+_TRUTHY = frozenset({"1", "true", "yes", "on"})
 
 
-def _toggle_on(env: str, conf: str) -> bool:
-    """An on/off toggle as the JAX package reads it: the environment
-    variable, when present at all, beats the session conf. Anything but an
-    empty value or an explicit false spelling (0, false, off, no) counts:
-    ``auto`` turns the JAX plane on on an accelerator."""
+def _raw(env: str, conf: Optional[str]) -> Optional[str]:
+    """The setting's raw value as the JAX package reads it: the
+    environment variable, when present and not blank, beats the session
+    conf."""
     raw = os.environ.get(env)
-    if raw is None:
+    if (raw is None or not str(raw).strip()) and conf is not None:
         raw = get_session().conf.get(conf)
-    v = "" if raw is None else str(raw).strip().lower()
-    return v != "" and v not in _FALSY
+    if raw is None or not str(raw).strip():
+        return None
+    return str(raw).strip()
 
 
-def _env_parses(env: str, cast: Any, legacy: Optional[str] = None) -> bool:
-    """An environment-only knob (the launch planner's): set when ``cast``
-    parses it; ``legacy`` is its older spelling, read when ``env`` is
-    absent."""
-    raw = os.environ.get(env)
-    if raw is None and legacy is not None:
-        raw = os.environ.get(legacy)
+def _path_set(env: str, conf: Optional[str] = None) -> bool:
+    """A path or address: set when not blank."""
+    return _raw(env, conf) is not None
+
+
+def _parses(env: str, conf: Optional[str], cast: Any) -> bool:
+    """A number (a port, a timeout, a row floor): set when ``cast``
+    parses it, as the JAX package ignores what it cannot parse."""
+    raw = _raw(env, conf)
     if raw is None:
         return False
     try:
@@ -208,60 +207,69 @@ def _env_parses(env: str, cast: Any, legacy: Optional[str] = None) -> bool:
     return True
 
 
-# (what the setting turns on, whether the JAX package would see it) for
-# the launch planner, the pipeline thread and the compile plane
-_PLANES_8B_SETTINGS = [
-    ("the pipeline thread (DELPHI_PIPELINE or the session conf "
-     "repair.pipeline.enabled)",
-     lambda: _toggle_on("DELPHI_PIPELINE", "repair.pipeline.enabled")),
-    ("the launch planner (DELPHI_PLAN)",
-     lambda: bool(os.environ.get("DELPHI_PLAN", "").strip())),
-    ("the launch planner's bucket merging (DELPHI_PLAN_MERGE)",
-     lambda: _env_parses("DELPHI_PLAN_MERGE", int)),
-    ("the launch planner's cell budget (DELPHI_PLAN_CHUNK_CELLS or "
-     "DELPHI_DOMAIN_CHUNK_CELLS)",
-     lambda: _env_parses("DELPHI_PLAN_CHUNK_CELLS", int,
-                         "DELPHI_DOMAIN_CHUNK_CELLS")),
-    ("the launch planner's CV instance cap (DELPHI_PLAN_CV_INSTANCE_CAP or "
-     "DELPHI_CV_INSTANCE_CAP)",
-     lambda: _env_parses("DELPHI_PLAN_CV_INSTANCE_CAP", int,
-                         "DELPHI_CV_INSTANCE_CAP")),
-    ("persisted launch plans (DELPHI_PLAN_DIR)",
-     lambda: bool(os.environ.get("DELPHI_PLAN_DIR"))),
-    ("the compile cache (DELPHI_COMPILE_CACHE_DIR or the session conf "
-     "repair.compile.cache_dir)",
-     lambda: _env_or_conf("DELPHI_COMPILE_CACHE_DIR",
-                          "repair.compile.cache_dir", None)),
-    ("the compile cache's threshold (DELPHI_COMPILE_CACHE_MIN_S or the "
-     "session conf repair.compile.min_compile_secs)",
-     lambda: _env_or_conf("DELPHI_COMPILE_CACHE_MIN_S",
-                          "repair.compile.min_compile_secs", float)),
-    ("the prewarm thread (DELPHI_PREWARM or the session conf "
-     "repair.compile.prewarm)",
-     lambda: _toggle_on("DELPHI_PREWARM", "repair.compile.prewarm")),
-    ("the prewarm budget (DELPHI_PREWARM_BUDGET or the session conf "
-     "repair.compile.prewarm_budget)",
-     lambda: _env_or_conf("DELPHI_PREWARM_BUDGET",
-                          "repair.compile.prewarm_budget", int)),
+def _truthy(env: str, conf: Optional[str] = None) -> bool:
+    """A flag the JAX package reads as on only when 1/true/yes/on."""
+    raw = _raw(env, conf)
+    return raw is not None and raw.lower() in _TRUTHY
+
+
+def _not_false(env: str, conf: Optional[str] = None) -> bool:
+    """A switch the JAX package reads as on unless blank or an explicit
+    false spelling (0, false, off, no)."""
+    raw = _raw(env, conf)
+    return raw is not None and raw.lower() not in _FALSY
+
+
+# (what the setting turns on, whether the JAX package would see it) of the
+# planes the port does not have yet: multi-GPU (item 9) and observability
+# (item 10). Each raises before any work; an explicit false spelling runs.
+_MULTI_GPU_SETTINGS = [
+    ("the device mesh (DELPHI_MESH or the session conf repair.mesh)",
+     lambda: _not_false("DELPHI_MESH", "repair.mesh")),
+    ("the row-shard plane (DELPHI_SHARD)",
+     lambda: _not_false("DELPHI_SHARD")),
+    ("the row-shard plane's row floor (DELPHI_SHARD_MIN_ROWS)",
+     lambda: _parses("DELPHI_SHARD_MIN_ROWS", None, int)),
+    ("a multi-process cluster (DELPHI_COORDINATOR)",
+     lambda: _path_set("DELPHI_COORDINATOR")),
+    ("a multi-process cluster (DELPHI_NUM_PROCESSES)",
+     lambda: _parses("DELPHI_NUM_PROCESSES", None, int)),
+    ("a multi-process cluster (DELPHI_PROCESS_ID)",
+     lambda: _parses("DELPHI_PROCESS_ID", None, int)),
+    ("the collective deadline (DELPHI_COLLECTIVE_TIMEOUT_S or the session "
+     "conf repair.collective.timeout_s)",
+     lambda: _parses("DELPHI_COLLECTIVE_TIMEOUT_S",
+                     "repair.collective.timeout_s", float)),
 ]
 
-
-def _env_or_conf(env: str, conf: str, cast: Any) -> bool:
-    """Whether the JAX package would see the setting: the environment
-    variable wins over the session conf; a path counts when non-empty, a
-    port or a timeout when ``cast`` parses it."""
-    if cast is None:
-        return bool(os.environ.get(env) or get_session().conf.get(conf))
-    raw = os.environ.get(env)
-    if raw is None or not str(raw).strip():
-        raw = get_session().conf.get(conf)
-    if raw is None or not str(raw).strip():
-        return False
-    try:
-        cast(str(raw).strip())
-    except ValueError:
-        return False
-    return True
+_OBSERVABILITY_SETTINGS = [
+    ("the run report (DELPHI_METRICS_PATH or the session conf "
+     "repair.metrics.path)",
+     lambda: _path_set("DELPHI_METRICS_PATH", "repair.metrics.path")),
+    ("live telemetry (DELPHI_METRICS_PORT or the session conf "
+     "repair.metrics.port)",
+     lambda: _parses("DELPHI_METRICS_PORT", "repair.metrics.port", int)),
+    ("the stall watchdog (DELPHI_STALL_TIMEOUT_S or the session conf "
+     "repair.metrics.stall_timeout_s)",
+     lambda: _parses("DELPHI_STALL_TIMEOUT_S",
+                     "repair.metrics.stall_timeout_s", float)),
+    ("the run report's event stream (DELPHI_METRICS_EVENTS or the session "
+     "conf repair.metrics.events)",
+     lambda: _truthy("DELPHI_METRICS_EVENTS", "repair.metrics.events")),
+    ("the launch planner's cost veto (DELPHI_PLAN_COST)",
+     lambda: _truthy("DELPHI_PLAN_COST")),
+    ("request traces (DELPHI_TRACE_DIR)",
+     lambda: _path_set("DELPHI_TRACE_DIR")),
+    ("request traces' sampling (DELPHI_TRACE_SAMPLE)",
+     lambda: _parses("DELPHI_TRACE_SAMPLE", None, float)),
+    ("device profiles (DELPHI_PROFILE_DIR or the session conf "
+     "repair.profile.dir)",
+     lambda: _path_set("DELPHI_PROFILE_DIR", "repair.profile.dir")),
+    ("the phase heartbeat (DELPHI_PHASE_HEARTBEAT)",
+     lambda: _truthy("DELPHI_PHASE_HEARTBEAT")),
+    ("the resource sampler (DELPHI_RESOURCE_SAMPLER)",
+     lambda: _truthy("DELPHI_RESOURCE_SAMPLER")),
+]
 
 
 class RepairModel:
@@ -536,17 +544,14 @@ class RepairModel:
         setting is read as the JAX package reads it (option, then
         environment, then session conf), so an explicit false spelling
         does not raise."""
-        def unported(what: str, later: str) -> None:
-            raise NotImplementedError(
-                f"{what} is not ported to delphi_tpu_torch yet ({later})")
-
-        for what, is_set in _PLANES_8B_SETTINGS:
-            if is_set():
-                unported(what, _PLANES_8B_ITEM)
-        for env, conf, cast, what in _OBSERVABILITY_SETTINGS:
-            if _env_or_conf(env, conf, cast):
-                unported(f"{what} ({env} or the session conf {conf})",
-                         _OBSERVABILITY_ITEM)
+        for settings, later in ((_MULTI_GPU_SETTINGS, _MULTI_GPU_ITEM),
+                                (_OBSERVABILITY_SETTINGS,
+                                 _OBSERVABILITY_ITEM)):
+            for what, is_set in settings:
+                if is_set():
+                    raise NotImplementedError(
+                        f"{what} is not ported to delphi_tpu_torch yet "
+                        f"({later})")
 
     # -- phase 1: error detection --------------------------------------------
 
@@ -841,10 +846,16 @@ class RepairModel:
 
     def _use_batched_training(self, n_pending: int) -> bool:
         """Whether phase 2 trains its targets through the batched path
-        (`train.build_models_batched`): more than one pending target and
-        ``setParallelStatTrainingEnabled(True)``. The reference also
-        defaults to it on accelerators; the port pins its CPU choice
+        (`train.build_models_batched`). ``DELPHI_BATCH_TRAIN=1/0`` forces
+        the choice, as in the JAX package; otherwise more than one pending
+        target and ``setParallelStatTrainingEnabled(True)``. The reference
+        also defaults to it on accelerators; the port pins its CPU choice
         (sequential) on the card too."""
+        setting = os.environ.get("DELPHI_BATCH_TRAIN", "auto")
+        if setting == "1":
+            return True
+        if setting == "0":
+            return False
         return n_pending > 1 and self.parallel_stat_training_enabled
 
     def _build_repair_stat_models(
@@ -856,49 +867,77 @@ class RepairModel:
             transformer_map: Dict[str, List[Any]]) -> Dict[str, Any]:
         """Builds the remaining per-attribute stat models: batched (every
         target's CV search and final fit in shared launches) or one target
-        at a time (`_use_batched_training`). A failed fit becomes a
-        ``PoorModel(None)``."""
+        at a time (`_use_batched_training`), the latter through the
+        pipeline (:mod:`delphi_tpu_torch.parallel.pipeline`), which
+        prepares the next target's training set on the host while the
+        current one trains. A failed fit becomes a ``PoorModel(None)``."""
         pending = [c for c in target_columns if c not in models]
-        batched = self._use_batched_training(len(pending))
-        tasks = []
-        for y in pending:
-            index = len(models) + len(tasks) + 1
-            prep = self._prepare_training_task(
+
+        def _prep_target(y: str) -> Any:
+            # host featurization only (sampling, lazy decode, fit-encode):
+            # under the pipeline it runs on the producer thread, which
+            # must not touch the card
+            return self._prepare_training_task(
                 y, masked, float_cols, continuous_columns, feature_map,
                 transformer_map)
-            if prep is None:
-                _logger.info(
-                    "Skipping {}/{} model... type=classfier y={} num_class={}".format(
-                        index, len(target_columns), y, num_class_map[y]))
-                models[y] = (PoorModel(None), feature_map[y], None)
-                continue
-            X, y_, n_rows = prep
-            is_discrete = y not in continuous_columns
+
+        def _log_building(index: int, y: str, n_rows: int) -> None:
             _logger.info(
                 "Building {}/{} model... type={} y={} features={} #rows={}{}".format(
                     index, len(target_columns),
-                    "classfier" if is_discrete else "regressor", y,
-                    to_list_str(feature_map[y]), n_rows,
+                    "regressor" if y in continuous_columns else "classfier",
+                    y, to_list_str(feature_map[y]), n_rows,
                     f" #class={num_class_map[y]}" if num_class_map[y] > 0 else ""))
-            if batched:
-                tasks.append((y, X, y_, is_discrete, num_class_map[y]))
-                continue
+
+        def _log_skipping(index: int, y: str) -> None:
+            _logger.info(
+                "Skipping {}/{} model... type=classfier y={} num_class={}".format(
+                    index, len(target_columns), y, num_class_map[y]))
+
+        if self._use_batched_training(len(pending)):
+            tasks = []
+            for y in pending:
+                index = len(models) + len(tasks) + 1
+                prep = _prep_target(y)
+                if prep is None:
+                    _log_skipping(index, y)
+                    models[y] = (PoorModel(None), feature_map[y], None)
+                    continue
+                X, y_, n_rows = prep
+                _log_building(index, y, n_rows)
+                tasks.append((y, X, y_, y not in continuous_columns,
+                              num_class_map[y]))
+            if tasks:
+                _logger.info(
+                    f"Training {len(tasks)} models in batched device launches...")
+                out = build_models_batched(tasks, self.opts)
+                for y, *_ in tasks:
+                    (model, score), elapsed = out[y]
+                    _logger.info(
+                        f"Finishes building '{y}' model...  score={score} "
+                        f"elapsed={elapsed}s")
+                    self._keep_model(models, y, model, feature_map,
+                                     transformer_map)
+            return models
+
+        def _train_target(y: str, prep: Any) -> None:
+            # runs in target order on the calling thread: progress logs and
+            # the models dict change exactly as in the sequential loop
+            index = len(models) + 1
+            if prep is None:
+                _log_skipping(index, y)
+                models[y] = (PoorModel(None), feature_map[y], None)
+                return
+            X, y_, n_rows = prep
+            _log_building(index, y, n_rows)
             (model, score), elapsed = build_model(
-                X, y_, is_discrete, num_class_map[y], n_jobs=-1, opts=self.opts)
+                X, y_, y not in continuous_columns, num_class_map[y],
+                n_jobs=-1, opts=self.opts)
             _logger.info(
                 f"Finishes building '{y}' model...  score={score} elapsed={elapsed}s")
             self._keep_model(models, y, model, feature_map, transformer_map)
-        if tasks:
-            _logger.info(
-                f"Training {len(tasks)} models in batched device launches...")
-            out = build_models_batched(tasks, self.opts)
-            for y, *_ in tasks:
-                (model, score), elapsed = out[y]
-                _logger.info(
-                    f"Finishes building '{y}' model...  score={score} "
-                    f"elapsed={elapsed}s")
-                self._keep_model(models, y, model, feature_map,
-                                 transformer_map)
+
+        run_pipelined(pending, _prep_target, _train_target)
         return models
 
     @staticmethod
@@ -2346,17 +2385,40 @@ class RepairModel:
                     f"Target attributes not found in {input_name}: "
                     f"{to_list_str(self.targets)}")
 
+        # launch plans persist per table fingerprint when a plan store is
+        # armed (DELPHI_PLAN_DIR) and no fingerprint scope is open; a
+        # collision is harmless (the signature re-validates the pieces)
+        plan_scope: Any = contextlib.nullcontext()
+        if planner.current_fingerprint() is None \
+                and planner.get_plan_store() is not None:
+            plan_scope = planner.plan_fingerprint(
+                planner.table_plan_fingerprint(
+                    input_name, table.n_rows,
+                    [c.name for c in table.columns]))
         run_flags = (detect_errors_only, compute_repair_candidate_prob,
                      compute_repair_prob, compute_repair_score, repair_data,
                      maximal_likelihood_repair)
         self._last_incremental = None
-        if _incremental.incremental_requested(self):
-            df, elapsed, self._last_incremental = \
-                _incremental.run_incremental(
-                    self, table, input_name, continuous_columns, run_flags)
-        else:
-            df, elapsed = self._run(table, input_name, continuous_columns,
-                                    *run_flags)
+        with plan_scope:
+            # the prewarm thread loads the kernel library while detection
+            # runs; it stops when the run ends
+            prewarm = compile_plane.maybe_start_prewarm(
+                table, continuous_columns, self._row_id, self.targets,
+                int(self._get_option_value(
+                    *self._opt_max_training_row_num)),
+                self.opts)
+            try:
+                if _incremental.incremental_requested(self):
+                    df, elapsed, self._last_incremental = \
+                        _incremental.run_incremental(
+                            self, table, input_name, continuous_columns,
+                            run_flags)
+                else:
+                    df, elapsed = self._run(table, input_name,
+                                            continuous_columns, *run_flags)
+            finally:
+                if prewarm is not None:
+                    prewarm.stop()
         _logger.info(f"!!!Total Processing time is {elapsed}(s)!!!")
         return df
 

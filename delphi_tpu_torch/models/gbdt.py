@@ -42,6 +42,7 @@ import pandas as pd
 import torch
 
 from delphi_tpu_torch.ops.xfer import to_device
+from delphi_tpu_torch.parallel import planner
 from delphi_tpu_torch.parallel.resilience import run_guarded
 from delphi_tpu_torch.utils import counter_inc
 
@@ -67,9 +68,20 @@ def gbdt_supported(is_discrete: bool, num_class: int) -> bool:
 
 
 def round_chunks(n_rounds: int, chunk: int = _CHUNK_ROUNDS) -> List[int]:
-    """``n_rounds`` boosting rounds as fixed-size chunks plus one remainder."""
-    q, r = divmod(max(int(n_rounds), 1), int(chunk))
-    return [int(chunk)] * q + ([r] if r else [])
+    """``n_rounds`` boosting rounds as fixed-size chunks plus one remainder
+    (the launch planner's boost-chunk policy)."""
+    return planner.round_chunks(n_rounds, chunk)
+
+
+def train_row_target(n: int) -> int:
+    """The JAX package's training-row pad target: a power of two (at least
+    8) up to 4096 rows, then the next multiple of 2048. The port's slabs
+    pad to their largest instance instead; this target names the CV
+    launch shapes in the planner's ``gbdt.cv`` plans and the prewarm
+    plan, as in the JAX package."""
+    if n <= 4096:
+        return planner.pow2_pad(n, floor=8)
+    return -(-n // 2048) * 2048
 
 
 # ---------------------------------------------------------------------------
@@ -557,6 +569,8 @@ def _cv_prepare_target(X: Any, y: Any, is_discrete: bool, n_splits: int,
         return None
     return dict(
         objective=objective, k=k, k_real=k_real, n=n,
+        n_pad=train_row_target(n),
+        d_pad=max(8, -(-int(instances[0]["bins"].shape[1]) // 8) * 8),
         n_bins=template.max_bin + 1, y_cmp=y_cmp, scale=scale,
         cw_corr=cw_corr, class_valid=class_valid, template=template,
         is_discrete=is_discrete, instances=instances)
@@ -674,7 +688,7 @@ def gbdt_cv_grid_search_multi(preps: List[Optional[dict]],
                    prep["k"], tuple(cfg_idx))
             merged.setdefault(key, []).append(t)
 
-    for key, t_members in merged.items():
+    for gi_group, (key, t_members) in enumerate(merged.items()):
         if timed_out:
             break
         g_depth, g_rounds, n_bins, objective, k, cfg_tuple = key
@@ -696,9 +710,28 @@ def gbdt_cv_grid_search_multi(preps: List[Optional[dict]],
 
         inst = [(t, j) for t in members
                 for j in range(len(preps[t]["instances"]))]
-        slabs = [_CVSlab(preps, inst[s:s + _CV_INSTANCE_CAP], objective, k,
-                         hyper)
-                 for s in range(0, len(inst), _CV_INSTANCE_CAP)]
+        # the slab split comes from the launch planner's `gbdt.cv[...]`
+        # plan (persisted per table fingerprint, as in the JAX package;
+        # DELPHI_PLAN_CV_INSTANCE_CAP is the cap). The plan pads the batch
+        # axis of a multi-target search to a power of two; eager PyTorch
+        # gains nothing from that, so a slab holds its spans only. The JAX
+        # package also keys a group by its row and feature pads; the port
+        # stacks targets of other pads in one group (a slab pads to its
+        # largest instance), so the shape names the group's largest pads.
+        n_pad = max(preps[t]["n_pad"] for t in members)
+        d_pad = max(preps[t]["d_pad"] for t in members)
+        cap = planner.cv_instance_cap(default=_CV_INSTANCE_CAP)
+        slab_plan = planner.plan_launches(
+            f"gbdt.cv[{gi_group}]",
+            [planner.Piece(key=i, size=1,
+                           shape=(g_depth, g_rounds, n_pad, d_pad, n_bins,
+                                  objective, k, len(cfg_indices)))
+             for i in range(len(inst))],
+            batch_cap=cap, pad_batch=(T > 1))
+        slab_plan.record()
+        slabs = [_CVSlab(preps, [inst[span.key] for span in launch.spans],
+                         objective, k, hyper)
+                 for launch in slab_plan.launches]
 
         rounds_done = 0
         active = {t: True for t in members}

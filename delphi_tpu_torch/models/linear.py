@@ -29,11 +29,7 @@ import torch
 from delphi_tpu_torch.models.encoding import (OneHotDesign,
                                               balanced_class_weights)
 from delphi_tpu_torch.ops.xfer import to_device
-
-
-def _pow2_pad(n: int, floor: int = 1) -> int:
-    """Next power of two >= max(n, 1), raised to ``floor``."""
-    return max(int(floor), 1 << max(int(n) - 1, 0).bit_length())
+from delphi_tpu_torch.parallel import planner
 
 
 def _pad_cols(X: np.ndarray) -> np.ndarray:
@@ -41,7 +37,7 @@ def _pad_cols(X: np.ndarray) -> np.ndarray:
     JAX package does: the MLP's initial scale depends on the padded width,
     and JAX-fitted dense weights carry the padded rows."""
     d = X.shape[1]
-    target = _pow2_pad(d, floor=8)
+    target = planner.pow2_pad(d, floor=8)
     if target == d:
         return X
     return np.concatenate(

@@ -23,6 +23,7 @@ import pandas as pd
 import torch
 
 from delphi_tpu_torch.ops.xfer import to_device
+from delphi_tpu_torch.parallel import planner
 from delphi_tpu_torch.utils.native import get_qgram
 
 FEATURE_DIM = 1024
@@ -142,6 +143,12 @@ def kmeans(X: np.ndarray, k: int, seed: int = 0, n_iters: int = 20) -> np.ndarra
             centers.append(X[rng.randint(n)])
         else:
             centers.append(X[rng.choice(n, p=d / total)])
+    # the JAX package pads the rows to the launch planner's extent so that
+    # one compiled program serves every split size; eager PyTorch gains
+    # nothing from that, so the rows stay unpadded and the plan is only
+    # recorded (its `launch.*` counts)
+    planner.padded_extent(
+        "cluster", n, floor=8, shape=(int(k), int(n_iters), int(X.shape[1])))
     labels = _lloyd(to_device(X), to_device(np.stack(centers)), k, n_iters)
     return labels.cpu().numpy().astype(np.int64)
 

@@ -37,6 +37,7 @@ from delphi_tpu_torch.constraints import (AttrRef, Constant,
 from delphi_tpu_torch.device import get_device
 from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.ops import xfer
+from delphi_tpu_torch.parallel import planner
 from delphi_tpu_torch.parallel.resilience import ShrinkBatch, run_guarded
 from delphi_tpu_torch.table import NULL_CODE, EncodedTable
 from delphi_tpu_torch.utils import counter_inc, setup_logger
@@ -123,7 +124,16 @@ def detect_outliers(table: EncodedTable, continuous_attrs: Sequence[str],
     if not pools:
         return []
 
-    qs = percentile_batch([p[3] for p in pools], (25.0, 75.0)).cpu().numpy()
+    # the batch layout of the launch planner (one shape bucket, every pool
+    # padded to the longest), as the JAX package's device route records it
+    plan = planner.plan_launches(
+        "detect.percentile",
+        [planner.Piece(key=i, size=len(p[3])) for i, p in enumerate(pools)],
+        pad_to_max=True, persist=False)
+    plan.record()
+    with plan.launch_scope(plan.launches[0]):
+        qs = percentile_batch([p[3] for p in pools],
+                              (25.0, 75.0)).cpu().numpy()
     out = []
     for i, (attr, values, valid, _) in enumerate(pools):
         q1, q3 = float(qs[i, 0]), float(qs[i, 1])
@@ -284,11 +294,21 @@ def _one_tuple_violations(table: EncodedTable, preds: Sequence[Predicate]) \
     return mask
 
 
+def _record_padded_extents(*sizes: int) -> None:
+    """Records the launch planner's ``detect`` extent of each input array
+    of a device step, as the JAX package does where it pads them (its jit
+    compiles one program per padded length). Eager PyTorch gains nothing
+    from padding, so the port's arrays stay unpadded."""
+    for n in sizes:
+        planner.padded_extent("detect", n, floor=8)
+
+
 def _sorted_count(keys2: torch.Tensor, keys1: torch.Tensor) -> torch.Tensor:
     """#``keys2`` entries equal to each ``keys1`` entry (int64), as one sort
     and two searchsorted passes: O(n log n), no dense (group x value)
     table to size."""
     counter_inc("detect.sorted_count")
+    _record_padded_extents(len(keys2), len(keys1))
 
     def count() -> torch.Tensor:
         s = torch.sort(keys2).values
@@ -302,6 +322,7 @@ def _rank(keys: torch.Tensor) -> torch.Tensor:
     """Each key's rank in the sorted keys (equal keys share the rank of
     their first occurrence): comparable ids in [0, len)."""
     counter_inc("detect.rank")
+    _record_padded_extents(len(keys))
 
     def rank() -> torch.Tensor:
         return torch.searchsorted(torch.sort(keys).values, keys,
@@ -338,6 +359,7 @@ def _group_extrema(values: torch.Tensor, groups: torch.Tensor,
     empty group reads -inf for max, +inf for min); groups is int64[n] in
     [0, n_groups)."""
     counter_inc("detect.group_extrema")
+    _record_padded_extents(len(values), len(groups))
     init = float("-inf") if want_max else float("inf")
 
     def extrema() -> torch.Tensor:

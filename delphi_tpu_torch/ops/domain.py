@@ -11,16 +11,32 @@ its current value. Semantics of the JAX package's host route
   integer-division quirk;
 * the score splits into two exact integer accumulators, big = sum(cnt-1 |
   cnt >= 2) and tiny = #(cnt == 1) over active correlates, computed on the
-  device in int64;
+  device;
 * big/tiny recombine on the host in f64 (the same numpy reduction as the
   reference, so a probability within one ulp of beta cannot flip), then the
   beta mask and the rank tie-break pick the top value.
 
-Each chunk's device pass runs behind the resilience plane's guarded seam,
-named by the route the JAX package takes: ``domain.score`` when a
-provenance ledger needs every cell's probabilities, ``domain.weak_label``
-(its fused weak-label route) otherwise. The evict rung drops the
-correlates' cached device codes, which the retry uploads afresh.
+Two routes compute the integer accumulators, as in the JAX package:
+
+* **bucketed** (the default; ``DELPHI_DEVICE_TABLE`` / ``repair.device_table``
+  select it): every int32-safe group's cells, cut into chunks of
+  ``DELPHI_PLAN_CHUNK_CELLS`` cells, become pieces of the launch planner's
+  ``domain.weak`` plan (persisted, merged, shape buckets keyed by the
+  JAX package's (fused, k, va_pad, vc_pad)); each plan launch stacks its
+  pieces' operands into one int32 upload (the plan's batch, row and
+  value padding left out: eager PyTorch gains nothing from it) and runs K5
+  (:mod:`delphi_tpu_torch.ops.kernels.domain_scores`) against the
+  resident code matrix, behind the guarded seam at site ``domain.bucket``
+  (evict re-uploads the codes; an OOM past its retries halves the batch).
+  The JAX package scores its large groups ("fused" pieces) entirely on the
+  device in f64; the port scores them in int mode too and recombines on
+  the host, so its mask is the host route's bit for bit;
+* **legacy** (``DELPHI_DEVICE_TABLE=0``, and groups that are not int32
+  safe): one int64 pass per group chunk, behind the guarded seam named by
+  the route the JAX package takes: ``domain.score`` when a provenance
+  ledger needs every cell's probabilities, ``domain.weak_label`` (its
+  fused weak-label route) otherwise. The evict rung drops the correlates'
+  cached device codes, which the retry uploads afresh.
 """
 
 from dataclasses import dataclass
@@ -33,12 +49,26 @@ import torch
 from delphi_tpu_torch.observability.provenance import active_ledger
 from delphi_tpu_torch.ops import xfer
 from delphi_tpu_torch.ops.freq import FreqStats
-from delphi_tpu_torch.parallel.resilience import run_guarded
+from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+from delphi_tpu_torch.parallel import planner
+from delphi_tpu_torch.parallel.resilience import ShrinkBatch, run_guarded
 from delphi_tpu_torch.table import NULL_CODE, DiscretizedTable
 from delphi_tpu_torch.utils import counter_inc
 
-# error cells scored per device pass
-_CHUNK_CELLS = 1_000_000
+# the bucketed route's least padded piece (rows), and its cap on the
+# stacked pair tables of one launch (int32 elements, about 1 GiB): the
+# JAX package's constants, which name its plans' policy
+_BUCKET_MIN_ROWS = 256
+_BUCKET_TABLE_ELEMS = 1 << 28
+# JAX: groups at least this large take its fused f64 route (a piece-shape
+# flag of the plan; the port scores them in int mode all the same)
+_FUSED_MIN_ROWS = 65536
+
+
+def _chunk_cells() -> int:
+    """Error cells per device pass: the launch planner's cell budget
+    (``DELPHI_PLAN_CHUNK_CELLS``, legacy ``DELPHI_DOMAIN_CHUNK_CELLS``)."""
+    return planner.chunk_cells(default=1_000_000)
 
 
 @dataclass
@@ -101,11 +131,12 @@ def _iter_attr_groups(disc: DiscretizedTable,
 
 
 def _score_chunks(group: _AttrGroup, site: str):
-    """Yields (chunk offset, big, tiny, contributed) for the group's cells:
-    the integer accumulators run on the device over the correlates'
-    resident code columns, one guarded ``site`` entry per chunk, and come
-    back as int64 / bool host arrays."""
-    pair_tables, taus, corr_cols, has_single, _ = group._ctx
+    """The legacy route: yields (chunk offset, prob, contributed) for the
+    group's cells. The integer accumulators run on the device over the
+    correlates' resident code columns, one guarded ``site`` entry per
+    chunk, come back as int64 / bool host arrays and recombine on the
+    host."""
+    pair_tables, taus, corr_cols, has_single, n_rows = group._ctx
     tables = [xfer.to_device(t, torch.int64) for t in pair_tables]
     hs = xfer.to_device(has_single, torch.bool)
 
@@ -127,21 +158,205 @@ def _score_chunks(group: _AttrGroup, site: str):
         return big.cpu().numpy(), tiny.cpu().numpy(), \
             contributed.cpu().numpy()
 
-    for lo in range(0, len(group.rows), _CHUNK_CELLS):
-        rows = xfer.to_device(group.rows[lo:lo + _CHUNK_CELLS], torch.int64)
+    chunk = _chunk_cells()
+    for lo in range(0, len(group.rows), chunk):
+        rows = xfer.to_device(group.rows[lo:lo + chunk], torch.int64)
         big, tiny, contributed = run_guarded(
             site, lambda rows=rows: launch(rows),
             evict=lambda: xfer.evict_device_codes(corr_cols))
-        yield lo, big, tiny, contributed
+        prob, contributed = _combine_scores(big, tiny, contributed, n_rows)
+        yield lo, prob, contributed
 
 
 def _combine_scores(big: np.ndarray, tiny: np.ndarray, contributed: np.ndarray,
                     n_rows: int) -> Tuple[np.ndarray, np.ndarray]:
-    score = (big.astype(np.float64) + 0.1 * tiny.astype(np.float64)) / n_rows
+    """Probabilities from the integer sums (int64, or f64 holding exact
+    integers), in the host numpy route's order of operations."""
+    score = (np.asarray(big, np.float64)
+             + 0.1 * np.asarray(tiny, np.float64)) / n_rows
     denom = score.sum(axis=1, keepdims=True)
     with np.errstate(divide="ignore", invalid="ignore"):
         prob = np.where(denom > 0, score / denom, 0.0)
     return prob, contributed
+
+
+# ---------------------------------------------------------------------------
+# the bucketed route: shape-bucketed launches of K5 over the resident codes
+# ---------------------------------------------------------------------------
+
+
+def _int32_safe_group(group: _AttrGroup) -> bool:
+    """K5 accumulates in int32: k * max pair count must stay under 2^31
+    (the JAX package's guard); other groups take the legacy route."""
+    pair_tables = group._ctx[0]
+    max_count = max((int(t.max(initial=0)) for t in pair_tables), default=0)
+    return len(pair_tables) * max(max_count, 1) < 2 ** 31
+
+
+def _prep_group_operands(group: _AttrGroup) -> dict:
+    """Host-side padded operands of one group, with the JAX package's
+    padding: the value axis to a multiple of 32, the correlate tables'
+    rows to a power of two (at least 8). ``v_a`` and ``vc`` (each
+    table's rows) are the real extents."""
+    pair_tables, taus, corr_cols, has_single, n = group._ctx
+    k = len(corr_cols)
+    v_a = int(has_single.shape[0])
+    va_pad = -(-v_a // 32) * 32
+    vc_max = max(int(t.shape[0]) for t in pair_tables)
+    vc_pad = planner.pow2_pad(vc_max, floor=8)
+    tables = np.zeros((k, vc_pad, va_pad + 1), np.int32)
+    for i, t in enumerate(pair_tables):
+        tables[i, :t.shape[0], :t.shape[1]] = t
+    hs = np.zeros(va_pad, np.int32)
+    hs[:v_a] = np.asarray(has_single, bool)
+    return dict(k=k, v_a=v_a, va_pad=va_pad, vc_pad=vc_pad, n=n,
+                vc=[int(t.shape[0]) for t in pair_tables], tables=tables,
+                taus=np.asarray([max(int(t), 0) for t in taus], np.int32),
+                hs=hs)
+
+
+def _stack_all_codes(cols) -> torch.Tensor:
+    """The distinct correlate columns' resident codes stacked into the
+    [cols, rows + 1] gather matrix; the trailing sentinel column of NULL
+    codes is what padded row indices point at."""
+    base = torch.stack([xfer.device_codes(c) for c in cols])
+    return torch.nn.functional.pad(base, (0, 1), value=NULL_CODE)
+
+
+def _bucketed_run(jobs, phase: str = "domain.weak") -> Dict[int, list]:
+    """Scores every (group, chunk) piece of ``jobs`` ((group index, group,
+    fused) triples) in the launch planner's shape-bucketed launches of K5.
+    Returns {group index: [(chunk offset, prob, contributed), ...]} sorted
+    by offset."""
+    col_slot: Dict[int, int] = {}
+    cols = []
+    for _, g, _ in jobs:
+        for c in g._ctx[2]:
+            if id(c) not in col_slot:
+                col_slot[id(c)] = len(cols)
+                cols.append(c)
+    # a holder: the evict rung re-uploads the codes and restacks in place
+    codes_state = {"cols": cols, "all_codes": _stack_all_codes(cols)}
+    sentinel = int(cols[0].codes.shape[0])
+
+    chunk = _chunk_cells()
+    out: Dict[int, list] = {j[0]: [] for j in jobs}
+    ctx: Dict[int, tuple] = {}
+    pieces = []
+    for gi, g, fused in jobs:
+        prep = _prep_group_operands(g)
+        cidx = np.asarray([col_slot[id(c)] for c in g._ctx[2]], np.int32)
+        ctx[gi] = (g, prep, cidx)
+        pieces.append(planner.Piece(
+            key=gi, size=len(g.rows),
+            shape=(bool(fused), prep["k"], prep["va_pad"], prep["vc_pad"])))
+
+    def bucket_cap(shape, rows_pad):
+        # cells per launch bounded by the chunk, the duplicated pair
+        # tables by _BUCKET_TABLE_ELEMS
+        _, k, va_pad, vc_pad = shape
+        per_tables = k * vc_pad * (va_pad + 1)
+        return max(1, min(chunk // max(rows_pad, 1),
+                          _BUCKET_TABLE_ELEMS // max(per_tables, 1)))
+
+    plan = planner.plan_launches(
+        phase, pieces, size_floor=_BUCKET_MIN_ROWS, chunk=chunk,
+        batch_cap=bucket_cap, pad_batch=True, merge=True,
+        policy_tag=f"elems={_BUCKET_TABLE_ELEMS}")
+    plan.record()
+
+    for launch in plan.launches:
+        _, k, _, vc_pad = launch.shape
+        batch = []
+        for span in launch.spans:
+            g, prep, cidx = ctx[span.key]
+            sub = np.asarray(g.rows[span.lo:span.lo + span.size], np.int64)
+            batch.append((span.key, span.lo, sub, prep, cidx))
+        with plan.launch_scope(launch):
+            _launch_bucket(batch, k, vc_pad, codes_state, sentinel, out)
+    for gi in out:
+        out[gi].sort(key=lambda t: t[0])
+    return out
+
+
+def _launch_bucket(batch, k, vc_pad, codes_state, sentinel, out) -> None:
+    """One guarded bucket launch. When an OOM outlasts its retries the
+    resilience plane raises ShrinkBatch and the batch halves, recursively;
+    results are assembled per piece, so a split launch gives the same
+    results in more launches."""
+    try:
+        _launch_bucket_once(batch, k, vc_pad, codes_state, sentinel, out)
+    except ShrinkBatch:
+        half = (len(batch) + 1) // 2
+        _launch_bucket(batch[:half], k, vc_pad, codes_state, sentinel, out)
+        _launch_bucket(batch[half:], k, vc_pad, codes_state, sentinel, out)
+
+
+def _launch_bucket_once(batch, k, vc_pad, codes_state, sentinel,
+                        out) -> None:
+    # The plan (recorded by the caller) pads the batch to a power of two,
+    # each piece to the launch's ``rows_pad`` and the values to ``va_pad``,
+    # for XLA's executable cache. Eager PyTorch gains nothing from those
+    # extents, so K5 runs on the batch's real pieces, its rows to the
+    # longest span (shorter spans point at the sentinel row) and its values
+    # to the widest piece's, and only the real rows and values come back
+    # to the host. A shrink halves the batch the same way.
+    b = len(batch)
+    extents = [(len(sub), prep["v_a"]) for _, _, sub, prep, _ in batch]
+    rows = max(m for m, _ in extents)
+    va = max(v_a for _, v_a in extents)
+    col_idx = np.zeros((b, k), np.int32)
+    taus = np.zeros((b, k), np.int32)
+    hs = np.zeros((b, va), np.int32)
+    row_idx = np.full((b, rows), sentinel, np.int32)
+    tables = np.zeros((b, k, vc_pad, va + 1), np.int32)
+    for i, (_, _, sub, prep, cidx) in enumerate(batch):
+        col_idx[i] = cidx
+        taus[i] = prep["taus"]
+        hs[i] = prep["hs"][:va]
+        row_idx[i, :len(sub)] = sub
+        tables[i] = prep["tables"][:, :, :va + 1]
+    parts = [col_idx, taus, hs, row_idx, tables]
+    # one upload per launch: the operands travel as one int32 blob
+    blob_np = np.concatenate([a.ravel() for a in parts])
+
+    counter_inc("domain.bucket_launches")
+    counter_inc("domain.bucket_pieces", b)
+
+    def evict():
+        # transfer-fault rung: re-upload the resident codes and restack
+        xfer.evict_device_codes(codes_state["cols"])
+        codes_state["all_codes"] = _stack_all_codes(codes_state["cols"])
+
+    def useful(t: torch.Tensor) -> torch.Tensor:
+        # each piece's real [rows, values] block, flattened into one copy
+        return torch.cat([t[i, :m, :v_a].reshape(-1)
+                          for i, (m, v_a) in enumerate(extents)])
+
+    def launch():
+        blob = xfer.to_device(blob_np)
+        views, at = [], 0
+        for a in parts:
+            views.append(blob[at:at + a.size].view(a.shape))
+            at += a.size
+        big, tiny, contributed = k_domain.domain_scores(
+            codes_state["all_codes"], *views)
+        # the sums leave the card as f64, an exact cast of int32, so the
+        # host's combine starts from the values it would convert to
+        return (useful(big).double().cpu().numpy(),
+                useful(tiny).double().cpu().numpy(),
+                useful(contributed).cpu().numpy())
+
+    big, tiny, contributed = run_guarded(
+        "domain.bucket", launch, can_shrink=b > 1, evict=evict)
+    at = 0
+    for (gi, lo, _, prep, _), (m, v_a) in zip(batch, extents):
+        block = slice(at, at + m * v_a)
+        prob, contrib = _combine_scores(
+            big[block].reshape(m, v_a), tiny[block].reshape(m, v_a),
+            contributed[block].reshape(m, v_a), prep["n"])
+        out[gi].append((lo, prob, contrib))
+        at += m * v_a
 
 
 def compute_weak_label_mask(
@@ -168,10 +383,20 @@ def compute_weak_label_mask(
     # scored the planned rows only
     counter_inc("domain.cells_scored", int(len(cells[0])))
     demote = np.zeros(len(cells[0]), dtype=bool)
-    for group in _iter_attr_groups(
-            disc, cells, continuous_attrs, target_attrs, freq,
-            pairwise_stats, domain_stats, max_attrs_to_compute_domains,
-            alpha):
+    groups = list(_iter_attr_groups(
+        disc, cells, continuous_attrs, target_attrs, freq, pairwise_stats,
+        domain_stats, max_attrs_to_compute_domains, alpha))
+    # the bucketed route first, over every int32-safe group (the JAX
+    # package's "fused" flag, a piece-shape key of its plan, marks the
+    # large groups of a run without a ledger)
+    bucketed: Dict[int, list] = {}
+    if xfer.device_table_enabled():
+        jobs = [(gi, g, led is None and len(g.rows) >= _FUSED_MIN_ROWS)
+                for gi, g in enumerate(groups)
+                if not g.empty_domain and _int32_safe_group(g)]
+        if jobs:
+            bucketed = _bucketed_run(jobs)
+    for gi, group in enumerate(groups):
         if group.empty_domain:
             if led is not None and len(group.rows):
                 led.record_domain_sizes(
@@ -185,10 +410,11 @@ def compute_weak_label_mask(
         order = np.argsort(vocab_str.astype(str), kind="stable")
         vocab_rank = np.empty(len(vocab), dtype=np.int64)
         vocab_rank[order] = np.arange(len(vocab))
-        n_rows = group._ctx[4]
-        site = "domain.score" if led is not None else "domain.weak_label"
-        for lo, big, tiny, contributed in _score_chunks(group, site):
-            prob, contributed = _combine_scores(big, tiny, contributed, n_rows)
+        chunks = bucketed.get(gi)
+        if chunks is None:
+            site = "domain.score" if led is not None else "domain.weak_label"
+            chunks = _score_chunks(group, site)
+        for lo, prob, contributed in chunks:
             keep = contributed & (prob > beta)
             if led is not None and len(prob):
                 led.record_domain_sizes(group.rows[lo:lo + len(prob)],

@@ -23,6 +23,7 @@ import numpy as np
 
 from delphi_tpu_torch.ops.freq import FreqStats, Pair
 from delphi_tpu_torch.ops.kernels import entropy as k_entropy
+from delphi_tpu_torch.parallel import planner
 
 
 def _with_correction(h: float, total: int, n_observed: int, n_rows: int,
@@ -52,6 +53,24 @@ def compute_pairwise_stats(
     assert n_rows > 0
     target_attrs = list(dict.fromkeys(a for p in target_attr_pairs for a in p))
     assert all(a in domain_stats for a in target_attrs)
+
+    # the launch planner's `entropy` plan over the unordered pairs, as the
+    # JAX package records it (its buckets are its Pallas-or-host routes;
+    # every pair here takes K2). K2 reduces each pair matrix on its own,
+    # so the whole plan runs as the one launch below.
+    uniq: List[Pair] = []
+    seen = set()
+    for x, y in target_attr_pairs:
+        if frozenset((x, y)) not in seen:
+            seen.add(frozenset((x, y)))
+            uniq.append((x, y))
+    plan = planner.plan_launches(
+        "entropy",
+        [planner.Piece(key=i, size=int(freq.pair(x, y).size),
+                       shape=("pallas",))
+         for i, (x, y) in enumerate(uniq)],
+        persist=False)
+    plan.record()
 
     # H(x,y): one launch over every stored pair matrix (the filter, when
     # a threshold is set, runs on the device first)

@@ -2,9 +2,9 @@
 
 * singleton value counts per attribute: one ``torch.bincount`` over a
   column-offset fused key;
-* pair co-occurrence count matrices per candidate attribute pair: every
-  pair in ONE launch of kernel K1 (:mod:`delphi_tpu_torch.ops.kernels.
-  pair_counts`);
+* pair co-occurrence count matrices per candidate attribute pair: the
+  pairs of each launch of the launch planner's ``freq.pairs`` plan in ONE
+  call of kernel K1 (:mod:`delphi_tpu_torch.ops.kernels.pair_counts`);
 * the number of distinct (x, y) value pairs, for candidate-pair pruning:
   sort the fused key and count transitions.
 
@@ -15,6 +15,7 @@ JAX package; the JAX package enters ``freq.pairs_pallas`` once per pair,
 the port once per K1 call).
 """
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
@@ -23,10 +24,30 @@ import torch
 
 from delphi_tpu_torch.ops import xfer
 from delphi_tpu_torch.ops.kernels import pair_counts as k_pair_counts
+from delphi_tpu_torch.parallel import planner
 from delphi_tpu_torch.parallel.resilience import run_guarded
 from delphi_tpu_torch.table import EncodedTable
 
 Pair = Tuple[str, str]
+
+# The [pairs, rows] work budget of one pair-count launch (int32 elements);
+# DELPHI_PAIR_BUDGET / repair.pair.budget tune it per deployment, as in
+# the JAX package.
+_PAIR_KEYS_PER_LAUNCH = 2.5e8
+
+
+def _pair_keys_per_launch() -> float:
+    """The pair budget: ``DELPHI_PAIR_BUDGET`` beats the
+    ``repair.pair.budget`` session conf; both fall back to
+    ``_PAIR_KEYS_PER_LAUNCH``."""
+    env = os.environ.get("DELPHI_PAIR_BUDGET")
+    if env:
+        return float(env)
+    from delphi_tpu_torch.session import get_session
+    conf = get_session().conf.get("repair.pair.budget")
+    if conf:
+        return float(conf)
+    return float(_PAIR_KEYS_PER_LAUNCH)
 
 
 @dataclass
@@ -130,9 +151,30 @@ def compute_freq_stats(table: EncodedTable,
     pair_idx = [(name_to_idx[x], name_to_idx[y]) for x, y in pairs]
     vocab = [vocab_sizes[a] for a in needed]
     if pair_idx:
-        flat, offsets = run_guarded(
-            "freq.pairs_pallas", lambda: k_pair_counts.pair_counts(
-                codes, pair_idx, vocab))
+        # the pairs group by the launch planner's `freq.pairs` plan, whose
+        # cap bounds the [pairs, rows] work of a launch by the pair budget
+        # (one launch at the default budget up to 250 pairs of 1M rows);
+        # each plan launch is one K1 call behind one guarded entry
+        n_rows = int(table.n_rows)
+        per_launch = max(1, int(_pair_keys_per_launch() // max(n_rows, 1)))
+        v_pad = max(vocab)
+        pair_plan = planner.plan_launches(
+            "freq.pairs",
+            [planner.Piece(key=i, size=1, shape=(v_pad, n_rows))
+             for i in range(len(pair_idx))],
+            batch_cap=per_launch, persist=False)
+        pair_plan.record()
+        flats, offsets = [], np.zeros(1, dtype=np.int64)
+        for launch in pair_plan.launches:
+            group = [pair_idx[span.key] for span in launch.spans]
+            with pair_plan.launch_scope(launch):
+                g_flat, g_off = run_guarded(
+                    "freq.pairs_pallas",
+                    lambda group=group: k_pair_counts.pair_counts(
+                        codes, group, vocab))
+            flats.append(g_flat)
+            offsets = np.concatenate([offsets, offsets[-1] + g_off[1:]])
+        flat = flats[0] if len(flats) == 1 else torch.cat(flats)
     else:
         # no pair, no launch and no seam entry, as in the JAX package
         flat, offsets = k_pair_counts.pair_counts(codes, pair_idx, vocab)

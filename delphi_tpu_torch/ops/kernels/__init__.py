@@ -2,7 +2,9 @@
 
 * :mod:`.pair_counts` — K1, replacing the JAX package's Pallas
   ``_pair_count_kernel``;
-* :mod:`.entropy` — K2, replacing its Pallas ``_entropy_kernel``.
+* :mod:`.entropy` — K2, replacing its Pallas ``_entropy_kernel``;
+* :mod:`.domain_scores` — K5, replacing the integer mode of its jitted
+  ``_jit_bucket_kernel`` (the bucketed domain route's gather-reduce).
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and uses its plain
 version for a CPU tensor; nothing falls back from one to the other.

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import List, Optional, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -57,26 +58,34 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path() -> str:
+def _library_name() -> str:
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for src in sources():
         with open(src, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libdelphi_kernels_{digest.hexdigest()[:12]}.so")
+    return f"libdelphi_kernels_{digest.hexdigest()[:12]}.so"
 
 
-def build(ptxas_verbose: bool = False) -> Tuple[str, str]:
-    """Compiles the sources (skipped when the hashed library exists and
-    ``ptxas_verbose`` is off). Returns (library path, compiler output)."""
-    lib_path = _library_path()
+def _library_path() -> str:
+    return os.path.join(BUILD_DIR, _library_name())
+
+
+def build(ptxas_verbose: bool = False,
+          directory: Optional[str] = None) -> Tuple[str, str]:
+    """Compiles the sources into ``directory`` (default :data:`BUILD_DIR`;
+    skipped when the hashed library exists there and ``ptxas_verbose`` is
+    off). Returns (library path, compiler output)."""
+    lib_path = _library_path() if directory is None \
+        else os.path.join(directory, _library_name())
+    directory = os.path.dirname(lib_path)
     if os.path.exists(lib_path) and not ptxas_verbose:
         return lib_path, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(directory, exist_ok=True)
     nvcc = _nvcc()
     extra = ["-Xptxas=-v"] if ptxas_verbose else []
     objs, procs = [], []
     for src in sources():
-        obj = os.path.join(BUILD_DIR, os.path.basename(src) + f".{os.getpid()}.o")
+        obj = os.path.join(directory, os.path.basename(src) + f".{os.getpid()}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
             [nvcc, *NVCC_FLAGS, *extra, "-c", src, "-o", obj],
@@ -103,13 +112,53 @@ def build(ptxas_verbose: bool = False) -> Tuple[str, str]:
     return lib_path, "\n".join(logs + [link.stdout])
 
 
+def _resolve_library() -> Tuple[str, bool]:
+    """The library file to load and whether it is a private one, found
+    through the compile plane's build cache
+    (:mod:`delphi_tpu_torch.parallel.compile_plane`): the cache directory,
+    one ``compile_cache.requests`` count and a hit or a miss. A miss
+    builds in a private work directory inside the cache directory (so the
+    move into the cache is one rename on one filesystem, atomic for
+    concurrent loaders); the library then moves into the cache directory,
+    unless it built faster than the cache's threshold, in which case it
+    loads from the private file, deleted once loaded."""
+    from delphi_tpu_torch.parallel import compile_plane
+    from delphi_tpu_torch.utils import counter_inc
+    directory = compile_plane.cache_dir() or BUILD_DIR
+    cached = os.path.join(directory, _library_name())
+    counter_inc("compile_cache.requests")
+    if os.path.exists(cached):
+        counter_inc("compile_cache.hits")
+        return cached, False
+    counter_inc("compile_cache.misses")
+    work = os.path.join(directory, f".work-{os.getpid()}")
+    t0 = time.perf_counter()
+    try:
+        path, _ = build(directory=work)
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    seconds = time.perf_counter() - t0
+    if seconds >= compile_plane.min_compile_secs():
+        os.replace(path, cached)
+        os.rmdir(work)
+        compile_plane.record_cache_dir_stats(directory)
+        return cached, False
+    return path, True
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (resolved and loaded on first call; see
+    :func:`_resolve_library`)."""
     global _lib
     with _lock:
         if _lib is None:
-            path, _ = build()
+            path, private = _resolve_library()
             lib = ctypes.CDLL(path)
+            if private:
+                # an uncached build: the loaded library stays mapped
+                os.remove(path)
+                os.rmdir(os.path.dirname(path))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             # (table pointer, grid, shared bytes, stream)
             lib.delphi_pair_counts.restype = i32
@@ -117,10 +166,21 @@ def library() -> ctypes.CDLL:
             # (table pointer, stream)
             lib.delphi_entropy_terms.restype = i32
             lib.delphi_entropy_terms.argtypes = [vp, vp]
+            # (table pointer, grid, stream)
+            lib.delphi_domain_scores.restype = i32
+            lib.delphi_domain_scores.argtypes = [vp, i32, vp]
             lib.delphi_launch_floor.restype = i32
             lib.delphi_launch_floor.argtypes = [vp]
             _lib = lib
         return _lib
+
+
+def reset_library() -> None:
+    """Forgets the loaded library, so that the next :func:`library`
+    resolves it through the build cache again (and counts)."""
+    global _lib
+    with _lock:
+        _lib = None
 
 
 def check(err: int, kernel: str) -> None:

@@ -11,6 +11,7 @@ Every upload runs behind the resilience plane's guarded seam (site
 ``xfer.upload``, :func:`delphi_tpu_torch.parallel.resilience.run_guarded`).
 """
 
+import os
 from typing import Any
 
 import numpy as np
@@ -20,6 +21,24 @@ from delphi_tpu_torch.device import get_device
 from delphi_tpu_torch.parallel.resilience import run_guarded
 
 _DEVICE_CODES_ATTR = "_delphi_torch_codes"
+
+
+_FALSY = frozenset({"0", "false", "no", "off"})
+
+
+def device_table_enabled() -> bool:
+    """Whether domain scoring takes the bucketed route over the resident
+    codes (the default), as the JAX package reads it:
+    ``DELPHI_DEVICE_TABLE`` beats the ``repair.device_table`` session conf,
+    and 0/false/no/off select the legacy per-group route."""
+    env = os.environ.get("DELPHI_DEVICE_TABLE")
+    if env is not None:
+        return env.strip().lower() not in _FALSY
+    from delphi_tpu_torch.session import get_session
+    conf = get_session().conf.get("repair.device_table")
+    if conf is not None:
+        return str(conf).strip().lower() not in _FALSY
+    return True
 
 
 def to_device(x: Any, dtype: Any = None) -> torch.Tensor:

@@ -18,6 +18,7 @@ import pandas as pd
 import torch
 
 from delphi_tpu_torch.observability.provenance import active_ledger
+from delphi_tpu_torch.parallel.pipeline import run_pipelined
 from delphi_tpu_torch.utils import (counter_inc, elapsed_time,
                                     get_option_value, setup_logger)
 
@@ -378,8 +379,13 @@ def build_models_batched(tasks: list, opts: Dict[str, str]) \
 
         cv_seconds: Dict[int, float] = {}
         cv_chunks: Dict[int, int] = {}
-        for tis in cv_sets.values():
-            t_cv = time.perf_counter()
+
+        def _prep_cv_set(tis: List[int]) -> Tuple[List[Optional[dict]],
+                                                   float]:
+            # host featurization of one CV set (fold binning, scoring
+            # constants; numpy only, so it can run on the pipeline's
+            # producer thread) and its seconds
+            t_prep = time.perf_counter()
             grid = chosen[tis[0]][3]
             preps: List[Optional[dict]] = []
             for ti in tis:
@@ -396,6 +402,13 @@ def build_models_batched(tasks: list, opts: Dict[str, str]) \
                         raise
                     _logger.warning(f"{e.__class__}: {e}")
                     preps.append(None)
+            return preps, time.perf_counter() - t_prep
+
+        def _search_cv_set(tis: List[int], prepared: Tuple[
+                List[Optional[dict]], float]) -> None:
+            preps, prep_s = prepared
+            t_cv = time.perf_counter()
+            grid = chosen[tis[0]][3]
             remaining = 0.0 if deadline is None \
                 else max(deadline - time.monotonic(), 1e-3)
             res = gbdt_cv_grid_search_multi(
@@ -405,9 +418,12 @@ def build_models_batched(tasks: list, opts: Dict[str, str]) \
                     rounds = 0  # not CV-proven: keep the full round budget
                 chosen[ti] = (dict(grid[ci]), score, rounds, grid)
                 cv_chunks[ti] = c
-            cv_s = time.perf_counter() - t_cv
+            cv_s = prep_s + time.perf_counter() - t_cv
             for ti in tis:  # the set's search is shared by its targets
                 cv_seconds[ti] = cv_s
+
+        # featurization of CV set k+1 overlaps the device search of set k
+        run_pipelined(list(cv_sets.values()), _prep_cv_set, _search_cv_set)
 
         # local refinement stays per target, for targets the base grid left
         # below the good-enough bar

@@ -191,12 +191,19 @@ gauges: Dict[str, float] = {}
 histograms: Dict[str, List[float]] = {}
 
 
+# the pipeline's producer and the prewarm worker count from their own
+# threads: a read-modify-write of a shared dict needs the lock
+_metrics_lock = threading.Lock()
+
+
 def counter_inc(name: str, n: int = 1) -> None:
-    counters[name] = counters.get(name, 0) + n
+    with _metrics_lock:
+        counters[name] = counters.get(name, 0) + n
 
 
 def histogram_observe(name: str, value: float) -> None:
-    histograms.setdefault(name, []).append(float(value))
+    with _metrics_lock:
+        histograms.setdefault(name, []).append(float(value))
 
 
 def gauge_set(name: str, value: float) -> None:

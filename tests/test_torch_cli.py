@@ -8,7 +8,9 @@ with the JAX package's models, as ``tests/test_torch_escalate.py`` explains);
 ``--incremental``, ``--snapshot-dir`` and ``--stream`` write equal CSVs and
 ``--fsck`` / ``--fsck-report-only`` give equal exit codes and summaries;
 ``--checkpoint-dir`` and ``--fault-plan`` write equal CSVs, and an
-injected ``crash`` exits with code 23 in both; every flag of the JAX package's CLI that the port does not have yet
+injected ``crash`` exits with code 23 in both; ``--pipeline`` and
+``--compile-cache-dir`` write equal CSVs and ``--plan-report`` prints
+equal reports of the JAX package's ledgers; every flag of the JAX package's CLI that the port does not have yet
 raises, naming the ``ROADMAP.md`` item that brings it.
 
 Both CLIs run in this process (``main(argv)``); one case also runs the
@@ -127,8 +129,6 @@ def test_cli_as_module_matches_in_process(inputs, tmp_path):
     ("--gauntlet-rows", "100", "item 10"), ("--gauntlet-seed", "1", "item 10"),
     ("--gauntlet-scenarios", "wide", "item 10"),
     ("--gauntlet-no-repairs", None, "item 10"),
-    ("--compile-cache-dir", "c", "item 8b"), ("--pipeline", "on", "item 8b"),
-    ("--plan-report", "p", "item 8b"),
     ("--collective-timeout-s", "5", "item 9"),
 ])
 def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
@@ -141,6 +141,90 @@ def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
                        match=f"{flag} .*queue 1 {item} of ROADMAP.md"):
         t_main.main(argv)
     assert not (tmp_path / "o.csv").exists()
+
+
+@pytest.fixture
+def _restore_plane_conf():
+    """The JAX CLI leaves its flags' settings in its session conf, and its
+    compile plane points jax's persistent cache at the flag's directory."""
+    import jax
+    keys = ("repair.compile.cache_dir", "repair.pipeline.enabled")
+    prior = {k: j_session().conf.get(k) for k in keys}
+    old_dir = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", old_dir)
+    for k, v in prior.items():
+        if v is None:
+            j_session().conf.pop(k, None)
+        else:
+            j_session().conf[k] = v
+
+
+@pytest.mark.parametrize("flags", [
+    ("--pipeline", "on"), ("--pipeline", "off"), ("--pipeline", "auto"),
+    ("--compile-cache-dir", "{d}"),
+    ("--pipeline", "on", "--compile-cache-dir", "{d}", "--repair-data"),
+], ids=["pipeline-on", "pipeline-off", "pipeline-auto", "compile-cache-dir",
+        "both"])
+def test_plane_flags_match_jax(inputs, tmp_path, flags, monkeypatch,
+                               _restore_plane_conf):
+    """``--pipeline`` and ``--compile-cache-dir`` write the JAX package's
+    CSV, and their settings reach the run through the session conf only
+    for the invocation; ``--pipeline on`` runs the pipeline thread."""
+    from delphi_tpu_torch.parallel import pipeline
+    from delphi_tpu_torch.utils import counters
+    seen = []
+    orig = pipeline.enabled
+
+    def spy():
+        seen.append((orig(), t_session().conf.get("repair.compile.cache_dir")))
+        return seen[-1][0]
+
+    monkeypatch.setattr(pipeline, "enabled", spy)
+    counters.clear()
+    want, got = _run_both(inputs, tmp_path,
+                          *[f.format(d=tmp_path / "cc") for f in flags])
+    assert got == want
+    on = "on" in flags
+    assert seen and all(s[0] is on for s in seen)
+    if "--compile-cache-dir" in flags:
+        assert all(s[1] == str(tmp_path / "cc") for s in seen)
+    assert bool(counters.get("pipeline.runs")) is on
+    assert t_session().conf.get("repair.pipeline.enabled") is None
+    assert t_session().conf.get("repair.compile.cache_dir") is None
+
+
+def test_plan_report_matches_jax_on_jax_ledgers(inputs, tmp_path,
+                                                monkeypatch, capsys):
+    """``--plan-report ROOT`` prints what the JAX package prints for the
+    launch-cost ledgers its runs persisted (under ROOT or ROOT/plans); on
+    the port's own plans directory it reports plans but no ledger (the port
+    writes none until queue 1 item 10)."""
+    plans = tmp_path / "serve" / "plans"
+    monkeypatch.setenv("DELPHI_PLAN_DIR", str(plans))
+    assert j_main.main(["--input", str(inputs / "in.csv"), "--row-id", "tid",
+                        "--output", str(tmp_path / "j.csv"), "--metrics-out",
+                        str(tmp_path / "r.json")]) == 0
+    assert list(plans.glob("ledger.*.json"))
+    capsys.readouterr()
+    for root in (plans, tmp_path / "serve"):
+        assert j_main.main(["--plan-report", str(root)]) == 0
+        want = capsys.readouterr().out
+        assert t_main.main(["--plan-report", str(root)]) == 0
+        got = capsys.readouterr().out
+        assert got == want
+        report = json.loads(got)
+        assert report["ledgers"] >= 1 and report["buckets"]
+    own = tmp_path / "own"
+    monkeypatch.setenv("DELPHI_PLAN_DIR", str(own))
+    assert t_main.main(["--input", str(inputs / "in.csv"), "--row-id", "tid",
+                        "--output", str(tmp_path / "t.csv")]) == 0
+    assert [p.name for p in own.iterdir()
+            if not p.name.startswith("ledger.")]
+    capsys.readouterr()
+    assert t_main.main(["--plan-report", str(own)]) == 0
+    assert json.loads(capsys.readouterr().out) == {
+        "root": str(own), "ledgers": 0, "buckets": []}
 
 
 @pytest.fixture

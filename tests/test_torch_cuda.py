@@ -8,6 +8,8 @@ JAX is absent (skip the JAX-importing conftest there):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -724,8 +726,12 @@ def test_cpu_rung_reraises_on_the_card(card, clean_plan, monkeypatch, site,
     where the site has one) on a run on the card re-raises instead of
     moving work to the CPU: the refusal is counted, nothing is latched,
     and the next run on the card returns the unfaulted frame (without a
-    ledger, so that the domain chunks enter domain.weak_label)."""
+    ledger and on the legacy domain route, ``DELPHI_DEVICE_TABLE=0``, so
+    that the domain chunks enter domain.weak_label; the bucketed route's
+    domain.bucket refusal is a CPU test with the device check stubbed)."""
     from delphi_tpu_torch.utils import counters
+    if site == "domain.weak_label":
+        monkeypatch.setenv("DELPHI_DEVICE_TABLE", "0")
     df = _null_table(3000)
     T.set_device("cuda")
     want = _null_run(df)
@@ -769,16 +775,18 @@ def test_resumed_run_on_card_equals_cpu(card, clean_plan, monkeypatch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["default detectors", "error cells"])
+@pytest.mark.parametrize("mode", ["default detectors", "error cells",
+                                  "detectors"])
 def test_constraints_table_card_matches_cpu(card, mode):
-    """The constraints path's default-detector and setErrorCells runs on
-    a 2,000-row fd_categorical-shaped table: the card's frame equals the
-    CPU's outside logistic-head near-ties."""
+    """The constraints path's runs on a 2,000-row fd_categorical-shaped
+    table (chip_smoke's 4f(d)): with its NULL, regex, constraint and
+    outlier detectors, the default detectors, and setErrorCells. The
+    card's frame equals the CPU's outside logistic-head near-ties."""
     import chip_smoke as cs
     _, dirty, truth = cs.fd_table(2000, seed=5)
 
     def build():
-        m = cs.dc_model(T, dirty, detectors=False)
+        m = cs.dc_model(T, dirty, detectors=mode == "detectors")
         return m.setErrorCells(cs.truth_cells(truth)) \
             if mode == "error cells" else m
 
@@ -808,3 +816,124 @@ def test_device_codes_cache_hits_on_the_card(card):
     first = xfer.device_codes(table.column("a"))
     assert xfer.device_codes(table.column("a")) is first
     assert rz.entries == {"xfer.upload": 1}
+
+
+def _k5_args(rng, b, k, va_pad, vc_pad, rows_pad, n_cols, n_rows, dev):
+    codes = np.full((n_cols, n_rows + 1), -1, np.int32)
+    codes[:, :n_rows] = rng.integers(-1, vc_pad - 1, (n_cols, n_rows))
+    ops = [codes,
+           rng.integers(0, n_cols, (b, k)).astype(np.int32),
+           rng.integers(0, 4, (b, k)).astype(np.int32),
+           rng.integers(0, 2, (b, va_pad)).astype(np.int32),
+           rng.integers(0, n_rows + 1, (b, rows_pad)).astype(np.int32),
+           rng.integers(0, 9, (b, k, vc_pad, va_pad + 1)).astype(np.int32)]
+    return [torch.as_tensor(a, device=dev) for a in ops]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # the main path's shapes: one piece of a 1M-row table's error cells,
+    # three pieces of one unpadded launch (rows: the longest span),
+    # several pieces of a 200k constraints run, a wide vocabulary
+    (1, 3, 32, 8, 262144, 5, 1_000_000),
+    (3, 2, 32, 16, 220_001, 5, 1_000_000),
+    (4, 4, 64, 64, 65536, 6, 200_000),
+    (2, 2, 288, 512, 4096, 3, 50_000),
+    (1, 1, 32, 8, 256, 2, 10),
+])
+def test_domain_scores_matches_plain_on_card(card, shape):
+    """K5 on the card bitwise equal to its plain version on the card and
+    on the CPU, launching once per call and never synchronising."""
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+    rng = np.random.default_rng(sum(shape))
+    args = _k5_args(rng, *shape, card)
+    k_domain.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = k_domain.domain_scores(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = k_domain.domain_scores_plain(*args)
+    on_cpu = k_domain.domain_scores(*(a.cpu() for a in args))
+    torch.cuda.synchronize()
+    assert k_domain.launches == 1
+    for g, w, c in zip(got, want, on_cpu):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert torch.equal(g.cpu(), c)
+    assert bool(got[2].any())
+
+
+@pytest.mark.cuda
+def test_cold_compile_cache_build_then_hit(card, tmp_path, monkeypatch):
+    """A cold build cache: the first load builds the library with nvcc into
+    DELPHI_COMPILE_CACHE_DIR (a miss), the next load hits; a run then
+    launches the kernels from it."""
+    from delphi_tpu_torch.ops.kernels import build
+    from delphi_tpu_torch.utils import counters
+    monkeypatch.setenv("DELPHI_COMPILE_CACHE_DIR", str(tmp_path / "cc"))
+    counters.clear()
+    build.reset_library()
+    try:
+        build.library()
+        assert counters == {"compile_cache.requests": 1,
+                            "compile_cache.misses": 1}
+        assert [p.name for p in (tmp_path / "cc").iterdir()] == \
+            [os.path.basename(build._library_path())]
+        build.reset_library()
+        build.library()
+        assert counters["compile_cache.hits"] == 1
+        T.set_device("cuda")
+        rng = np.random.default_rng(1)
+        codes = torch.as_tensor(np.stack([_codes(rng, 10_000, 7),
+                                          _codes(rng, 10_000, 5)]),
+                                device=card)
+        k_pair.reset_launches()
+        k_pair.pair_counts(codes, [(0, 1)], [7, 5])
+        assert k_pair.launches == 1
+    finally:
+        build.reset_library()
+
+
+@pytest.mark.cuda
+def test_rules_and_pmf_modes_card_match_cpu(card):
+    """chip_smoke's 4g(c) at 2,000 rows: rule repairs identical, PMF and
+    score probabilities within 1e-4, maximal-likelihood selections equal
+    off the percentile cut, card against CPU."""
+    import chip_smoke as cs
+    out = cs.rules_pmf_cross_check(T, cs.CHECK_2K_ROWS)
+    assert out["rules_repairs"] > 0 and out["pmf_cells"] > 0
+
+
+@pytest.mark.cuda
+def test_escalation_and_ledger_card_match_cpu(card):
+    """chip_smoke's 4i(c) at 2,000 rows: frames, routed and escalated cells
+    and in-memory ledger entries (within 1e-5) equal, card against CPU."""
+    import chip_smoke as cs
+    out = cs.escalation_cross_check(T, cs.CHECK_2K_ROWS,
+                                    cs.ESC_CHECK_BUDGET)
+    assert out["escalated"] > 0 and out["entries"] > 0
+
+
+@pytest.mark.cuda
+def test_pipeline_and_bucketed_route_card_match_cpu(card, monkeypatch):
+    """On the card the pipeline is on by default and domain scoring takes
+    the bucketed route through K5: the frame equals the CPU's with the
+    pipeline off and the legacy route."""
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+    from delphi_tpu_torch.utils import counters
+    import chip_smoke as cs
+    _, dirty = cs.missing_heavy(3000, seed=4)
+    T.set_device("cpu")
+    monkeypatch.setenv("DELPHI_PIPELINE", "0")
+    monkeypatch.setenv("DELPHI_DEVICE_TABLE", "0")
+    want = cs.repair(T, dirty)
+    monkeypatch.delenv("DELPHI_PIPELINE")
+    monkeypatch.delenv("DELPHI_DEVICE_TABLE")
+    T.set_device("cuda")
+    counters.clear()
+    k_domain.reset_launches()
+    got = cs.repair(T, dirty)
+    pd.testing.assert_frame_equal(got, want)
+    assert counters["pipeline.items"] >= 2
+    assert k_domain.launches >= 1

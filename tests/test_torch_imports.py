@@ -461,3 +461,70 @@ def test_resilience_and_checkpoints_run_without_jax():
     assert out["rungs"] == 1 and out["model_hits"] == 1
     assert out["cli"] == 0
     assert out["mods"] == []
+
+
+_RUN_SLICE9 = """
+import json, os, sys, tempfile
+import numpy as np
+import pandas as pd
+import delphi_tpu_torch as T
+from delphi_tpu_torch import main as cli
+from delphi_tpu_torch.ops.kernels import domain_scores
+from delphi_tpu_torch.parallel import compile_plane, pipeline, planner
+from delphi_tpu_torch.observability import trace
+from delphi_tpu_torch.utils import counters, gauges
+rng = np.random.RandomState(0)
+n = 300
+a = rng.randint(0, 6, n)
+df = pd.DataFrame({"tid": range(n), "a": [f"a{v}" for v in a],
+                   "b": [f"b{v % 3}" for v in a],
+                   "c": [f"c{v % 2}" for v in rng.randint(0, 5, n)]})
+for col in ("b", "c"):
+    df.loc[rng.rand(n) < 0.1, col] = None
+out = tempfile.mkdtemp()
+os.environ.update(DELPHI_PIPELINE="1", DELPHI_PREWARM="1",
+                  DELPHI_PLAN_DIR=out + "/plans",
+                  DELPHI_COMPILE_CACHE_DIR=out + "/cc")
+def run(**opts):
+    m = T.delphi.repair.setInput(df).setRowId("tid") \\
+        .setErrorDetectors([T.NullErrorDetector()])
+    for k, v in opts.items():
+        m = m.option(k, v)
+    return m.run()
+run()
+# one GBDT config: no CV search, whose per-target `gbdt.cv[0]` plans
+# replace each other in the store (as in the JAX package)
+first = run(**{"model.hp.max_evals": "1"})
+counters.clear()
+second = run(**{"model.hp.max_evals": "1"})
+pipelined = counters.get("pipeline.items", 0)
+hits = counters.get("launch.plan_cache.hits", 0)
+replans = counters.get("launch.replans", 0)
+df.to_csv(out + "/in.csv", index=False)
+code = cli.main(["--input", out + "/in.csv", "--row-id", "tid", "--output",
+                 out + "/o.csv", "--pipeline", "off"])
+report = trace.plan_report(out + "/plans")
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({"equal": bool(first.equals(second)),
+                  "hits": hits, "replans": replans,
+                  "pipelined": pipelined,
+                  "planned": gauges.get("compile_plane.prewarm_planned", 0),
+                  "ledgers": report["ledgers"], "cli": code, "mods": mods}))
+"""
+
+
+def test_planner_pipeline_and_compile_plane_run_without_jax():
+    """The launch planner with a plan store (a warm second run replans
+    nothing), the pipeline thread, the prewarm plan, K5's module, the CLI's
+    ``--pipeline`` and the plan report run on the CPU without JAX or
+    ``delphi_tpu`` loaded."""
+    proc = _python(_RUN_SLICE9, DELPHI_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["equal"] and out["hits"] > 0 and out["replans"] == 0
+    assert out["pipelined"] >= 2 and out["planned"] > 0
+    assert out["ledgers"] == 0 and out["cli"] == 0
+    assert out["mods"] == []

@@ -272,11 +272,65 @@ PORTED = {
     "fault plan non-store site": (
         lambda m: m, {}, {"DELPHI_FAULT_PLAN": "store.provenance:1:torn_write,"
                                                "domain.bucket:2:oom"}, {}),
+    # queue 1 item 8b (raised until slice 9): the launch planner, the
+    # pipeline thread and the compile plane, read as the JAX package reads
+    # them; the directories are relative, so each package writes its own
+    "pipeline env": (lambda m: m, {}, {"DELPHI_PIPELINE": "1"}, {}),
+    "pipeline conf": (lambda m: m, {}, {},
+                      {"repair.pipeline.enabled": "auto"}),
+    "planner": (lambda m: m, {}, {"DELPHI_PLAN": "0"}, {}),
+    "planner merge": (lambda m: m, {}, {"DELPHI_PLAN_MERGE": "4"}, {}),
+    "planner chunk cells": (lambda m: m, {},
+                            {"DELPHI_PLAN_CHUNK_CELLS": "4"}, {}),
+    "planner chunk cells legacy": (lambda m: m, {},
+                                   {"DELPHI_DOMAIN_CHUNK_CELLS": "4"}, {}),
+    "planner cv cap": (lambda m: m, {},
+                       {"DELPHI_PLAN_CV_INSTANCE_CAP": "2"}, {}),
+    "planner cv cap legacy": (lambda m: m, {},
+                              {"DELPHI_CV_INSTANCE_CAP": "2"}, {}),
+    "plan dir": (lambda m: m, {}, {"DELPHI_PLAN_DIR": "plans"}, {}),
+    "compile cache env": (lambda m: m, {},
+                          {"DELPHI_COMPILE_CACHE_DIR": "cc"}, {}),
+    "compile cache conf": (lambda m: m, {}, {},
+                           {"repair.compile.cache_dir": "cc"}),
+    "compile cache threshold env": (lambda m: m, {},
+                                    {"DELPHI_COMPILE_CACHE_MIN_S": "0.5"}, {}),
+    "compile cache threshold conf": (
+        lambda m: m, {}, {}, {"repair.compile.min_compile_secs": "0"}),
+    "prewarm env": (lambda m: m, {}, {"DELPHI_PREWARM": "on"}, {}),
+    "prewarm conf": (lambda m: m, {}, {}, {"repair.compile.prewarm": "true"}),
+    "prewarm budget env": (lambda m: m, {},
+                           {"DELPHI_PREWARM_BUDGET": "4"}, {}),
+    "prewarm budget conf": (lambda m: m, {}, {},
+                            {"repair.compile.prewarm_budget": "4"}),
+    "pair budget env": (lambda m: m, {}, {"DELPHI_PAIR_BUDGET": "60"}, {}),
+    "pair budget conf": (lambda m: m, {}, {}, {"repair.pair.budget": "60"}),
+    "device table off": (lambda m: m, {}, {"DELPHI_DEVICE_TABLE": "0"}, {}),
+    "device table conf off": (lambda m: m, {}, {},
+                              {"repair.device_table": "off"}),
+    "batch train on": (lambda m: m.option("model.hp.max_evals", "1"), {},
+                       {"DELPHI_BATCH_TRAIN": "1"}, {}),
+    "batch train off": (lambda m: m.setParallelStatTrainingEnabled(True)
+                        .option("model.hp.max_evals", "1"), {},
+                        {"DELPHI_BATCH_TRAIN": "0"}, {}),
 }
 
 
+@pytest.fixture
+def _restore_jax_cache_config():
+    """The JAX package's compile plane points jax's persistent cache at the
+    run's directory; the next test gets the old one back."""
+    import jax
+    old_dir = jax.config.jax_compilation_cache_dir
+    old_min = jax.config.jax_persistent_cache_min_compile_time_secs
+    yield
+    jax.config.update("jax_compilation_cache_dir", old_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", old_min)
+
+
 @pytest.mark.parametrize("case", sorted(PORTED))
-def test_formerly_unported_paths_match_jax(case, monkeypatch, tmp_path):
+def test_formerly_unported_paths_match_jax(case, monkeypatch, tmp_path,
+                                           _restore_jax_cache_config):
     """Paths that raised NotImplementedError in an earlier slice now run
     and return the JAX package's frame and ``resilience.*`` counters (the
     JAX package counts in its recorder's registry)."""
@@ -322,49 +376,50 @@ def test_formerly_unported_paths_match_jax(case, monkeypatch, tmp_path):
 # case -> (model setup, words of the message, ROADMAP item, environment,
 # session conf)
 UNPORTED = {
-    "pipeline env": (lambda m: m, "pipeline thread", "item 8b",
-                     {"DELPHI_PIPELINE": "1"}, {}),
-    "pipeline conf": (lambda m: m, "pipeline thread", "item 8b", {},
-                      {"repair.pipeline.enabled": "auto"}),
-    "planner": (lambda m: m, "launch planner", "item 8b",
-                {"DELPHI_PLAN": "0"}, {}),
-    "planner merge": (lambda m: m, "bucket merging", "item 8b",
-                      {"DELPHI_PLAN_MERGE": "4"}, {}),
-    "planner chunk cells": (lambda m: m, "cell budget", "item 8b",
-                            {"DELPHI_PLAN_CHUNK_CELLS": "1000"}, {}),
-    "planner chunk cells legacy": (lambda m: m, "cell budget", "item 8b",
-                                   {"DELPHI_DOMAIN_CHUNK_CELLS": "1000"},
-                                   {}),
-    "planner cv cap": (lambda m: m, "CV instance cap", "item 8b",
-                       {"DELPHI_PLAN_CV_INSTANCE_CAP": "8"}, {}),
-    "planner cv cap legacy": (lambda m: m, "CV instance cap", "item 8b",
-                              {"DELPHI_CV_INSTANCE_CAP": "8"}, {}),
-    "plan dir": (lambda m: m, "persisted launch plans", "item 8b",
-                 {"DELPHI_PLAN_DIR": "plans"}, {}),
-    "compile cache env": (lambda m: m, "compile cache", "item 8b",
-                          {"DELPHI_COMPILE_CACHE_DIR": "cc"}, {}),
-    "compile cache conf": (lambda m: m, "compile cache", "item 8b", {},
-                           {"repair.compile.cache_dir": "cc"}),
-    "compile cache threshold env": (lambda m: m, "threshold", "item 8b",
-                                    {"DELPHI_COMPILE_CACHE_MIN_S": "0.5"},
-                                    {}),
-    "compile cache threshold conf": (
-        lambda m: m, "threshold", "item 8b", {},
-        {"repair.compile.min_compile_secs": "0"}),
-    "prewarm env": (lambda m: m, "prewarm thread", "item 8b",
-                    {"DELPHI_PREWARM": "on"}, {}),
-    "prewarm conf": (lambda m: m, "prewarm thread", "item 8b", {},
-                     {"repair.compile.prewarm": "true"}),
-    "prewarm budget env": (lambda m: m, "prewarm budget", "item 8b",
-                           {"DELPHI_PREWARM_BUDGET": "4"}, {}),
-    "prewarm budget conf": (lambda m: m, "prewarm budget", "item 8b", {},
-                            {"repair.compile.prewarm_budget": "4"}),
     "run report env": (lambda m: m, "run report", "item 10",
                        {"DELPHI_METRICS_PATH": "r.json"}, {}),
     "run report conf": (lambda m: m, "run report", "item 10", {},
                         {"repair.metrics.path": "r.json"}),
     "live telemetry env": (lambda m: m, "live telemetry", "item 10",
                            {"DELPHI_METRICS_PORT": "0"}, {}),
+    # fault F6: settings of the JAX package the port read nowhere
+    "mesh env": (lambda m: m, "device mesh", "item 9",
+                 {"DELPHI_MESH": "2"}, {}),
+    "mesh conf": (lambda m: m, "device mesh", "item 9", {},
+                  {"repair.mesh": "auto"}),
+    "shard": (lambda m: m, "row-shard plane", "item 9",
+              {"DELPHI_SHARD": "1"}, {}),
+    "shard min rows": (lambda m: m, "row floor", "item 9",
+                       {"DELPHI_SHARD_MIN_ROWS": "64"}, {}),
+    "coordinator": (lambda m: m, "multi-process cluster", "item 9",
+                    {"DELPHI_COORDINATOR": "localhost:9999"}, {}),
+    "num processes": (lambda m: m, "multi-process cluster", "item 9",
+                      {"DELPHI_NUM_PROCESSES": "2"}, {}),
+    "process id": (lambda m: m, "multi-process cluster", "item 9",
+                   {"DELPHI_PROCESS_ID": "0"}, {}),
+    "collective timeout env": (lambda m: m, "collective deadline", "item 9",
+                               {"DELPHI_COLLECTIVE_TIMEOUT_S": "5"}, {}),
+    "collective timeout conf": (lambda m: m, "collective deadline",
+                                "item 9", {},
+                                {"repair.collective.timeout_s": "5"}),
+    "plan cost": (lambda m: m, "cost veto", "item 10",
+                  {"DELPHI_PLAN_COST": "1"}, {}),
+    "trace dir": (lambda m: m, "request traces", "item 10",
+                  {"DELPHI_TRACE_DIR": "traces"}, {}),
+    "trace sample": (lambda m: m, "sampling", "item 10",
+                     {"DELPHI_TRACE_SAMPLE": "0.5"}, {}),
+    "profile dir env": (lambda m: m, "device profiles", "item 10",
+                        {"DELPHI_PROFILE_DIR": "prof"}, {}),
+    "profile dir conf": (lambda m: m, "device profiles", "item 10", {},
+                         {"repair.profile.dir": "prof"}),
+    "metrics events env": (lambda m: m, "event stream", "item 10",
+                           {"DELPHI_METRICS_EVENTS": "1"}, {}),
+    "metrics events conf": (lambda m: m, "event stream", "item 10", {},
+                            {"repair.metrics.events": "yes"}),
+    "phase heartbeat": (lambda m: m, "phase heartbeat", "item 10",
+                        {"DELPHI_PHASE_HEARTBEAT": "on"}, {}),
+    "resource sampler": (lambda m: m, "resource sampler", "item 10",
+                         {"DELPHI_RESOURCE_SAMPLER": "true"}, {}),
 }
 
 
@@ -385,6 +440,7 @@ def test_unported_paths_raise(case, monkeypatch):
             setup(m).run(detect_errors_only=detect_only)
         assert f"queue 1 {item} of ROADMAP.md" in str(exc.value)
         assert "item 5" not in str(exc.value)
+        assert "item 8b" not in str(exc.value)
 
 
 @pytest.mark.parametrize("env,conf", [
@@ -400,6 +456,17 @@ def test_unported_paths_raise(case, monkeypatch):
     # values the JAX package's parse ignores
     ({"DELPHI_PLAN_MERGE": "x", "DELPHI_PREWARM_BUDGET": "many",
       "DELPHI_PLAN_CHUNK_CELLS": ""}, {"repair.compile.min_compile_secs": ""}),
+    # fault F6: the false spellings of the multi-GPU and observability
+    # settings, and what their parse ignores
+    ({"DELPHI_MESH": "off", "DELPHI_SHARD": "0"}, {"repair.mesh": "auto"}),
+    ({}, {"repair.mesh": "no"}),
+    ({"DELPHI_SHARD": "", "DELPHI_SHARD_MIN_ROWS": "many",
+      "DELPHI_COORDINATOR": "", "DELPHI_NUM_PROCESSES": "",
+      "DELPHI_COLLECTIVE_TIMEOUT_S": "soon"}, {}),
+    ({"DELPHI_PLAN_COST": "0", "DELPHI_METRICS_EVENTS": "false",
+      "DELPHI_PHASE_HEARTBEAT": "off", "DELPHI_RESOURCE_SAMPLER": "0",
+      "DELPHI_TRACE_SAMPLE": "half", "DELPHI_TRACE_DIR": " "},
+     {"repair.metrics.events": "no", "repair.profile.dir": ""}),
 ])
 def test_explicit_false_settings_do_not_raise(env, conf, monkeypatch):
     """Read as the JAX package reads them (the environment before the
@@ -412,6 +479,51 @@ def test_explicit_false_settings_do_not_raise(env, conf, monkeypatch):
         .setErrorDetectors([T.NullErrorDetector()]) \
         .run(detect_errors_only=True)
     assert len(out) > 0
+
+
+# Fault F6, documented in README.md: route selectors and XLA-only settings
+# of the JAX package. The port has one route for each (or no XLA), so they
+# have no effect and the results are equal.
+NO_EFFECT = {
+    "pallas": ({"DELPHI_PALLAS": "1"}, {}),
+    "pallas off": ({"DELPHI_PALLAS": "0"}, {}),
+    "device detect": ({"DELPHI_DEVICE_DETECT": "1"}, {}),
+    "domain device": ({"DELPHI_DOMAIN_DEVICE": "1"}, {}),
+    "dense logreg": ({"DELPHI_DENSE_LOGREG": "1"}, {}),
+    "donate": ({"DELPHI_DONATE": "0"}, {}),
+    "xfer content cache env": ({"DELPHI_XFER_CONTENT_CACHE": "0"}, {}),
+    "xfer content cache conf": ({}, {"repair.xfer.content_cache": "off"}),
+    "xla cache": ({"DELPHI_XLA_CACHE": "0"}, {}),
+    "xla cache dir": ({"DELPHI_XLA_CACHE_DIR": "xla"}, {}),
+    "cpu max isa": ({"DELPHI_CPU_MAX_ISA": "AVX2"}, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NO_EFFECT))
+def test_route_selectors_leave_the_frame_unchanged(case, monkeypatch,
+                                                   tmp_path):
+    """Each setting leaves the port's repaired frame unchanged (and equal
+    to the JAX package's at its defaults), on a constraint table whose
+    run crosses every route those settings select in the JAX package:
+    the stats kernels, detection, domain scoring, the logistic head."""
+    sc = generate_scenario("fd_categorical", 600, seed=0)
+
+    def run():
+        return T.delphi.repair.setInput(sc.dirty).setRowId("tid") \
+            .setErrorDetectors([T.NullErrorDetector()]) \
+            .option("model.hp.max_evals", "1").run()
+
+    want = run()
+    env, conf = NO_EFFECT[case]
+    monkeypatch.chdir(tmp_path)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    for k, v in conf.items():
+        monkeypatch.setitem(t_session().conf, k, v)
+    got = run()
+    assert len(got) > 0
+    pd.testing.assert_frame_equal(got, want)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_logistic_head_trains_on_the_factored_design():

@@ -435,15 +435,19 @@ def test_cpu_rung_latches_only_on_a_cpu_run(monkeypatch):
 
 @pytest.mark.parametrize("site,n_faults", [("freq.pair*", 3),
                                            ("gbdt.fit_chunk", 3),
-                                           ("domain.weak_label", 6)])
+                                           ("domain.weak_label", 6),
+                                           ("domain.bucket", 6)])
 def test_whole_run_reraises_where_the_card_refuses_the_cpu_rung(
         monkeypatch, site, n_faults):
     """The refusal at each kind of guarded site a run on the card enters
-    (K1, a fit chunk, and a domain chunk with its evict rung), with the
-    device check answering as on the card: the run re-raises the injected
-    OOM, counts one refusal and latches nothing, and the next run returns
-    the unfaulted frame."""
+    (K1, a fit chunk, and a domain launch with its evict rung: a bucketed
+    one, K5's, and a legacy chunk under ``DELPHI_DEVICE_TABLE=0``), with
+    the device check answering as on the card: the run re-raises the
+    injected OOM, counts one refusal and latches nothing, and the next run
+    returns the unfaulted frame."""
     monkeypatch.setattr(t_rz, "_run_on_card", lambda: True)
+    if site == "domain.weak_label":
+        monkeypatch.setenv("DELPHI_DEVICE_TABLE", "0")
     base, _, _ = _planned_run(T, "", False)
     plan = ",".join(f"{site}:{n}:oom" for n in range(1, n_faults + 1))
     with pytest.raises(t_rz.FaultInjected) as exc:
@@ -807,6 +811,10 @@ PLANS = {
     "gbdt.*:1:oom": (False, {}),
     "xfer.upload:1:transfer": (False, {}),
     "freq.pair*:1:oom,freq.pair*:2:oom,freq.pair*:3:oom": (True, {}),
+    # the bucketed domain route, both packages' default since slice 9
+    "domain.bucket:1:oom": (False, {}),
+    "domain.bucket:1:transfer,domain.bucket:2:transfer,"
+    "domain.bucket:3:transfer": (True, {}),
 }
 
 
@@ -833,12 +841,14 @@ def test_same_plan_gives_equal_frames_counters_and_notes(plan, monkeypatch):
 
 @pytest.mark.parametrize("site,ledger", [("domain.score", True),
                                          ("domain.weak_label", False)])
-def test_domain_plans_fire_in_the_port(site, ledger):
-    """The port scores domains under domain.score with a ledger and under
-    domain.weak_label without one. On this table the JAX package enters
-    neither on the CPU (it takes its bucketed route, domain.bucket;
-    PERF.md lists the difference), so the plan fires in the port alone.
-    The frames stay equal."""
+def test_domain_plans_fire_in_the_port(site, ledger, monkeypatch):
+    """On the legacy domain route (``DELPHI_DEVICE_TABLE=0``) the port
+    scores domains under domain.score with a ledger and under
+    domain.weak_label without one. On this table the JAX package's legacy
+    route enters neither on the CPU (it scores chunks this small in numpy,
+    outside the seam; PERF.md lists the difference), so the plan fires in
+    the port alone. The frames stay equal."""
+    monkeypatch.setenv("DELPHI_DEVICE_TABLE", "0")
     plan = f"{site}:1:transient"
     want = _planned_run(J, plan, ledger)
     got = _planned_run(T, plan, ledger)
