@@ -21,12 +21,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    rounds and chunk steps, and the training wall split into CV search and
    final fit; sequential training runs through the pipeline thread (on by
    default on the card) and weak-label demotion through the bucketed domain
-   route, whose kernel K5 ``domain_scores`` must launch. In 4b each kernel
-   is re-run, held against its plain version (K1 and K5 bitwise, K2 within
-   1e-12 relative) and timed on the inputs that each driven path (4, 4c,
-   4d, 4f, 4g, 4h, 4i, 4j, 4k, 4l) gave it, reported per path, and the
-   three wrappers are run on those inputs under
-   ``torch.cuda.set_sync_debug_mode("error")`` (a synchronisation fails);
+   route, whose kernel K5 ``domain_scores`` must launch, in its
+   weak-label mode (the f64 combine, the beta mask and the rank tie-break
+   on the card; one result per cell comes back); its domain span and the
+   bytes the domain phase copied off the card are printed (as for 4f b).
+   In 4b each kernel is re-run, held against its plain version (K1 and K5
+   bitwise, K2 within 1e-12 relative) and timed on the inputs that each
+   driven path (4, 4c, 4d, 4f, 4g, 4h, 4i, 4j, 4k, 4l) gave it, reported
+   per path, K5 in the mode that path launched: the integer mode on the
+   paths with a ledger (escalation, incremental, resilience), the
+   weak-label mode on the others; the main path's weak-label launches are
+   also held against the host numpy route (the integer mode on the same
+   operands, ``_combine_scores`` and the host pick: every has_domain and
+   every top of a cell with a domain equal), and both table branches of
+   K5 (pair tables staged in shared memory, and a synthetic piece whose
+   tables exceed the budget, read through ``__ldg``) launch in both modes
+   and equal the plain version; the three wrappers are run on the paths'
+   inputs under ``torch.cuda.set_sync_debug_mode("error")`` (a
+   synchronisation fails);
    4c. the same table through batched training
    (``setParallelStatTrainingEnabled(True)``): the same frame, at least
    one multi-target CV launch and one batched fit launch, no fallback;
@@ -152,7 +164,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``python3 chip_smoke.py --ab N`` runs phases 1 and 2, then N
    same-host pairs of 4l(a) and of 4l(b) in alternating order
    (:func:`planes_ab`), and prints their walls and spans with median and
-   spread instead of the kernels line;
+   spread instead of the kernels line; ``python3 chip_smoke.py
+   --domain-ab PARENT N`` runs phase 1, then the domain phase of this tree
+   against a ``git archive`` copy of the parent commit at PARENT
+   (:func:`domain_ab`);
 
 5. cross-check at default options, 20,000 rows, CPU (plain versions)
    against card (kernels): identical ``missing_heavy`` repair frames; on
@@ -173,8 +188,9 @@ behind the same ctypes path (``launch_floor_ms``), the bound, the plain
 version and one library call.
 
 The last lines are a ``{"kernels": [...], "pytorch_programs": [...]}``
-JSON line (the hand kernels K1, K2 and K5, and K8, which is plain
-PyTorch),
+JSON line (the hand kernels K1, K2 and K5, one entry for each of K5's
+modes, the integer mode's numbers from its main path, the escalation run;
+and K8, which is plain PyTorch),
 the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -258,6 +274,10 @@ CLI_ROWS = 100_000
 # CHECK_2K_ROWS rows, to pay for 4l.
 SPLIT_CHECK_ROWS = 50_000
 CHECK_2K_ROWS = 2_000
+# The traced paths that run with a provenance ledger, where K5 takes its
+# integer mode (the ledger records each cell's domain size); every other
+# path that scores cells takes its weak-label mode.
+K5_INT_PATHS = ("escalation", "incremental", "resilience")
 # 4i: the provenance ledger on a missing_heavy run, and the escalation
 # tier on escalation_table (NULL and regex detectors on c2). 4i(a) ran the
 # 1M table of 4 and 4i(b) 1,000,000 rows at a budget of 131,072 at first;
@@ -669,6 +689,7 @@ def constraints_path(torch, T, traced) -> dict:
     log(f"[constraints] (b) phase walls (s): {json.dumps(walls)}; peak "
         f"device memory {peak:.1f} MiB above the {held:.1f} MiB held")
     out["run"] = {"wall_s": wall, "phase_walls": walls,
+                  "domain": domain_summary("constraints", counts, walls),
                   "cells_before_demotion": len(det) + demoted,
                   "cells_after_demotion": len(det), "reverted": reverted,
                   "launches": launches, "counters": counts,
@@ -1777,6 +1798,17 @@ def timed_run(torch, fn):
             {k: list(v) for k, v in histograms.items()})
 
 
+def domain_summary(label, counts, walls) -> dict:
+    """The domain span of one traced run and what its weak-label demotion
+    copied off the card, logged."""
+    out = {"domain_s": walls.get("cell domain analysis"),
+           "bytes_to_host": counts.get("domain.bytes_to_host", 0),
+           "bucket_launches": counts.get("domain.bucket_launches", 0),
+           "cells_scored": counts.get("domain.cells_scored", 0)}
+    log(f"[{label}] cell domain analysis: {json.dumps(out)}")
+    return out
+
+
 def pipeline_summary(wall, counts, walls, hists) -> dict:
     """4l(a)'s numbers of one 1M run: wall, training span, ``pipeline.*``
     counters and the consumer's wait for prepared items."""
@@ -1960,6 +1992,85 @@ def planes_ab(torch, T, pairs: int) -> dict:
         out[name] = res
         log(f"[ab] {name} ({env} unset against 0), {pairs} pairs, frames "
             f"identical: {json.dumps(res)}")
+    return out
+
+
+# One side of ``--domain-ab``: run from a tree's root, it imports that
+# tree's package and chip_smoke (the parent commit's too), then runs the
+# 1M NULL run of 4 and the 1M constraints run of 4f(b), once unmeasured
+# and then argv[1] times each, and prints per run the wall, the domain
+# span, the bytes the domain phase copied off the card and a digest of the
+# frame. Both runs take one GBDT config: the domain phase runs before
+# training.
+DOMAIN_AB_CHILD = r"""
+import json, sys
+import pandas as pd
+import torch
+import chip_smoke as cs
+import delphi_tpu_torch as T
+T.set_device("cuda")
+reps = int(sys.argv[1])
+_, null_df = cs.missing_heavy(cs.E2E_ROWS, seed=0)
+_, dc_df, _ = cs.fd_table(cs.DC_ROWS, seed=4)
+one = {"model.hp.max_evals": "1"}
+runs = {"null": lambda: cs.repair(T, null_df, options=one),
+        "constraints": lambda: cs.dc_model(T, dc_df).option(
+            "model.hp.max_evals", "1").run()}
+out = {}
+for name, run in runs.items():
+    run()
+    out[name] = []
+    for _ in range(reps):
+        frame, wall, counts, walls, _ = cs.timed_run(torch, run)
+        out[name].append({
+            "wall_s": wall, "domain_s": walls.get("cell domain analysis"),
+            "bytes_to_host": counts.get("domain.bytes_to_host"),
+            "digest": int(pd.util.hash_pandas_object(
+                frame, index=False).sum())})
+print("DOMAIN_AB " + json.dumps(out), flush=True)
+"""
+
+
+def domain_ab(parent: str, reps: int) -> dict:
+    """``python3 chip_smoke.py --domain-ab PARENT REPS``: the domain phase
+    of this tree against the parent commit's (a ``git archive`` copy at
+    PARENT), same host, in four processes in the order parent, change,
+    change, parent (:data:`DOMAIN_AB_CHILD`): walls, domain spans and bytes
+    copied off the card of the 1M NULL and 1M constraints runs, with their
+    medians; the frames' digests must be equal on both sides."""
+    out = {"parent": {}, "change": {}}
+    for side in ("parent", "change", "change", "parent"):
+        root = os.path.abspath(parent) if side == "parent" else HERE
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", DOMAIN_AB_CHILD,
+                               str(reps)], cwd=root, capture_output=True,
+                              text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("DOMAIN_AB ")]
+        if proc.returncode or not lines:
+            fail(f"domain-ab: the {side} process failed:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        res = json.loads(lines[-1][len("DOMAIN_AB "):])
+        for name, runs in res.items():
+            out[side].setdefault(name, []).extend(runs)
+        log(f"[domain-ab] {side} ({root}, {time.perf_counter() - t0:.1f} "
+            f"s): {json.dumps(res)}")
+    for name in out["change"]:
+        digests = {r["digest"] for side in out for r in out[side][name]}
+        if len(digests) != 1:
+            fail(f"domain-ab: the {name} frames differ between the parent "
+                 "and the change")
+        for side in out:
+            runs = out[side][name]
+            out[side][name] = {
+                "runs": runs,
+                "domain_s": spread([r["domain_s"] for r in runs]),
+                "wall_s": spread([r["wall_s"] for r in runs]),
+                "bytes_to_host": runs[0]["bytes_to_host"]}
+    summary = {side: {name: {k: v for k, v in res.items() if k != "runs"}
+                      for name, res in runs.items()}
+               for side, runs in out.items()}
+    log(f"[domain-ab] frames equal on both sides; {json.dumps(summary)}")
     return out
 
 
@@ -2538,76 +2649,190 @@ def k2_bound_ms(counts, offsets):
     return bytes_ms, 1e3 * K2_OPS_PER_NONZERO * nnz / FP64_OPS_PER_S
 
 
-def k5_bound_ms(extents) -> float:
-    """The bytes K5 must move for one launch's real pieces, each given as
-    (error cells m, values v_a, real rows of each correlate's pair table):
-    the m row indices and k * m gathered codes, the k pair tables at their
-    real size, the k taus and column indices and the v_a flags read once,
-    and 9 bytes (two int32 sums and a flag) written per cell and value,
-    over the HBM rate. Padding of the launch (rows of shorter spans, values
-    up to va_pad, table rows up to vc_pad) is not counted."""
-    total = 0
+def k5_bound_ms(extents, weak: bool, active: int = 0):
+    """(bytes ms, operations ms) of one K5 launch's real pieces, each given
+    as (error cells m, values v_a, real rows of each correlate's pair
+    table). Bytes: the m row indices and k * m gathered codes, the k pair
+    tables at their real size, the k taus and column indices and the v_a
+    flags (and, in the weak-label mode, the v_a vocab ranks) read once;
+    written, 5 bytes a cell (weak-label mode: top and has_domain) or 9
+    bytes a cell and value (integer mode: two int32 sums and a flag), over
+    the HBM rate. Operations (weak-label mode): per cell and value the f64
+    multiply and add of the numerator and the row sum's add, per
+    ``active`` value (a correlate active: this data's count) the score's
+    division, per cell the top probability's two divisions, over the FP64
+    rate; the integer mode's compares are not counted. Padding of the
+    launch (values up to the widest piece's, table rows up to vc_pad) is
+    not counted."""
+    total, values = 0, 0
     for m, v_a, vc in extents:
         k = len(vc)
         total += 4 * (m + k * m + sum(c * (v_a + 1) for c in vc) + 2 * k
-                      + v_a) + 9 * m * v_a
-    return 1e3 * total / HBM_BYTES_PER_S
+                      + (2 if weak else 1) * v_a)
+        total += 5 * m if weak else 9 * m * v_a
+        values += m * v_a
+    cells = sum(m for m, _, _ in extents)
+    ops = 3 * values + active + 2 * cells if weak else 0
+    return 1e3 * total / HBM_BYTES_PER_S, 1e3 * ops / FP64_OPS_PER_S
 
 
-def check_k5(torch, k_domain, args):
-    """K5 against its plain version on the card, bitwise (integers)."""
-    got = k_domain.domain_scores(*args)
-    want = k_domain.domain_scores_plain(*args)
+def k5_active(k_domain, call) -> int:
+    """The (cell, value) pairs of a recorded launch with a correlate
+    active (from the plain integer mode), for its operations bound."""
+    _, _, con = k_domain.split_scores(k_domain.domain_scores_plain(call[1]),
+                                      call[1].layout.cells,
+                                      call[1].layout.va)
+    return int(con.sum().item())
+
+
+def k5_run(k_domain, call, plain=False):
+    """One recorded K5 call, (mode, operands, beta, n_rows, extents), run
+    again in its mode: the kernel's (or the plain version's) buffer."""
+    mode, ops, beta, n_rows, _ = call
+    if mode == "weak":
+        fn = k_domain.weak_label_plain if plain else k_domain.weak_label
+        return fn(ops, beta, n_rows)
+    fn = k_domain.domain_scores_plain if plain else k_domain.domain_scores
+    return fn(ops)
+
+
+def k5_split(k_domain, call, buf):
+    mode, ops = call[0], call[1]
+    if mode == "weak":
+        return k_domain.split_weak(buf, ops.layout.cells)
+    return k_domain.split_scores(buf, ops.layout.cells, ops.layout.va)
+
+
+def check_k5(torch, k_domain, call):
+    """K5 in the mode its path launched against its plain version on the
+    card, bitwise; returns the max |err| over the outputs' integers."""
+    got = k5_run(k_domain, call)
+    want = k5_run(k_domain, call, plain=True)
     torch.cuda.synchronize()
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        fail(f"K5 domain_scores differs from its plain version at "
-             f"{[tuple(a.shape) for a in args]}")
+    if not torch.equal(got, want):
+        fail(f"K5 ({call[0]} mode) differs from its plain version at "
+             f"{call[1].layout}")
     return max(int((g.int() - w.int()).abs().max().item())
-               if g.numel() else 0 for g, w in zip(got, want))
+               if g.numel() else 0
+               for g, w in zip(k5_split(k_domain, call, got),
+                               k5_split(k_domain, call, want)))
 
 
-def k5_bare(torch, k_domain, build, args):
-    """One K5 launch through ctypes alone (its table packed once)."""
+def check_k5_host_route(torch, k_domain, call) -> int:
+    """A weak-label launch against the host numpy route on the same
+    operands: K5's integer mode, then ``_combine_scores`` and the host pick
+    of ``compute_weak_label_mask`` per piece. Every cell's has_domain and
+    every top of a cell with a domain must be equal. Returns the cells with
+    a domain."""
+    from delphi_tpu_torch.ops.domain import _combine_scores
+    _, ops, beta, n_rows, _ = call
+    lay = ops.layout
+    has, top = (t.cpu().numpy() for t in k_domain.split_weak(
+        k_domain.weak_label(ops, beta, n_rows), lay.cells))
+    big, tiny, con = (t.cpu().numpy() for t in k_domain.split_scores(
+        k_domain.domain_scores(ops), lay.cells, lay.va))
+    rank = ops.rank.cpu().numpy().astype(np.int64)
+    at, with_domain = 0, 0
+    for p, (m, v_a) in enumerate(lay.extents):
+        cells = slice(at, at + m)
+        prob, contrib = _combine_scores(
+            *(np.ascontiguousarray(a[cells, :v_a]) for a in (big, tiny, con)),
+            n_rows)
+        masked = np.where(contrib & (prob > beta), prob, -np.inf)
+        best = masked.max(axis=1)
+        want_has = best > -np.inf
+        want_top = np.where(masked == best[:, None], rank[p, :v_a][None, :],
+                            np.iinfo(np.int64).max).argmin(axis=1)
+        if not np.array_equal(has[cells], want_has) or not np.array_equal(
+                top[cells][want_has], want_top[want_has]):
+            fail(f"K5's weak-label mode differs from the host numpy route "
+                 f"on piece {p} of {lay}")
+        with_domain += int(want_has.sum())
+        at += m
+    return with_domain
+
+
+def k5_table_branches(torch, k_domain) -> dict:
+    """Both table branches of K5, in both modes, bitwise against the plain
+    version on the card: a piece whose pair tables fit the shared-memory
+    budget and a synthetic one whose tables exceed it (read through
+    ``__ldg`` and L2). Returns what each launched."""
+    rng = np.random.default_rng(5)
+    n_rows = 200_000
+    out = {}
+    # (k, real table rows, values): 46,848 bytes of tables against
+    # 1,849,344, beside the 102,400-byte budget
+    for branch, (k, vc, v_a) in (("shared", (3, 64, 60)),
+                                 ("global", (3, 512, 300))):
+        codes = torch.as_tensor(
+            rng.integers(-1, vc - 1, (4, n_rows)).astype(np.int32),
+            device="cuda")
+        tables = rng.integers(0, 9, (k, vc, v_a + 1)).astype(np.int32)
+        piece = k_domain.Piece(
+            rows=rng.integers(0, n_rows, 50_000),
+            col_idx=rng.choice(4, k, replace=False),
+            taus=rng.integers(0, 3, k), vcs=[vc] * k,
+            hs=rng.random(v_a) < 0.9, rank=rng.permutation(v_a),
+            tables=tables)
+        blob, layout = k_domain.pack([piece], vc)
+        ops = k_domain.Operands(codes, torch.as_tensor(blob, device="cuda"),
+                                layout)
+        before = dict(k_domain.branch_launches)
+        for mode in ("weak", "int"):
+            check_k5(torch, k_domain,
+                     (mode, ops, 1.5 / v_a, float(n_rows), []))
+        launched = {b: k_domain.branch_launches[b] - before[b]
+                    for b in before}
+        if launched[branch] != 2:
+            fail(f"K5 table branches: the {branch} case launched "
+                 f"{launched}")
+        out[branch] = {"k": k, "vc": vc, "v_a": v_a,
+                       "table_bytes": 4 * k * vc * (v_a + 1),
+                       "launches": launched}
+    return out
+
+
+def k5_bare(torch, k_domain, build, call):
+    """One K5 launch through ctypes alone (its table built once)."""
     import ctypes
-    codes, col_idx, taus, hs, row_idx, tables = args
-    b, k = (int(d) for d in col_idx.shape)
-    rows_pad, va_pad = int(row_idx.shape[1]), int(hs.shape[1])
-    outs = [torch.empty((b, rows_pad, va_pad), dtype=dt, device=codes.device)
-            for dt in (torch.int32, torch.int32, torch.uint8)]
-    t = k_domain.DomainTable(
-        codes=codes.data_ptr(), col_idx=col_idx.data_ptr(),
-        taus=taus.data_ptr(), hs=hs.data_ptr(), row_idx=row_idx.data_ptr(),
-        tables=tables.data_ptr(), big=outs[0].data_ptr(),
-        tiny=outs[1].data_ptr(), contributed=outs[2].data_ptr(),
-        codes_stride=int(codes.shape[1]), b=b, k=k, va_pad=va_pad,
-        vc_pad=int(tables.shape[2]), rows_pad=rows_pad, pad=0)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    grid = k_domain.grid_size(b * rows_pad * va_pad, sms)
+    mode, ops, beta, n_rows, _ = call
+    weak = mode == "weak"
+    template, shape = k_domain.params(ops, weak)
+    t = k_domain.DomainTable.from_buffer_copy(template)
+    out = torch.empty(k_domain.out_bytes(ops.layout, weak),
+                      dtype=torch.uint8, device=ops.device)
+    t.out, t.beta, t.n_rows = out.data_ptr(), beta or 0.0, n_rows or 0.0
     lib, stream = build.library(), build.current_stream()
+    args = (ctypes.addressof(t), shape["grid"][0], shape["grid"][1],
+            shape["smem"], stream)
 
     def launch():
-        build.check(lib.delphi_domain_scores(ctypes.addressof(t), grid,
-                                             stream), "domain_scores")
-    launch.keep = (t, outs)
+        build.check(lib.delphi_domain_scores(*args), "domain_scores")
+    launch.keep = (t, out, ops)
     return launch
 
 
-def measure_k5(torch, k_domain, build, flush, args, extents, label):
-    """One K5 input: wrapper, kernel and plain times, and its bound (ms)
-    from the launch's real pieces (``extents``, :func:`k5_bound_ms`); no
-    single library call computes it."""
-    fn = lambda: k_domain.domain_scores(*args)  # noqa: E731
+def measure_k5(torch, k_domain, build, flush, call, label):
+    """One K5 input in its path's mode: wrapper, kernel and plain times,
+    and its bound (ms) from the launch's real pieces (:func:`k5_bound_ms`);
+    no single library call computes it."""
+    fn = lambda: k5_run(k_domain, call)  # noqa: E731
+    weak = call[0] == "weak"
+    bytes_ms, ops_ms = k5_bound_ms(
+        call[4], weak, k5_active(k_domain, call) if weak else 0)
     row = {
+        "mode": call[0],
         "ms": time_ms(torch, fn, flush),
         "host_ms": host_ms(torch, fn),
         "plain_ms": time_ms(
-            torch, lambda: k_domain.domain_scores_plain(*args), flush),
+            torch, lambda: k5_run(k_domain, call, plain=True), flush),
         "library_ms": None,
-        "bound_ms": k5_bound_ms(extents),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
     }
     defer_kernel_ms(f"K5 {label}", row, fn,
-                    k5_bare(torch, k_domain, build, args),
-                    ["domain_scores_kernel"], 1)
+                    k5_bare(torch, k_domain, build, call),
+                    ["domain_kernel"], 1)
     return row
 
 
@@ -2753,6 +2978,17 @@ def main() -> None:
     log(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
 
+    if "--domain-ab" in sys.argv[1:]:
+        at = sys.argv.index("--domain-ab")
+        ab = domain_ab(sys.argv[at + 1], int(sys.argv[at + 2]))
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"domain_ab": ab}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+
     sys.path.insert(0, HERE)
     import delphi_tpu_torch as T
     from delphi_tpu_torch.ops.kernels import build
@@ -2809,7 +3045,7 @@ def main() -> None:
     # each driven path's K1, K2 and K5 inputs, by path label, for 4b
     recorded, path_launches = {}, {}
     orig_pc, orig_et = k_pair.pair_counts, k_entropy.entropy_terms
-    orig_ds = k_domain.domain_scores
+    orig_ds, orig_wl = k_domain.domain_scores, k_domain.weak_label
     from delphi_tpu_torch.ops import domain as t_domain
     orig_bucket = t_domain._launch_bucket_once
 
@@ -2839,13 +3075,20 @@ def main() -> None:
         extents = []
 
         def rec_launch_bucket(batch, *rest):
-            extents[:] = [(len(sub), prep["v_a"], tuple(prep["vc"]))
-                          for _, _, sub, prep, _ in batch]
+            extents[:] = [(len(p.rows), len(p.hs), tuple(map(int, p.vcs)))
+                          for _, _, p in batch]
             return orig_bucket(batch, *rest)
 
-        def rec_domain_scores(*args):
-            rec["domain_scores"].append((args, list(extents)))
-            return orig_ds(*args)
+        # each K5 call as (mode, operands, beta, n_rows, extents)
+        def rec_domain_scores(ops):
+            rec["domain_scores"].append(("int", ops, None, None,
+                                         list(extents)))
+            return orig_ds(ops)
+
+        def rec_weak_label(ops, beta, n_rows):
+            rec["domain_scores"].append(("weak", ops, beta, n_rows,
+                                         list(extents)))
+            return orig_wl(ops, beta, n_rows)
 
         phase_walls.clear()
         counters.clear()
@@ -2861,6 +3104,7 @@ def main() -> None:
         k_pair.pair_counts = rec_pair_counts
         k_entropy.entropy_terms = rec_entropy_terms
         k_domain.domain_scores = rec_domain_scores
+        k_domain.weak_label = rec_weak_label
         t_domain._launch_bucket_once = rec_launch_bucket
         try:
             t0 = time.perf_counter()
@@ -2869,14 +3113,23 @@ def main() -> None:
             wall = time.perf_counter() - t0
         finally:
             k_pair.pair_counts, k_entropy.entropy_terms = orig_pc, orig_et
-            k_domain.domain_scores = orig_ds
+            k_domain.domain_scores, k_domain.weak_label = orig_ds, orig_wl
             t_domain._launch_bucket_once = orig_bucket
         launches = {"pair_counts": k_pair.launches,
                     "entropy_terms": k_entropy.launches}
         # K5 launches only where weak-label demotion scores cells (every
-        # path but the dependency graph's): checked per path below
+        # path but the dependency graph's): checked per path below, in
+        # the integer mode on the paths with a ledger (K5_INT_PATHS) and in
+        # the weak-label mode on every other
         path_launches[label] = {**launches,
-                                "domain_scores": k_domain.launches}
+                                "domain_scores": k_domain.launches,
+                                **{f"k5_{m}": n for m, n in
+                                   k_domain.mode_launches.items()}}
+        int_path = label in K5_INT_PATHS
+        if k_domain.mode_launches["weak" if int_path else "int"]:
+            fail(f"{label}: K5 launched {k_domain.mode_launches}, the "
+                 f"{'integer' if int_path else 'weak-label'} mode only "
+                 "expected")
         if not faults_ok and fault_counts(counters):
             fail(f"{label}: an unfaulted run counted faults or "
                  f"degradations: {fault_counts(counters)}")
@@ -2926,6 +3179,7 @@ def main() -> None:
         {k: round(v, 3) for k, v in phase_walls.items()}, dict(histograms))
     if path_launches["e2e"]["domain_scores"] < 1:
         fail("e2e: kernel domain_scores (K5) was not launched by the run")
+    domain_summary("e2e", dict(counters), dict(phase_walls))
     log(f"[e2e] wall {wall:.3f} s behind the guarded seam; "
         f"{PRE_SEAM_E2E_WALL_S} s on the same table before the seam "
         "existed (another host: the seam's overhead is reported, not "
@@ -2998,6 +3252,9 @@ def main() -> None:
     esc = ledger_and_escalation(torch, T, traced)
 
     log(f"[elapsed] 4i done at {time.perf_counter() - t_start:.1f} s")
+    if path_launches["escalation"]["k5_int"] < 1:
+        fail("escalation: K5's integer mode was not launched (a ledger run)")
+
     # -- 4j. incremental and streaming repair --------------------------------
     incremental_and_stream(torch, T, traced)
 
@@ -3021,7 +3278,10 @@ def main() -> None:
 
     # per path: K1 rows, K2 rows, K1 max |err|, K2 max |err|; K1 bitwise and
     # K2 within 1e-12 relative of the plain versions on that path's inputs
+    # (K5 bitwise too, in the mode the path launched)
     path_rows = {}
+    k5_host_route = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for path, rec in recorded.items():
         k1_err, k1_rows = 0, []
         for codes, pairs, vocab in rec["pair_counts"]:
@@ -3042,23 +3302,37 @@ def main() -> None:
             log(f"[{path}-kernels] K2 segments={len(offsets) - 1} "
                 f"counts={int(offsets[-1] - offsets[0])}: {fmt(k2_rows[-1])}")
         k5_err, k5_rows = 0, []
-        for args, extents in rec["domain_scores"]:
+        for call in rec["domain_scores"]:
+            mode, ops, _, _, extents = call
             if not extents:
                 fail(f"{path}: K5 launched outside a bucket launch")
-            k5_err = max(k5_err, check_k5(torch, k_domain, args))
-            k5_rows.append(measure_k5(torch, k_domain, build, flush, args,
-                                      extents, f"{path} call {len(k5_rows)}"))
-            b, k, vc_pad, w = (int(d) for d in args[5].shape)
-            log(f"[{path}-kernels] K5 (b, k, vc_pad, va_pad, rows)="
-                f"{(b, k, vc_pad, w - 1, int(args[4].shape[1]))}, real "
-                f"(cells, v_a) per piece "
-                f"{[(m, v_a) for m, v_a, _ in extents]}: "
+            k5_err = max(k5_err, check_k5(torch, k_domain, call))
+            if path == "e2e" and mode == "weak":
+                k5_host_route[f"e2e call {len(k5_rows)}"] = \
+                    check_k5_host_route(torch, k_domain, call)
+            k5_rows.append(measure_k5(torch, k_domain, build, flush, call,
+                                      f"{path} call {len(k5_rows)}"))
+            lay = ops.layout
+            log(f"[{path}-kernels] K5 {mode} mode (b, k, vc_pad, va, "
+                f"cells)={(lay.b, lay.k, lay.vc_pad, lay.va, lay.cells)}, "
+                f"real (cells, v_a) per piece {list(lay.extents)}, launch "
+                f"{k_domain.launch_shape(lay, mode == 'weak', sms)}: "
                 f"{fmt(k5_rows[-1])}")
         path_rows[path] = (k1_rows, k2_rows, k1_err, k2_err, k5_rows, k5_err)
         log(f"[{path}-kernels] K1 ({len(k1_rows)} calls) and K5 "
             f"({len(k5_rows)} calls) bitwise equal and K2 ({len(k2_rows)} "
             f"calls) within 1e-12 relative of their plain versions on this "
             f"path's inputs: max |err| {k1_err}, {k5_err}, {k2_err}")
+    if not k5_host_route:
+        fail("e2e: no weak-label K5 launch to hold against the host route")
+    log(f"[e2e-kernels] K5's weak-label mode equals the host numpy route "
+        f"(integer mode, _combine_scores, the host pick) on the main "
+        f"path's launches; cells with a domain per launch: "
+        f"{json.dumps(k5_host_route)}")
+    k5_branches = k5_table_branches(torch, k_domain)
+    log(f"[kernels] K5's shared-memory and __ldg table branches, both "
+        f"modes, bitwise equal to the plain version: "
+        f"{json.dumps(k5_branches)}")
 
     # neither wrapper may wait for the card at any path's shapes
     torch.cuda.synchronize()
@@ -3069,8 +3343,8 @@ def main() -> None:
                 k_pair.pair_counts(codes, pairs, vocab)
             for counts, offsets, n_rows in rec["entropy_terms"]:
                 k_entropy.entropy_terms(counts, offsets, n_rows)
-            for args, _ in rec["domain_scores"]:
-                k_domain.domain_scores(*args)
+            for call in rec["domain_scores"]:
+                k5_run(k_domain, call)
     except RuntimeError as exc:
         fail(f"a kernel wrapper synchronised with the card: {exc}")
     finally:
@@ -3143,13 +3417,15 @@ def main() -> None:
     floor["host_ms_after_profiler"] = host_ms(torch, empty)
     log(f"[timing] every kernel_ms from complete torch.profiler records: "
         f"{all(PROFILER_SEES_KERNELS)}; launch floor {fmt(floor)}")
-    paths = {"pair_counts": [], "entropy_terms": [], "domain_scores": []}
+    paths = {"pair_counts": [], "entropy_terms": [], "k5_weak": [],
+             "k5_int": []}
     for path, (k1_rows, k2_rows, k1_err, k2_err, k5_rows,
                k5_err) in path_rows.items():
+        k5_name = "k5_int" if path in K5_INT_PATHS else "k5_weak"
         for name, rows, err in (("pair_counts", k1_rows, k1_err),
                                 ("entropy_terms", k2_rows, k2_err),
-                                ("domain_scores", k5_rows, k5_err)):
-            if name == "domain_scores" and not rows:
+                                (k5_name, k5_rows, k5_err)):
+            if name == k5_name and not rows:
                 continue
             total = main_path(rows)
             log(f"[{path}-kernels] {name}: {fmt(total)}")
@@ -3158,9 +3434,14 @@ def main() -> None:
                                 "max_abs_err": err, **total})
     k1_rows, k2_rows, _, _, k5_rows, _ = path_rows["e2e"]
     k1, k2, k5 = main_path(k1_rows), main_path(k2_rows), main_path(k5_rows)
+    # the integer mode's main path: the escalation run (a ledger)
+    k5i = main_path(path_rows["escalation"][4])
     k1_err = max(p["max_abs_err"] for p in paths["pair_counts"])
     k2_err = max(p["max_abs_err"] for p in paths["entropy_terms"])
-    k5_err = max(p["max_abs_err"] for p in paths["domain_scores"])
+    k5_err = max(p["max_abs_err"] for p in paths["k5_weak"])
+    k5i_err = max(p["max_abs_err"] for p in paths["k5_int"])
+    k5_by = "bytes" if sum(r["bytes_ms"] for r in k5_rows) >= sum(
+        r["ops_ms"] for r in k5_rows) else "operations"
     k2_bytes = sum(r["bytes_ms"] for r in k2_rows)
     k2_ops = sum(r["ops_ms"] for r in k2_rows)
 
@@ -3191,18 +3472,32 @@ def main() -> None:
          "bound_by": "bytes" if k2_bytes >= k2_ops else "operations",
          "library_ms": None, "shapes": shapes(k2_shapes),
          "paths": paths["entropy_terms"], "ok": True},
-        {"name": "domain_scores", "route": "cuda",
+        {"name": "domain_scores_weak", "route": "cuda",
          "source": "delphi_tpu_torch/csrc/domain_scores.cu",
-         "replaces": "delphi_tpu/ops/domain.py:734",
+         "replaces": "delphi_tpu/ops/domain.py:774",
          "tpu_source": "delphi_tpu/ops/domain.py:_jit_bucket_kernel "
-                       "(integer mode of _int_score_body :432; jitted XLA, "
-                       "not Pallas)",
-         "launches": path_launches["e2e"]["domain_scores"],
-         "max_abs_err": k5_err, "ms": k5["ms"],
+                       "(fused mode :774-793; jitted XLA, not Pallas)",
+         "mode": "weak-label", "main_path": "e2e",
+         "launches": path_launches["e2e"]["k5_weak"],
+         "max_abs_err": k5_err, "ms": k5["ms"], "host_ms": k5["host_ms"],
          "kernel_ms": k5["kernel_ms"], "launch_floor_ms": floor["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5_by, "library_ms": None,
+         "host_route_cells": k5_host_route, "table_branches": k5_branches,
+         "paths": paths["k5_weak"], "ok": True},
+        {"name": "domain_scores_int", "route": "cuda",
+         "source": "delphi_tpu_torch/csrc/domain_scores.cu",
+         "replaces": "delphi_tpu/ops/domain.py:764",
+         "tpu_source": "delphi_tpu/ops/domain.py:_jit_bucket_kernel "
+                       "(integer mode :764-772 of _int_score_body :432; "
+                       "jitted XLA, not Pallas)",
+         "mode": "integer", "main_path": "escalation",
+         "launches": path_launches["escalation"]["k5_int"],
+         "max_abs_err": k5i_err, "ms": k5i["ms"], "host_ms": k5i["host_ms"],
+         "kernel_ms": k5i["kernel_ms"], "launch_floor_ms": floor["ms"],
+         "plain_ms": k5i["plain_ms"], "bound_ms": k5i["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "paths": paths["domain_scores"], "ok": True},
+         "paths": paths["k5_int"], "ok": True},
     ]
     k8 = esc["escalation"]["k8"]
     programs = [

@@ -12,25 +12,29 @@ its current value. Semantics of the JAX package's host route
 * the score splits into two exact integer accumulators, big = sum(cnt-1 |
   cnt >= 2) and tiny = #(cnt == 1) over active correlates, computed on the
   device;
-* big/tiny recombine on the host in f64 (the same numpy reduction as the
-  reference, so a probability within one ulp of beta cannot flip), then the
-  beta mask and the rank tie-break pick the top value.
+* big/tiny recombine in f64 with numpy's reduction order (so a probability
+  within one ulp of beta cannot flip), then the beta mask and the rank
+  tie-break pick the top value.
 
-Two routes compute the integer accumulators, as in the JAX package:
+Two routes compute them, as in the JAX package:
 
 * **bucketed** (the default; ``DELPHI_DEVICE_TABLE`` / ``repair.device_table``
   select it): every int32-safe group's cells, cut into chunks of
   ``DELPHI_PLAN_CHUNK_CELLS`` cells, become pieces of the launch planner's
   ``domain.weak`` plan (persisted, merged, shape buckets keyed by the
-  JAX package's (fused, k, va_pad, vc_pad)); each plan launch stacks its
-  pieces' operands into one int32 upload (the plan's batch, row and
+  JAX package's (fused, k, va_pad, vc_pad)); each plan launch packs its
+  real pieces' operands into one int32 upload (the plan's batch, row and
   value padding left out: eager PyTorch gains nothing from it) and runs K5
   (:mod:`delphi_tpu_torch.ops.kernels.domain_scores`) against the
   resident code matrix, behind the guarded seam at site ``domain.bucket``
   (evict re-uploads the codes; an OOM past its retries halves the batch).
-  The JAX package scores its large groups ("fused" pieces) entirely on the
-  device in f64; the port scores them in int mode too and recombines on
-  the host, so its mask is the host route's bit for bit;
+  Without a provenance ledger K5 runs its weak-label mode: the f64
+  combine in numpy's row-sum order, the beta mask and the rank tie-break
+  on the card, and only (has_domain, top) per cell comes back (the JAX
+  package's fused mode does this for its large groups, in XLA's order;
+  the port does it for every piece, in numpy's, so its mask is the host
+  route's bit for bit). With a ledger, which records each cell's domain
+  size, K5 runs its integer mode and the host combines and picks;
 * **legacy** (``DELPHI_DEVICE_TABLE=0``, and groups that are not int32
   safe): one int64 pass per group chunk, behind the guarded seam named by
   the route the JAX package takes: ``domain.score`` when a provenance
@@ -61,7 +65,8 @@ from delphi_tpu_torch.utils import counter_inc
 _BUCKET_MIN_ROWS = 256
 _BUCKET_TABLE_ELEMS = 1 << 28
 # JAX: groups at least this large take its fused f64 route (a piece-shape
-# flag of the plan; the port scores them in int mode all the same)
+# flag of the plan; the port takes K5's weak-label mode for every piece of
+# a run without a ledger)
 _FUSED_MIN_ROWS = 65536
 
 
@@ -217,36 +222,36 @@ def _prep_group_operands(group: _AttrGroup) -> dict:
 
 def _stack_all_codes(cols) -> torch.Tensor:
     """The distinct correlate columns' resident codes stacked into the
-    [cols, rows + 1] gather matrix; the trailing sentinel column of NULL
-    codes is what padded row indices point at."""
-    base = torch.stack([xfer.device_codes(c) for c in cols])
-    return torch.nn.functional.pad(base, (0, 1), value=NULL_CODE)
+    [cols, rows] gather matrix."""
+    return torch.stack([xfer.device_codes(c) for c in cols])
 
 
-def _bucketed_run(jobs, phase: str = "domain.weak") -> Dict[int, list]:
+def _bucketed_run(jobs, weak: bool, beta: float,
+                  phase: str = "domain.weak") -> Dict[int, list]:
     """Scores every (group, chunk) piece of ``jobs`` ((group index, group,
-    fused) triples) in the launch planner's shape-bucketed launches of K5.
-    Returns {group index: [(chunk offset, prob, contributed), ...]} sorted
-    by offset."""
+    fused, vocab ranks) quadruples) in the launch planner's shape-bucketed
+    launches of K5, in its weak-label mode when ``weak`` (no ledger) and
+    in its integer mode otherwise. Returns {group index: [(chunk offset,
+    has_domain, top), ...]} (weak) or {group index: [(chunk offset, prob,
+    contributed), ...]}, sorted by offset."""
     col_slot: Dict[int, int] = {}
     cols = []
-    for _, g, _ in jobs:
+    for _, g, _, _ in jobs:
         for c in g._ctx[2]:
             if id(c) not in col_slot:
                 col_slot[id(c)] = len(cols)
                 cols.append(c)
     # a holder: the evict rung re-uploads the codes and restacks in place
     codes_state = {"cols": cols, "all_codes": _stack_all_codes(cols)}
-    sentinel = int(cols[0].codes.shape[0])
 
     chunk = _chunk_cells()
     out: Dict[int, list] = {j[0]: [] for j in jobs}
     ctx: Dict[int, tuple] = {}
     pieces = []
-    for gi, g, fused in jobs:
+    for gi, g, fused, rank in jobs:
         prep = _prep_group_operands(g)
         cidx = np.asarray([col_slot[id(c)] for c in g._ctx[2]], np.int32)
-        ctx[gi] = (g, prep, cidx)
+        ctx[gi] = (g, prep, cidx, rank)
         pieces.append(planner.Piece(
             key=gi, size=len(g.rows),
             shape=(bool(fused), prep["k"], prep["va_pad"], prep["vc_pad"])))
@@ -265,61 +270,52 @@ def _bucketed_run(jobs, phase: str = "domain.weak") -> Dict[int, list]:
         policy_tag=f"elems={_BUCKET_TABLE_ELEMS}")
     plan.record()
 
+    # every piece shares the table's row count (freq.n_rows)
+    n_rows = float(jobs[0][1]._ctx[4])
     for launch in plan.launches:
-        _, k, _, vc_pad = launch.shape
+        vc_pad = launch.shape[3]
         batch = []
         for span in launch.spans:
-            g, prep, cidx = ctx[span.key]
-            sub = np.asarray(g.rows[span.lo:span.lo + span.size], np.int64)
-            batch.append((span.key, span.lo, sub, prep, cidx))
+            g, prep, cidx, rank = ctx[span.key]
+            batch.append((span.key, span.lo, k_domain.Piece(
+                rows=g.rows[span.lo:span.lo + span.size], col_idx=cidx,
+                taus=prep["taus"], vcs=prep["vc"], hs=prep["hs"][:prep["v_a"]],
+                rank=rank, tables=prep["tables"])))
         with plan.launch_scope(launch):
-            _launch_bucket(batch, k, vc_pad, codes_state, sentinel, out)
+            _launch_bucket(batch, vc_pad, codes_state, weak, beta, n_rows,
+                           out)
     for gi in out:
         out[gi].sort(key=lambda t: t[0])
     return out
 
 
-def _launch_bucket(batch, k, vc_pad, codes_state, sentinel, out) -> None:
+def _launch_bucket(batch, vc_pad, codes_state, weak, beta, n_rows,
+                   out) -> None:
     """One guarded bucket launch. When an OOM outlasts its retries the
     resilience plane raises ShrinkBatch and the batch halves, recursively;
     results are assembled per piece, so a split launch gives the same
     results in more launches."""
     try:
-        _launch_bucket_once(batch, k, vc_pad, codes_state, sentinel, out)
+        _launch_bucket_once(batch, vc_pad, codes_state, weak, beta, n_rows,
+                            out)
     except ShrinkBatch:
         half = (len(batch) + 1) // 2
-        _launch_bucket(batch[:half], k, vc_pad, codes_state, sentinel, out)
-        _launch_bucket(batch[half:], k, vc_pad, codes_state, sentinel, out)
+        for part in (batch[:half], batch[half:]):
+            _launch_bucket(part, vc_pad, codes_state, weak, beta, n_rows,
+                           out)
 
 
-def _launch_bucket_once(batch, k, vc_pad, codes_state, sentinel,
+def _launch_bucket_once(batch, vc_pad, codes_state, weak, beta, n_rows,
                         out) -> None:
     # The plan (recorded by the caller) pads the batch to a power of two,
     # each piece to the launch's ``rows_pad`` and the values to ``va_pad``,
     # for XLA's executable cache. Eager PyTorch gains nothing from those
-    # extents, so K5 runs on the batch's real pieces, its rows to the
-    # longest span (shorter spans point at the sentinel row) and its values
-    # to the widest piece's, and only the real rows and values come back
-    # to the host. A shrink halves the batch the same way.
+    # extents: K5 takes the batch's real pieces, their cells back to back
+    # and values to the widest piece's, and only the real cells' results
+    # come back to the host, in one copy. A shrink halves the batch the
+    # same way.
+    blob_np, layout = k_domain.pack([p for _, _, p in batch], vc_pad)
     b = len(batch)
-    extents = [(len(sub), prep["v_a"]) for _, _, sub, prep, _ in batch]
-    rows = max(m for m, _ in extents)
-    va = max(v_a for _, v_a in extents)
-    col_idx = np.zeros((b, k), np.int32)
-    taus = np.zeros((b, k), np.int32)
-    hs = np.zeros((b, va), np.int32)
-    row_idx = np.full((b, rows), sentinel, np.int32)
-    tables = np.zeros((b, k, vc_pad, va + 1), np.int32)
-    for i, (_, _, sub, prep, cidx) in enumerate(batch):
-        col_idx[i] = cidx
-        taus[i] = prep["taus"]
-        hs[i] = prep["hs"][:va]
-        row_idx[i, :len(sub)] = sub
-        tables[i] = prep["tables"][:, :, :va + 1]
-    parts = [col_idx, taus, hs, row_idx, tables]
-    # one upload per launch: the operands travel as one int32 blob
-    blob_np = np.concatenate([a.ravel() for a in parts])
-
     counter_inc("domain.bucket_launches")
     counter_inc("domain.bucket_pieces", b)
 
@@ -328,35 +324,46 @@ def _launch_bucket_once(batch, k, vc_pad, codes_state, sentinel,
         xfer.evict_device_codes(codes_state["cols"])
         codes_state["all_codes"] = _stack_all_codes(codes_state["cols"])
 
-    def useful(t: torch.Tensor) -> torch.Tensor:
-        # each piece's real [rows, values] block, flattened into one copy
-        return torch.cat([t[i, :m, :v_a].reshape(-1)
-                          for i, (m, v_a) in enumerate(extents)])
-
     def launch():
-        blob = xfer.to_device(blob_np)
-        views, at = [], 0
-        for a in parts:
-            views.append(blob[at:at + a.size].view(a.shape))
-            at += a.size
-        big, tiny, contributed = k_domain.domain_scores(
-            codes_state["all_codes"], *views)
-        # the sums leave the card as f64, an exact cast of int32, so the
-        # host's combine starts from the values it would convert to
-        return (useful(big).double().cpu().numpy(),
-                useful(tiny).double().cpu().numpy(),
-                useful(contributed).cpu().numpy())
+        # one upload per launch: the operands travel as one int32 blob
+        ops = k_domain.Operands(codes_state["all_codes"],
+                                xfer.to_device(blob_np), layout)
+        if weak:
+            buf = k_domain.weak_label(ops, beta, n_rows)
+        else:
+            buf = k_domain.domain_scores(ops)
+        return buf.cpu()
 
-    big, tiny, contributed = run_guarded(
-        "domain.bucket", launch, can_shrink=b > 1, evict=evict)
+    buf = run_guarded("domain.bucket", launch, can_shrink=b > 1, evict=evict)
+    counter_inc("domain.bytes_to_host", int(buf.numel()))
     at = 0
-    for (gi, lo, _, prep, _), (m, v_a) in zip(batch, extents):
-        block = slice(at, at + m * v_a)
-        prob, contrib = _combine_scores(
-            big[block].reshape(m, v_a), tiny[block].reshape(m, v_a),
-            contributed[block].reshape(m, v_a), prep["n"])
+    if weak:
+        has_domain, top = (t.numpy() for t in
+                           k_domain.split_weak(buf, layout.cells))
+        for (gi, lo, _), (m, _) in zip(batch, layout.extents):
+            out[gi].append((lo, has_domain[at:at + m], top[at:at + m]))
+            at += m
+        return
+    big, tiny, contributed = (t.numpy() for t in k_domain.split_scores(
+        buf, layout.cells, layout.va))
+    for (gi, lo, _), (m, v_a) in zip(batch, layout.extents):
+        # row-major copies: numpy's row sum follows the memory order, and
+        # the host route sums C-contiguous rows
+        big_p, tiny_p, con_p = (np.ascontiguousarray(a[at:at + m, :v_a])
+                                for a in (big, tiny, contributed))
+        prob, contrib = _combine_scores(big_p, tiny_p, con_p, n_rows)
         out[gi].append((lo, prob, contrib))
-        at += m * v_a
+        at += m
+
+
+def _vocab_ranks(vocab) -> Tuple[np.ndarray, np.ndarray]:
+    """(vocab strings, rank of each vocab slot in string order): the pick
+    takes the lexicographically-smallest value among probability ties."""
+    vocab_str = np.array([str(v) for v in vocab], dtype=object)
+    order = np.argsort(vocab_str.astype(str), kind="stable")
+    vocab_rank = np.empty(len(vocab), dtype=np.int64)
+    vocab_rank[order] = np.arange(len(vocab))
+    return vocab_str, vocab_rank
 
 
 def compute_weak_label_mask(
@@ -386,16 +393,20 @@ def compute_weak_label_mask(
     groups = list(_iter_attr_groups(
         disc, cells, continuous_attrs, target_attrs, freq, pairwise_stats,
         domain_stats, max_attrs_to_compute_domains, alpha))
-    # the bucketed route first, over every int32-safe group (the JAX
+    ranks = {gi: _vocab_ranks(table.column(g.attr).vocab)
+             for gi, g in enumerate(groups) if not g.empty_domain}
+    # the bucketed route first, over every int32-safe group: K5's
+    # weak-label mode without a ledger, its integer mode with one (the JAX
     # package's "fused" flag, a piece-shape key of its plan, marks the
     # large groups of a run without a ledger)
     bucketed: Dict[int, list] = {}
     if xfer.device_table_enabled():
-        jobs = [(gi, g, led is None and len(g.rows) >= _FUSED_MIN_ROWS)
+        jobs = [(gi, g, led is None and len(g.rows) >= _FUSED_MIN_ROWS,
+                 ranks[gi][1])
                 for gi, g in enumerate(groups)
                 if not g.empty_domain and _int32_safe_group(g)]
         if jobs:
-            bucketed = _bucketed_run(jobs)
+            bucketed = _bucketed_run(jobs, weak=led is None, beta=beta)
     for gi, group in enumerate(groups):
         if group.empty_domain:
             if led is not None and len(group.rows):
@@ -403,14 +414,17 @@ def compute_weak_label_mask(
                     group.rows, group.attr,
                     np.zeros(len(group.rows), dtype=np.int64))
             continue  # empty domain -> never demoted
-        vocab = table.column(group.attr).vocab
-        vocab_str = np.array([str(v) for v in vocab], dtype=object)
-        # rank of each vocab slot in string order: the argmin below picks
-        # the lexicographically-smallest value among probability ties
-        order = np.argsort(vocab_str.astype(str), kind="stable")
-        vocab_rank = np.empty(len(vocab), dtype=np.int64)
-        vocab_rank[order] = np.arange(len(vocab))
+        vocab_str, vocab_rank = ranks[gi]
         chunks = bucketed.get(gi)
+        if chunks is not None and led is None:
+            # the weak-label mode's per-cell results (the JAX package's
+            # fused pieces, domain.py:378-382)
+            for lo, has_domain, top in chunks:
+                eq = vocab_str[np.minimum(top, len(vocab_str) - 1)] \
+                    == group.currents[lo:lo + len(top)]
+                demote[group.pos[lo:lo + len(top)]] = \
+                    has_domain & eq.astype(bool)
+            continue
         if chunks is None:
             site = "domain.score" if led is not None else "domain.weak_label"
             chunks = _score_chunks(group, site)

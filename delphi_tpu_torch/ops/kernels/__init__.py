@@ -3,8 +3,9 @@
 * :mod:`.pair_counts` — K1, replacing the JAX package's Pallas
   ``_pair_count_kernel``;
 * :mod:`.entropy` — K2, replacing its Pallas ``_entropy_kernel``;
-* :mod:`.domain_scores` — K5, replacing the integer mode of its jitted
-  ``_jit_bucket_kernel`` (the bucketed domain route's gather-reduce).
+* :mod:`.domain_scores` — K5, replacing both modes of its jitted
+  ``_jit_bucket_kernel`` (the bucketed domain route's gather-reduce and
+  its weak-label epilogue).
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and uses its plain
 version for a CPU tensor; nothing falls back from one to the other.

@@ -166,9 +166,9 @@ def library() -> ctypes.CDLL:
             # (table pointer, stream)
             lib.delphi_entropy_terms.restype = i32
             lib.delphi_entropy_terms.argtypes = [vp, vp]
-            # (table pointer, grid, stream)
+            # (table pointer, grid x, grid y, shared bytes, stream)
             lib.delphi_domain_scores.restype = i32
-            lib.delphi_domain_scores.argtypes = [vp, i32, vp]
+            lib.delphi_domain_scores.argtypes = [vp, i32, i32, i32, vp]
             lib.delphi_launch_floor.restype = i32
             lib.delphi_launch_floor.argtypes = [vp]
             _lib = lib

@@ -818,50 +818,171 @@ def test_device_codes_cache_hits_on_the_card(card):
     assert rz.entries == {"xfer.upload": 1}
 
 
-def _k5_args(rng, b, k, va_pad, vc_pad, rows_pad, n_cols, n_rows, dev):
-    codes = np.full((n_cols, n_rows + 1), -1, np.int32)
-    codes[:, :n_rows] = rng.integers(-1, vc_pad - 1, (n_cols, n_rows))
-    ops = [codes,
-           rng.integers(0, n_cols, (b, k)).astype(np.int32),
-           rng.integers(0, 4, (b, k)).astype(np.int32),
-           rng.integers(0, 2, (b, va_pad)).astype(np.int32),
-           rng.integers(0, n_rows + 1, (b, rows_pad)).astype(np.int32),
-           rng.integers(0, 9, (b, k, vc_pad, va_pad + 1)).astype(np.int32)]
-    return [torch.as_tensor(a, device=dev) for a in ops]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [
-    # the main path's shapes: one piece of a 1M-row table's error cells,
-    # three pieces of one unpadded launch (rows: the longest span),
-    # several pieces of a 200k constraints run, a wide vocabulary
-    (1, 3, 32, 8, 262144, 5, 1_000_000),
-    (3, 2, 32, 16, 220_001, 5, 1_000_000),
-    (4, 4, 64, 64, 65536, 6, 200_000),
-    (2, 2, 288, 512, 4096, 3, 50_000),
-    (1, 1, 32, 8, 256, 2, 10),
-])
-def test_domain_scores_matches_plain_on_card(card, shape):
-    """K5 on the card bitwise equal to its plain version on the card and
-    on the CPU, launching once per call and never synchronising."""
+def _k5_ops(rng, dev, b, k, vc, n_rows, cells, va_of, n_cols=6):
+    """Seeded operands of one K5 launch on ``dev``: ``b`` pieces of ``k``
+    correlates, ``cells`` cells each, piece i ``va_of[i]`` values wide,
+    pair tables of ``vc`` real rows."""
     from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
-    rng = np.random.default_rng(sum(shape))
-    args = _k5_args(rng, *shape, card)
+    codes = rng.integers(-1, vc - 1, (n_cols, n_rows)).astype(np.int32)
+    pieces = []
+    for i in range(b):
+        v_a = va_of[i % len(va_of)]
+        tables = rng.integers(0, 9, (k, vc, v_a + 1)).astype(np.int32)
+        tables[rng.random(tables.shape) < 0.3] = 1
+        pieces.append(k_domain.Piece(
+            rows=rng.integers(0, n_rows, cells),
+            col_idx=rng.choice(n_cols, k, replace=False),
+            taus=rng.integers(0, 4, k), vcs=[vc] * k,
+            hs=rng.random(v_a) < 0.9, rank=rng.permutation(v_a),
+            tables=tables))
+    blob, layout = k_domain.pack(pieces, vc)
+    return k_domain.Operands(torch.as_tensor(codes, device=dev),
+                             torch.as_tensor(blob, device=dev), layout)
+
+
+def _k5_card_and_plain(ops, beta, n_rows):
+    """Both modes on the card (one launch each, under the sync debug
+    mode) against their plain versions on the card and on the CPU,
+    bitwise."""
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
     k_domain.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = k_domain.domain_scores(*args)
+        got = (k_domain.weak_label(ops, beta, n_rows),
+               k_domain.domain_scores(ops))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    want = k_domain.domain_scores_plain(*args)
-    on_cpu = k_domain.domain_scores(*(a.cpu() for a in args))
+    want = (k_domain.weak_label_plain(ops, beta, n_rows),
+            k_domain.domain_scores_plain(ops))
+    on_cpu = k_domain.Operands(ops.codes.cpu(), ops.blob.cpu(), ops.layout)
+    cpu = (k_domain.weak_label(on_cpu, beta, n_rows),
+           k_domain.domain_scores(on_cpu))
     torch.cuda.synchronize()
-    assert k_domain.launches == 1
-    for g, w, c in zip(got, want, on_cpu):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert k_domain.launches == 2
+    assert k_domain.mode_launches == {"weak": 1, "int": 1}
+    for g, w, c in zip(got, want, cpu):
+        assert g.dtype == torch.uint8 and torch.equal(g, w)
         assert torch.equal(g.cpu(), c)
-    assert bool(got[2].any())
+    return k_domain.split_weak(got[0], ops.layout.cells)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # the main path's shapes: three pieces of a 1M-row table's error cells
+    # (5 or 6 values), a constraints launch (wider values and tables), a
+    # tiny piece
+    (3, 2, 16, 1_000_000, 220_000, (5, 5, 6)),
+    (4, 3, 64, 200_000, 65_536, (51, 4, 12, 24)),
+    (1, 1, 8, 10, 7, (3,)),
+])
+def test_domain_scores_matches_plain_on_card(card, shape):
+    """K5 on the card, both modes, bitwise equal to the plain versions on
+    the card and on the CPU, one launch per call, never synchronising."""
+    b, k, vc, n_rows, cells, va_of = shape
+    rng = np.random.default_rng(sum(shape[:5]))
+    ops = _k5_ops(rng, card, b, k, vc, n_rows, cells, va_of)
+    has, _ = _k5_card_and_plain(ops, 0.3, float(n_rows))
+    assert bool(has.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("va", [1, 7, 8, 9, 128, 129, 300])
+def test_weak_label_row_sum_widths_on_card(card, va):
+    """Every branch of the row sum's numpy order (n < 8, eight
+    accumulators, the recursion past 128) on the card, with a narrower
+    piece beside the wide one."""
+    rng = np.random.default_rng(va)
+    ops = _k5_ops(rng, card, 2, 2, 16, 50_000, 3_000, (va, max(1, va // 3)))
+    _k5_card_and_plain(ops, 0.5 / va, 50_000.0)
+
+
+@pytest.mark.cuda
+def test_domain_scores_tables_past_the_shared_budget(card):
+    """Pair tables beyond SMEM_TABLE_BUDGET are read through __ldg: the
+    global branch launches and is bitwise equal, as the shared one is."""
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+    rng = np.random.default_rng(9)
+    for vc, va, branch in ((64, 60, "shared"), (512, 300, "global")):
+        ops = _k5_ops(rng, card, 2, 3, vc, 100_000, 20_000, (va,))
+        shape = k_domain.launch_shape(ops.layout, True, 132)
+        assert shape["shared"] == (branch == "shared")
+        _k5_card_and_plain(ops, 1.5 / va, 100_000.0)
+        assert k_domain.branch_launches[branch] == 2
+
+
+@pytest.mark.cuda
+def test_weak_label_ties_beta_and_empty_pieces_on_card(card):
+    """Hand-built cells: ties broken by rank, every probability exactly at
+    beta, nothing active, and a piece with no cells, on the card."""
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+    cases = [([3, 3, 0, 1], [2, 0, 1, 3]), ([0, 0, 0, 0], [0, 1, 2, 3]),
+             ([2, 2, 3, 0], [0, 1, 2, 3]), ([2, 2, 2, 2], [3, 2, 1, 0]),
+             ([1, 1, 1, 0], [2, 1, 0, 3])]
+    pieces = []
+    for counts, rank in cases:
+        tables = np.zeros((1, 2, 5), np.int32)
+        tables[0, 1, 1:] = counts
+        pieces.append(k_domain.Piece(
+            rows=np.zeros(1, np.int64), col_idx=[0], taus=[0], vcs=[2],
+            hs=np.ones(4, bool), rank=np.asarray(rank), tables=tables))
+    pieces.insert(2, k_domain.Piece(
+        rows=np.zeros(0, np.int64), col_idx=[0], taus=[0], vcs=[2],
+        hs=np.ones(4, bool), rank=np.arange(4),
+        tables=np.zeros((1, 2, 5), np.int32)))
+    blob, layout = k_domain.pack(pieces, 2)
+    ops = k_domain.Operands(torch.zeros((1, 1), dtype=torch.int32,
+                                        device=card),
+                            torch.as_tensor(blob, device=card), layout)
+    has, top = _k5_card_and_plain(ops, 0.25, 8.0)
+    assert has.cpu().tolist() == [True, False, True, False, True]
+    assert top.cpu()[has.cpu()].tolist() == [1, 2, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [35.0, 8.0])
+def test_weak_label_near_tie_numerators_on_card(card, n_rows):
+    """Numerators an ulp apart (tiny sums of 12 correlates): the kernel's
+    exact second walk gives the plain version's top, whether their
+    probabilities tie (n_rows 35: the rank decides) or not (8)."""
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+    tables = np.zeros((12, 2, 4), np.int32)
+    tables[0, 1, 1] = 2
+    tables[1:3, 1, 1] = 1
+    tables[:, 1, 2] = 1
+    piece = k_domain.Piece(
+        rows=np.zeros(1, np.int64), col_idx=np.arange(12), taus=[0] * 12,
+        vcs=[2] * 12, hs=np.ones(3, bool), rank=np.array([0, 1, 2]),
+        tables=tables)
+    blob, layout = k_domain.pack([piece], 2)
+    ops = k_domain.Operands(torch.zeros((12, 1), dtype=torch.int32,
+                                        device=card),
+                            torch.as_tensor(blob, device=card), layout)
+    has, top = _k5_card_and_plain(ops, 0.3, n_rows)
+    assert bool(has[0]) and int(top[0]) == (0 if n_rows == 35.0 else 1)
+
+
+@pytest.mark.cuda
+def test_fd_table_demotions_card_match_cpu(card):
+    """A 20,000-row fd_table through the constraints path's detectors,
+    detect-only: the error cells left after weak-label demotion (and the
+    demoted count) equal on the CPU and on the card, where K5's weak-label
+    mode ran."""
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+    from delphi_tpu_torch.utils import counters
+    import chip_smoke as cs
+    _, dirty, _ = cs.fd_table(20_000, seed=11)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        counters.clear()
+        k_domain.reset_launches()
+        frame = cs.dc_model(T, dirty).run(detect_errors_only=True)
+        out[dev] = (frame, counters.get("domain.cells_fixed", 0),
+                    dict(k_domain.mode_launches))
+    pd.testing.assert_frame_equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][1] == out["cpu"][1] > 0
+    assert out["cuda"][2]["weak"] >= 1 and out["cpu"][2]["weak"] == 0
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ and kernel K5's plain version against the JAX package, on the CPU:
   package's, with the same ``launch.phase.domain.weak.*`` counters;
 * ``domain.bucket:1:oom`` past its retries halves the batch and leaves the
   frame unchanged;
-* K5's plain version equal (int32, exact) to ``_jit_bucket_kernel(False)``;
+* K5's plain integer mode equal (int32, exact) to
+  ``_jit_bucket_kernel(False)``;
 * every ``launch.phase.<phase>.*`` counter equal to the JAX package's for
   the phases where both packages take the same route on the CPU (the
   detection phases differ: the JAX package's CPU backend takes its host
@@ -158,32 +159,34 @@ def test_launches_counted_per_bucket(sizes, chunk, monkeypatch):
 
 def test_k5_launches_the_real_pieces_and_rows(monkeypatch):
     """The plan pads a launch's batch and rows to powers of two and its
-    values to a multiple of 32; K5 gets the real pieces, rows to the
-    longest span and values to the widest piece's, while the recorded plan
+    values to a multiple of 32; K5 gets the real pieces, their cells back
+    to back and values to the widest piece's, while the recorded plan
     keeps the padded extents."""
     from delphi_tpu_torch.parallel import planner
-    shapes, plans = [], []
-    orig_ds, orig_plan = k_domain.domain_scores, planner.plan_launches
+    layouts, plans = [], []
+    orig_wl, orig_plan = k_domain.weak_label, planner.plan_launches
 
-    def rec_ds(*args):
-        shapes.append((tuple(args[4].shape), tuple(args[5].shape)))
-        return orig_ds(*args)
+    def rec_wl(ops, *args):
+        layouts.append((ops.layout, tuple(ops.tables.shape)))
+        return orig_wl(ops, *args)
 
     def rec_plan(*a, **kw):
         plans.append(orig_plan(*a, **kw))
         return plans[-1]
 
-    monkeypatch.setattr(k_domain, "domain_scores", rec_ds)
+    monkeypatch.setattr(k_domain, "weak_label", rec_wl)
     monkeypatch.setattr(planner, "plan_launches", rec_plan)
     # a, b and c share one shape bucket (k 3, va_pad 32, vc_pad 8)
     _mask(T, _frame(1200, seed=1), (300, 257, 290, 0))
     launch, = [p for p in plans if p.phase == "domain.weak"][0].launches
     assert (launch.batch_pad, launch.padded_size) == (4, 512)
     assert [span.size for span in launch.spans] == [300, 257, 290]
-    (row_idx, tables), = shapes
+    (layout, tables), = layouts
     assert launch.shape[2] == 32
+    assert [m for m, _ in layout.extents] == [300, 257, 290]
+    assert layout.cells == 847
     # b has the most values: 11 (and the table's NULL column)
-    assert row_idx == (3, 300) and tables[0] == 3 and tables[3] == 12
+    assert layout.va == 11 and tables[0] == 3 and tables[3] == 12
 
 
 def _detect_frame(lib, df):
@@ -227,6 +230,20 @@ def _k5_operands(seed, b, k, va_pad, vc_pad, rows_pad, n_cols, n_rows):
     return codes, col_idx, taus, hs, row_idx, tables
 
 
+def _k5_pieces(ops):
+    """The padded operands as K5's pieces: piece i's cells are its row
+    indices (the sentinel column among them), every piece va_pad wide."""
+    codes, col_idx, taus, hs, row_idx, tables = ops
+    k, vc_pad = col_idx.shape[1], tables.shape[2]
+    pieces = [k_domain.Piece(rows=row_idx[i], col_idx=col_idx[i],
+                             taus=taus[i], vcs=[vc_pad] * k, hs=hs[i],
+                             rank=np.arange(hs.shape[1]), tables=tables[i])
+              for i in range(len(col_idx))]
+    blob, layout = k_domain.pack(pieces, vc_pad)
+    return k_domain.Operands(torch.from_numpy(codes), torch.from_numpy(blob),
+                             layout)
+
+
 @pytest.mark.parametrize("shape", [
     (1, 1, 32, 8, 256, 2, 300),
     (4, 3, 32, 16, 512, 5, 2000),
@@ -234,33 +251,36 @@ def _k5_operands(seed, b, k, va_pad, vc_pad, rows_pad, n_cols, n_rows):
     (8, 4, 96, 32, 256, 6, 5000),
 ])
 def test_k5_plain_equals_jit_bucket_kernel(shape):
-    """K5's plain version against the integer mode of the JAX package's
-    ``_jit_bucket_kernel`` on the same seeded operands: int32 sums and the
-    contributed flags equal, exactly."""
+    """K5's plain version (integer mode) against the integer mode of the
+    JAX package's ``_jit_bucket_kernel`` on the same seeded operands: int32
+    sums and the contributed flags equal, exactly."""
     b, k, va_pad, vc_pad, rows_pad, n_cols, n_rows = shape
     ops = _k5_operands(sum(shape), *shape)
     codes, col_idx, taus, hs, row_idx, tables = ops
-    big, tiny, contributed = k_domain.domain_scores(
-        *(torch.from_numpy(a) for a in ops))
+    big, tiny, contributed = k_domain.split_scores(
+        k_domain.domain_scores(_k5_pieces(ops)), b * rows_pad, va_pad)
     blob = np.concatenate([col_idx.ravel(), taus.ravel(), hs.ravel(),
                            row_idx.ravel(), tables.ravel()])
     kernel = j_domain._jit_bucket_kernel(False)
     j_big, j_tiny, j_con = kernel(blob, codes, b, k, va_pad, vc_pad,
                                   rows_pad, 0.0, 1.0)
     assert big.dtype == torch.int32 and contributed.dtype == torch.bool
-    np.testing.assert_array_equal(big.numpy(), np.asarray(j_big))
-    np.testing.assert_array_equal(tiny.numpy(), np.asarray(j_tiny))
-    np.testing.assert_array_equal(contributed.numpy(), np.asarray(j_con))
+    want = (b * rows_pad, va_pad)
+    np.testing.assert_array_equal(big.numpy(),
+                                  np.asarray(j_big).reshape(want))
+    np.testing.assert_array_equal(tiny.numpy(),
+                                  np.asarray(j_tiny).reshape(want))
+    np.testing.assert_array_equal(contributed.numpy(),
+                                  np.asarray(j_con).reshape(want))
     assert big.numpy().any() and contributed.numpy().any()
 
 
 def test_k5_rejects_bad_operands():
-    ops = [torch.from_numpy(a) for a in
-           _k5_operands(0, 2, 2, 32, 8, 256, 3, 100)]
-    with pytest.raises(ValueError, match="taus"):
-        k_domain.domain_scores(ops[0], ops[1], ops[2][:1], *ops[3:])
+    ops = _k5_pieces(_k5_operands(0, 2, 2, 32, 8, 256, 3, 100))
+    with pytest.raises(ValueError, match="blob"):
+        k_domain.Operands(ops.codes, ops.blob[1:], ops.layout)
     with pytest.raises(ValueError, match="int32"):
-        k_domain.domain_scores(ops[0], ops[1].long(), *ops[2:])
+        k_domain.Operands(ops.codes.long(), ops.blob, ops.layout)
 
 
 # scenario -> options of one full run
