@@ -221,6 +221,39 @@ Phases (any failure exits non-zero, and no result line is printed):
    equals 4's, ``device.<i>.bytes_in_use`` is above 0,
    ``watchdog.stalls`` is 0 and every plane thread has been joined when
    the run returns; its wall prints beside 4's;
+   4r. the serving plane (slice 15): three seeded 100,000-row
+   ``missing_heavy`` tables (A, B, C) posted as JSON with 4's options to a
+   ``RepairServer(workers=2)`` in this process: (1) A cold, alone (traced
+   as path "served"): its frame equals an in-process ``run()`` of A,
+   sorted by all columns and put through ``to_json``, byte for byte; its
+   wall against ``run()``'s, split into the client's JSON, the HTTP round
+   trip, the queue, the fingerprint and encode, the run's phases and the
+   response's sort and encode; (2) A warm: once resuming its phase
+   checkpoints, and once without them (path "served warm": a table-cache,
+   model-checkpoint and plan-store hit, no replan); (3) A, its warm state
+   dropped, beside B under ``xfer.upload:1:transient,domain.bucket:1:fatal``
+   (path "served concurrent"): A's frame equals (1)'s, B answers a
+   structured 500 of kind ``fatal`` and only B's state is evicted; (4) C
+   under the three-OOM plan: the CPU rung is refused (D1), a 500 of kind
+   ``oom``, ``resilience.degrade.cpu_refused`` moves; (5) B and C clean,
+   4s's references; (6) ``/healthz`` and ``/metrics`` scraped, then the
+   drain, every admitted request answered. K1, K2 and K5 launch inside the
+   served requests (their launches per served path print and ride the
+   kernels line), and 4b holds them against their plain versions on
+   those requests' inputs;
+   4s. the fleet (slice 15): ``FleetRouter(workers=2)`` spawns two port
+   workers (``python -m delphi_tpu_torch.main --serve``) on the one card,
+   loading phase 2's library, with the autoscaler polling them (bounded
+   to two workers: its events print, no scale is required); six requests
+   over 4r's three tables, two first, then the first request of the table
+   homed on worker 1 under ``1:xfer.upload:1:rank_death`` beside a clean
+   one, then two more: every
+   request answers 4r's frame, the victim exits 17, ``fleet.evictions``
+   and ``fleet.redispatches`` are at least 1 and ``/healthz`` reads
+   ``degraded``; each worker's spawn-to-registration seconds, the request
+   walls, the card memory the workers hold (``torch.cuda.mem_get_info``,
+   contexts included) and each worker's allocator and ``compile_cache``
+   gauges from its ``/metrics`` print;
    4n. the run report (slice 12), after 5 so that no profile precedes a
    timing of 4b: 4's table at 4's options (4's run is the wall without
    the report) with ``DELPHI_METRICS_PATH``, with it and
@@ -278,6 +311,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3557,6 +3591,429 @@ def live_plane(torch, T, dirty, out_e2e, e2e_wall) -> dict:
     return res
 
 
+# -- 4r / 4s: the serving plane and the fleet --------------------------------
+
+# 4r and 4s: three seeded missing_heavy tables (A, B, C) of SERVE_ROWS rows,
+# each posted as JSON with RUN_OPTIONS, as a service user would post them
+SERVE_ROWS = 100_000
+SERVE_SEEDS = (10, 11, 12)
+SERVE_FAULT_PLAN = "xfer.upload:1:transient,domain.bucket:1:fatal"
+FLEET_KILL_SITE = "xfer.upload"
+# 4s's six requests: x and z, then y under the kill plan beside x, then y
+# and z again (x, y, z name 4r's tables A, B, C in the order the homes
+# pick: y's home dies)
+FLEET_ORDER = ("x", "z", "y", "x", "y", "z")
+
+
+def as_table(frame) -> dict:
+    """A frame as a /repair request's ``table`` (column -> JSON values)."""
+    split = json.loads(frame.to_json(orient="split"))
+    return {c: [row[i] for row in split["data"]]
+            for i, c in enumerate(split["columns"])}
+
+
+def served_records(frame) -> str:
+    """What the server makes of ``run()``'s frame: sorted by all columns,
+    ``to_json(orient="records")``, dumped as the response dumps it."""
+    frame = frame.sort_values(list(frame.columns)).reset_index(drop=True)
+    return json.dumps(json.loads(frame.to_json(orient="records")))
+
+
+def http(port, path, body=None, timeout=600):
+    """(status, decoded body, client seconds and bytes) of one call."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    data = None if body is None else json.dumps(body).encode()
+    t1 = time.perf_counter()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        method="GET" if body is None else "POST",
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    t2 = time.perf_counter()
+    out = json.loads(raw) if raw[:1] == b"{" else raw.decode()
+    t3 = time.perf_counter()
+    return status, out, {"encode_s": t1 - t0, "round_trip_s": t2 - t1,
+                         "decode_s": t3 - t2, "bytes_out": len(data or b""),
+                         "bytes_in": len(raw)}
+
+
+def registry_delta(before, after) -> dict:
+    """Counters that moved, and each histogram's sum and count that moved,
+    between two registry snapshots."""
+    counts = {k: v - before["counters"].get(k, 0)
+              for k, v in after["counters"].items()
+              if v != before["counters"].get(k, 0)}
+    hists = {}
+    for k, h in after["histograms"].items():
+        b = before["histograms"].get(k, {"sum": 0.0, "count": 0})
+        if h["count"] != b["count"]:
+            hists[k] = {"sum": h["sum"] - b["sum"],
+                        "count": h["count"] - b["count"]}
+    return {"counters": counts, "histograms": hists}
+
+
+def serving_plane(torch, T, traced, path_launches) -> dict:
+    """Phase 4r (module docstring). Returns the summary, and each table's
+    payload and served frame (4s's references)."""
+    import shutil
+    import tempfile
+    from delphi_tpu_torch.observability.serve import (
+        RepairServer, table_fingerprint,
+    )
+    tables = [missing_heavy(SERVE_ROWS, seed=s)[1] for s in SERVE_SEEDS]
+    payloads = [{"table": as_table(df), "row_id": "tid",
+                 "options": dict(RUN_OPTIONS)} for df in tables]
+    fps = [table_fingerprint(p["table"], "tid") for p in payloads]
+    T.set_device("cuda")
+    # the reference: one in-process run() of table A, and what the server
+    # does to its frame (sort, to_json), timed on it
+    ref, ref_wall, _, _, _ = timed_run(torch, lambda: repair(T, tables[0]))
+    t0 = time.perf_counter()
+    want_a = served_records(ref)
+    respond_s = time.perf_counter() - t0
+    cache = tempfile.mkdtemp(prefix="smoke_serve_")
+    saved_cc = os.environ.get("DELPHI_COMPILE_CACHE_DIR")
+    srv = RepairServer(port=0, workers=2, cache_dir=cache).start()
+    resolve_s = []
+    orig_resolve = srv._resolve_table
+
+    def timed_resolve(payload):
+        t = time.perf_counter()
+        try:
+            return orig_resolve(payload)
+        finally:
+            resolve_s.append(time.perf_counter() - t)
+
+    srv._resolve_table = timed_resolve
+    res, answered = {}, []
+
+    def post(payload, rid, **extra):
+        status, body, client = http(srv.port, "/repair",
+                                    dict(payload, request_id=rid, **extra))
+        answered.append((rid, status))
+        return status, body, client
+
+    def served(label, cases, faults_ok=False):
+        """``cases`` as one traced main path: (results, summary)."""
+        before = srv.recorder.registry.snapshot()
+        n_resolve = len(resolve_s)
+        out, wall, launches, _, walls, peak, _ = traced(
+            label, cases, faults_ok=faults_ok)
+        delta = registry_delta(before, srv.recorder.registry.snapshot())
+        k5 = path_launches[label]["domain_scores"]
+        summary = {"wall_s": wall,
+                   "launches": {**launches, "domain_scores": k5},
+                   "phase_walls": walls, "peak_mib": round(peak, 1),
+                   "resolve_s": resolve_s[n_resolve:], "registry": delta}
+        log(f"[{label}] {json.dumps(summary, default=str)}")
+        return out, summary
+
+    try:
+        # 1. cold, solo
+        (status, body, client), cold = served(
+            "served", lambda: post(payloads[0], "cold-a"))
+        if status != 200:
+            fail(f"4r cold request answered {status}: {body}")
+        got_a = json.dumps(body["frame"])
+        if got_a != want_a:
+            fail("4r: the served frame of table A differs from run()'s "
+                 "sorted frame")
+        hist = cold["registry"]["histograms"]
+        request_s = hist["serve.request_seconds"]["sum"]
+        queue_s = hist["serve.queue_wait_seconds"]["sum"]
+        run_s = sum(cold["phase_walls"].values())
+        split = {
+            "client_json_encode_s": client["encode_s"],
+            "http_round_trip_s": client["round_trip_s"],
+            "client_json_decode_s": client["decode_s"],
+            "request_bytes": client["bytes_out"],
+            "response_bytes": client["bytes_in"],
+            "server_request_s": request_s, "queue_wait_s": queue_s,
+            "http_and_server_json_s":
+                client["round_trip_s"] - request_s - queue_s,
+            "fingerprint_and_encode_s": cold["resolve_s"][0],
+            "run_phases_s": run_s,
+            "response_sort_and_encode_s (on run()'s frame)": respond_s,
+            "run_other_s": request_s - cold["resolve_s"][0] - run_s
+            - respond_s}
+        res["cold"] = {**cold, "split": split, "run_alone_wall_s": ref_wall}
+        log(f"[served] cold request of {SERVE_ROWS} rows: "
+            f"{client['round_trip_s']:.3f} s through HTTP against "
+            f"{ref_wall:.3f} s for run() alone; frame equal to run()'s byte "
+            f"for byte ({len(body['frame'])} repairs); split "
+            f"{json.dumps(split)}")
+
+        # 2. warm: (a) the phase checkpoints resume, (b) without them the
+        # model checkpoint and the plan store
+        before = srv.recorder.registry.snapshot()
+        status, body, client = post(payloads[0], "warm-a")
+        delta = registry_delta(before, srv.recorder.registry.snapshot())
+        counts = delta["counters"]
+        if status != 200 or json.dumps(body["frame"]) != want_a:
+            fail(f"4r warm request answered {status} or another frame")
+        if counts.get("serve.table_cache.hits", 0) != 1 \
+                or counts.get("resilience.checkpoint.hits", 0) < 1:
+            fail(f"4r warm request: no table-cache or checkpoint hit: "
+                 f"{counts}")
+        res["warm_resume"] = {"wall_s": client["round_trip_s"],
+                              "counters": counts}
+        shutil.rmtree(srv._ckpt_dir(fps[0]), ignore_errors=True)
+        (status, body, client), warm = served(
+            "served warm", lambda: post(payloads[0], "warm-a2"))
+        counts = warm["registry"]["counters"]
+        if status != 200 or json.dumps(body["frame"]) != want_a:
+            fail(f"4r warm request answered {status} or another frame")
+        if counts.get("serve.table_cache.hits", 0) != 1 \
+                or counts.get("train.checkpoint_hits", 0) < 1 \
+                or counts.get("launch.plan_cache.hits", 0) < 1 \
+                or counts.get("launch.replans", 0) != 0:
+            fail(f"4r warm request without phase checkpoints: want a "
+                 f"table-cache, model-checkpoint and plan-store hit and no "
+                 f"replan: {counts}")
+        res["warm"] = {**warm, "client_wall_s": client["round_trip_s"]}
+        log(f"[served] warm: {res['warm_resume']['wall_s']:.3f} s resuming "
+            f"the phase checkpoints, {client['round_trip_s']:.3f} s without "
+            f"them (table cache, model checkpoint, plan store hit, 0 "
+            f"replans) against {res['cold']['split']['http_round_trip_s']:.3f}"
+            f" s cold")
+
+        # 3. two requests side by side: A cold again (its warm state
+        # dropped), B under a scoped fault plan
+        srv._evict_dirty(fps[0])
+        shutil.rmtree(srv._ckpt_dir(fps[0]), ignore_errors=True)
+        gate = threading.Barrier(2)
+        pair = {}
+
+        def side(tag, payload, **extra):
+            gate.wait(timeout=60)
+            pair[tag] = post(payload, f"pair-{tag}", **extra)
+
+        def both():
+            threads = [threading.Thread(target=side, args=("a", payloads[0])),
+                       threading.Thread(target=side, args=("b", payloads[1]),
+                                        kwargs={"fault_plan":
+                                                SERVE_FAULT_PLAN})]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            return dict(pair)
+
+        pair_res, conc = served("served concurrent", both, faults_ok=True)
+        st_a, body_a, _ = pair_res["a"]
+        st_b, body_b, _ = pair_res["b"]
+        if st_a != 200 or json.dumps(body_a["frame"]) != want_a:
+            fail(f"4r: the clean request beside a faulted one answered "
+                 f"{st_a} or another frame than the solo request's")
+        if st_b != 500 or body_b.get("kind") != "fatal":
+            fail(f"4r: the faulted request answered {st_b}: {body_b}")
+        with srv._lock:
+            warm_fps = set(srv._tables)
+        if fps[0] not in warm_fps or fps[1] in warm_fps \
+                or os.path.exists(srv._models_dir(fps[1])):
+            fail("4r: the faulted request's eviction touched the wrong state")
+        res["concurrent"] = {**conc, "faulted": body_b}
+        log(f"[served] concurrent: the clean frame equals the solo one, the "
+            f"faulted request answered {st_b} kind {body_b['kind']}, only "
+            f"its state evicted; wall {conc['wall_s']:.3f} s")
+
+        # 4. D1 under serving: the CPU rung refused, one structured 500
+        before = srv.recorder.registry.snapshot()
+        status, body, _ = post(payloads[2], "oom-c", fault_plan=PLAN_LADDER)
+        counts = registry_delta(before,
+                                srv.recorder.registry.snapshot())["counters"]
+        if status != 500 or body.get("kind") != "oom" \
+                or counts.get("resilience.degrade.cpu_refused", 0) < 1:
+            fail(f"4r: the oom plan answered {status} {body}, counters "
+                 f"{counts}")
+        res["oom"] = {"status": status, "kind": body["kind"],
+                      "counters": counts}
+        log(f"[served] oom plan: 500 kind oom, "
+            f"resilience.degrade.cpu_refused "
+            f"{counts['resilience.degrade.cpu_refused']}")
+
+        # 5. B and C clean: 4s's references
+        frames = [want_a]
+        for i, tag in ((1, "b"), (2, "c")):
+            status, body, client = post(payloads[i], f"clean-{tag}")
+            if status != 200:
+                fail(f"4r: table {tag} answered {status}: {body}")
+            frames.append(json.dumps(body["frame"]))
+            res[f"clean_{tag}_wall_s"] = client["round_trip_s"]
+
+        # 6. the endpoints, then the drain
+        status, health, _ = http(srv.port, "/healthz")
+        status_m, metrics, _ = http(srv.port, "/metrics")
+        names = ("delphi_serve_requests", "delphi_serve_accepted",
+                 "delphi_serve_completed", "delphi_serve_failed",
+                 "delphi_serve_table_cache_hits",
+                 "delphi_serve_table_cache_misses",
+                 "delphi_serve_queue_depth", "delphi_serve_in_flight",
+                 "delphi_resilience_degrade_cpu_refused")
+        missing = [n for n in names if f"\n{n} " not in metrics]
+        if status != 200 or health.get("status") != "ok" \
+                or status_m != 200 or missing:
+            fail(f"4r: /healthz {status} {health}, /metrics {status_m} "
+                 f"lacks {missing}")
+        srv.drain(grace_s=30)
+        if not srv.wait(timeout=60):
+            fail("4r: the server did not stop after its drain")
+        final = srv.recorder.registry.snapshot()["counters"] \
+            if srv.recorder is not None else {}
+        if any(s is None for _, s in answered):
+            fail(f"4r: a request was not answered: {answered}")
+        res["health"] = health
+        res["answered"] = answered
+        res["serve_counters"] = {k: v for k, v in final.items()
+                                 if k.startswith("serve.")}
+        log(f"[served] /healthz {json.dumps(health)}; drained with every "
+            f"admitted request answered: {answered}")
+    finally:
+        srv.stop()
+        if saved_cc is None:
+            os.environ.pop("DELPHI_COMPILE_CACHE_DIR", None)
+        else:
+            os.environ["DELPHI_COMPILE_CACHE_DIR"] = saved_cc
+        shutil.rmtree(cache, ignore_errors=True)
+    return {"summary": res, "payloads": payloads, "frames": frames,
+            "fingerprints": fps}
+
+
+def worker_gauges(port: int) -> dict:
+    """A fleet worker's device and process gauges from its ``/metrics``
+    (its live plane's resource sampler: the caching allocator's bytes on
+    the card, not the CUDA context)."""
+    text = http(port, "/metrics")[1]
+    want = ("delphi_device_bytes_in_use", "delphi_device_peak_bytes_in_use",
+            "delphi_process_rss_gb", "delphi_compile_cache_hits",
+            "delphi_compile_cache_requests")
+    return {line.split()[0]: float(line.split()[1])
+            for line in text.splitlines() if line.split()[:1]
+            and line.split()[0] in want}
+
+
+def fleet_plane(torch, T, build, served) -> dict:
+    """Phase 4s (module docstring). Returns the phase's summary."""
+    import shutil
+    import tempfile
+    from delphi_tpu_torch.observability.fleet import (
+        AutoscalePolicy, FleetAutoscaler, FleetRouter, rendezvous_rank,
+    )
+    payloads, frames = served["payloads"], served["frames"]
+    homes = [rendezvous_rank(fp, ["0", "1"])[0]
+             for fp in served["fingerprints"]]
+    # the table the kill rides: one whose home is worker 1 where there is
+    # one, so that "1:<site>:1:rank_death" fires there on first contact
+    y = homes.index("1") if "1" in homes else 0
+    victim = homes[y]
+    x, z = [i for i in range(3) if i != y]
+    index = {"x": x, "y": y, "z": z}
+    plan = f"{victim}:{FLEET_KILL_SITE}:1:rank_death"
+    cache = tempfile.mkdtemp(prefix="smoke_fleet_")
+    free0, _ = torch.cuda.mem_get_info()
+    # the workers load phase 2's library from its build directory; their
+    # live planes sample the card's allocator (no HTTP server of its own)
+    router = FleetRouter(port=0, workers=2, cache_dir=cache, heartbeat_s=0.5,
+                         worker_env={"DELPHI_FLEET_HEARTBEAT_S": "0.5",
+                                     "DELPHI_COMPILE_CACHE_DIR":
+                                         build.BUILD_DIR,
+                                     "DELPHI_STALL_TIMEOUT_S": "600",
+                                     "DELPHI_RESOURCE_SAMPLE_S": "0.5"})
+    scaler = None
+    res = {"homes": homes, "victim": victim, "plan": plan}
+    try:
+        t0 = time.perf_counter()
+        router.start()
+        res["start_s"] = time.perf_counter() - t0
+        res["spawn_to_registration_s"] = dict(router.spawn_seconds)
+        log(f"[fleet] two workers registered: spawn to registration "
+            f"{json.dumps(router.spawn_seconds)} s, router up in "
+            f"{res['start_s']:.3f} s")
+        scaler = FleetAutoscaler(
+            router, AutoscalePolicy(min_workers=2, max_workers=3),
+            interval_s=0.5).start()
+        walls, results = {}, {}
+
+        def send(n, tag, **extra):
+            ti = index[tag]
+            t = time.perf_counter()
+            results[n] = (ti, *http(router.port, "/repair",
+                                    dict(payloads[ti], request_id=f"f{n}",
+                                         **extra))[:2])
+            walls[n] = time.perf_counter() - t
+
+        send(0, FLEET_ORDER[0])
+        send(1, FLEET_ORDER[1])
+        time.sleep(1.0)  # two sampler ticks
+        gauges_pre = {w: worker_gauges(router._workers[w]["port"])
+                      for w in ("0", "1")}
+        free_pre, _ = torch.cuda.mem_get_info()
+        threads = [threading.Thread(target=send, args=(2, FLEET_ORDER[2]),
+                                    kwargs={"fault_plan": plan}),
+                   threading.Thread(target=send, args=(3, FLEET_ORDER[3]))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        send(4, FLEET_ORDER[4])
+        send(5, FLEET_ORDER[5])
+        for n in range(len(FLEET_ORDER)):
+            ti, status, body = results.get(n, (None, None, {}))
+            if status != 200 or json.dumps(body.get("frame")) != frames[ti]:
+                fail(f"4s: request {n} (table {ti}) answered {status} or "
+                     f"another frame than 4r's: {str(body)[:300]}")
+        code = router._procs[victim].wait(timeout=120)
+        if code != 17:
+            fail(f"4s: worker {victim} exited {code}, not 17 (rank_death)")
+        snap = router.recorder.registry.snapshot()["counters"]
+        if snap.get("fleet.evictions", 0) < 1 \
+                or snap.get("fleet.redispatches", 0) < 1:
+            fail(f"4s: no eviction or redispatch counted: {snap}")
+        status, health, _ = http(router.port, "/healthz")
+        if health.get("status") != "degraded":
+            fail(f"4s: /healthz reads {health}")
+        survivor = "1" if victim == "0" else "0"
+        time.sleep(1.0)
+        gauges_post = worker_gauges(router._workers[survivor]["port"])
+        res.update({
+            "request_walls_s": [walls[n] for n in range(len(FLEET_ORDER))],
+            "tables": [results[n][0] for n in range(len(FLEET_ORDER))],
+            "hops": [results[n][2].get("hops")
+                     for n in range(len(FLEET_ORDER))],
+            "workers": [results[n][2].get("worker_id")
+                        for n in range(len(FLEET_ORDER))],
+            "victim_exit": code,
+            "fleet_counters": {k: v for k, v in snap.items()
+                               if k.startswith(("fleet.", "autoscale."))},
+            "health": health,
+            "worker_gauges_before_kill": gauges_pre,
+            "survivor_gauges_after": gauges_post,
+            "card_mib_all_workers_before_kill":
+                round((free0 - free_pre) / 2**20, 1),
+            "autoscale_events": list(scaler.events)})
+        log(f"[fleet] six requests over three tables, worker {victim} "
+            f"killed by {plan} mid-traffic: every frame equals 4r's; "
+            f"{json.dumps(res, default=str)}")
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        router.drain()
+        for wid, proc in router._procs.items():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+        if any(p.returncode is None for p in router._procs.values()):
+            fail("4s: a worker process outlived the phase")
+        shutil.rmtree(cache, ignore_errors=True)
+    return res
+
+
 # -- 4n: the run report on the card -----------------------------------------
 
 # the phases of the JAX package's report of this run, in order (the port's
@@ -4435,28 +4892,31 @@ def main() -> None:
                 (counts, np.asarray(offsets, dtype=np.int64), n_rows))
             return orig_et(counts, offsets, n_rows)
 
-        # the real pieces of the bucket launch in flight, for K5's bound,
-        # and their groups, for 4m(d)'s split by owner
-        extents, groups = [], []
+        # the real pieces of the bucket launch in flight on this thread
+        # (served requests launch side by side, 4r), for K5's bound, and
+        # their groups, for 4m(d)'s split by owner
+        inflight = threading.local()
         rec["k5_groups"] = []
 
         def rec_launch_bucket(batch, *rest):
-            extents[:] = [(len(p.rows), len(p.hs), tuple(map(int, p.vcs)))
-                          for _, _, p in batch]
-            groups[:] = [gi for gi, _, _ in batch]
+            inflight.extents = [(len(p.rows), len(p.hs),
+                                 tuple(map(int, p.vcs))) for _, _, p in batch]
+            inflight.groups = [gi for gi, _, _ in batch]
             return orig_bucket(batch, *rest)
 
         # each K5 call as (mode, operands, beta, n_rows, extents)
         def rec_domain_scores(ops):
-            rec["domain_scores"].append(("int", ops, None, None,
-                                         list(extents)))
-            rec["k5_groups"].append(list(groups))
+            rec["domain_scores"].append(
+                ("int", ops, None, None,
+                 list(getattr(inflight, "extents", []))))
+            rec["k5_groups"].append(list(getattr(inflight, "groups", [])))
             return orig_ds(ops)
 
         def rec_weak_label(ops, beta, n_rows):
-            rec["domain_scores"].append(("weak", ops, beta, n_rows,
-                                         list(extents)))
-            rec["k5_groups"].append(list(groups))
+            rec["domain_scores"].append(
+                ("weak", ops, beta, n_rows,
+                 list(getattr(inflight, "extents", []))))
+            rec["k5_groups"].append(list(getattr(inflight, "groups", [])))
             return orig_wl(ops, beta, n_rows)
 
         phase_walls.clear()
@@ -4657,6 +5117,14 @@ def main() -> None:
     live_res = live_plane(torch, T, dirty, out, e2e_wall)
 
     log(f"[elapsed] 4q done at {time.perf_counter() - t_start:.1f} s")
+    # -- 4r. the serving plane -----------------------------------------------
+    served = serving_plane(torch, T, traced, path_launches)
+
+    log(f"[elapsed] 4r done at {time.perf_counter() - t_start:.1f} s")
+    # -- 4s. the fleet: two worker processes on the one card -----------------
+    fleet_res = fleet_plane(torch, T, build, served)
+
+    log(f"[elapsed] 4s done at {time.perf_counter() - t_start:.1f} s")
     # -- 4b. each kernel on the inputs each path gave it ---------------------
     def main_path(rows):
         keys = ("ms", "host_ms", "kernel_ms", "plain_ms", "library_ms",
@@ -4946,6 +5414,16 @@ def main() -> None:
                     **main_path(rows_r[name])})
                 log(f"[process-local-kernels] rank {r} {name}: "
                     f"{fmt(main_path(rows_r[name]))}")
+    # 4r: the launches inside the served requests, by path
+    for entry in kernels:
+        entry["served_launches"] = {
+            p["path"]: p["launches"] for p in entry["paths"]
+            if p["path"].startswith("served")}
+        if entry["name"] in ("pair_counts", "entropy_terms",
+                             "domain_scores_weak") \
+                and not any(entry["served_launches"].values()):
+            fail(f"4r: {entry['name']} was not launched inside a served "
+                 "request")
     o_rows = shard["rows"][0]["entropy_terms_owned"]
     o_bytes = sum(r["bytes_ms"] for r in o_rows)
     o_ops = sum(r["ops_ms"] for r in o_rows)
@@ -4978,6 +5456,9 @@ def main() -> None:
         "result lines")
     log(f"[report] 4n summary: {json.dumps(report_res, default=str)}")
     log(f"[live] 4q summary: {json.dumps(live_res, default=str)}")
+    log(f"[served] 4r summary: "
+        f"{json.dumps(served['summary'], default=str)}")
+    log(f"[fleet] 4s summary: {json.dumps(fleet_res, default=str)}")
     log(f"[timing] kernel_ms rows from bare launches: {bare_rows}")
     print(json.dumps({"kernels": kernels, "pytorch_programs": programs}))
     print(nvidia_smi_line())

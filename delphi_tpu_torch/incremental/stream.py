@@ -10,7 +10,8 @@ stream's end-state (repair frame + spliced provenance) is bit-identical
 to ONE batch run over the concatenation of deltas 1..N — streaming is an
 execution strategy, never a different answer. In the port the batch CLI's
 ``--stream N`` drives a session; the HTTP serving plane that carries
-streams for remote clients is queue 1 item 10b of ``ROADMAP.md``.
+streams for remote clients is :mod:`delphi_tpu_torch.observability.serve`
+(a ``"stream"`` field on ``POST /repair``).
 
 **Durable cursor.** Every committed delta writes, through the durable
 store (:mod:`delphi_tpu_torch.parallel.store`), a *new generation* of two

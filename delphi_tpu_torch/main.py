@@ -42,9 +42,16 @@ store file under ROOT, quarantines corrupt ones and prints a JSON summary
 ``/report``) on port P for the batch run, with a stall watchdog and a
 resource sampler (0 picks an ephemeral port, printed in the log).
 
-Every other flag of the JAX package's CLI (serving, the fleet, the
-gauntlet) is accepted under its own name and raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+Serving: ``--serve [--serve-port P] [--serve-cache-dir D]`` runs the
+persistent repair service instead of a batch repair (``POST /repair`` with
+a JSON table; SIGTERM drains it); ``--fleet N [--autoscale]`` runs N such
+workers behind a router on ``--serve-port``
+(:mod:`delphi_tpu_torch.observability.fleet`). ``--input``, ``--row-id``
+and ``--output`` are required unless ``--serve`` or ``--fleet`` is given.
+
+The gauntlet's flags of the JAX package's CLI are accepted under their
+own names and raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that brings them.
 """
 
 import argparse
@@ -61,16 +68,10 @@ from delphi_tpu_torch.observability.provenance import MEMORY_PATH
 from delphi_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from delphi_tpu_torch.session import get_session
 
-_SERVE = "queue 1 item 10b of ROADMAP.md (serving and the fleet)"
 _GAUNTLET = "queue 1 item 10c of ROADMAP.md (the gauntlet)"
 
 # (flag, argparse keyword arguments, the ROADMAP item that brings it)
 _UNPORTED = [
-    ("--serve", dict(action="store_true"), _SERVE),
-    ("--serve-port", dict(type=int, default=None), _SERVE),
-    ("--serve-cache-dir", dict(type=str, default=""), _SERVE),
-    ("--fleet", dict(type=int, default=0), _SERVE),
-    ("--autoscale", dict(action="store_true"), _SERVE),
     ("--gauntlet", dict(action="store_true"), _GAUNTLET),
     ("--gauntlet-rows", dict(type=int, default=None), _GAUNTLET),
     ("--gauntlet-seed", dict(type=int, default=None), _GAUNTLET),
@@ -156,11 +157,46 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--db", dest="db", type=str, default="",
                         help="database name of the input table")
     parser.add_argument("--input", dest="input", type=str, default=None,
-                        help="CSV path or registered table name")
+                        help="CSV path or registered table name "
+                             "(required unless --serve)")
     parser.add_argument("--row-id", dest="row_id", type=str, default=None,
-                        help="row-id column")
+                        help="row-id column (required unless --serve)")
     parser.add_argument("--output", dest="output", type=str, default=None,
-                        help="output CSV path")
+                        help="output CSV path (required unless --serve)")
+    parser.add_argument("--serve", dest="serve", action="store_true",
+                        help="run the persistent repair service instead of "
+                             "a batch repair: POST /repair with a JSON "
+                             "table, concurrent sessions share the warm "
+                             "table, model and plan caches, SIGTERM drains "
+                             "gracefully")
+    parser.add_argument("--serve-port", dest="serve_port", type=int,
+                        default=8080,
+                        help="service port for --serve and --fleet "
+                             "(0 = ephemeral)")
+    parser.add_argument("--serve-cache-dir", dest="serve_cache_dir",
+                        type=str, default="",
+                        help="warm-state directory for --serve (the kernel "
+                             "library's build cache, plans, per-fingerprint "
+                             "model checkpoints, phase checkpoints); a "
+                             "stable path makes restarts warm. Equivalent "
+                             "to DELPHI_SERVE_CACHE_DIR / "
+                             "repair.serve.cache_dir")
+    parser.add_argument("--fleet", dest="fleet", type=int, default=0,
+                        help="run an elastic repair fleet instead of a "
+                             "single service: spawn N repair workers "
+                             "sharing the --serve-cache-dir warm state "
+                             "behind a rendezvous-hashing router with "
+                             "liveness-routed failover (POST /repair on "
+                             "--serve-port). Equivalent to "
+                             "DELPHI_FLEET_WORKERS / repair.fleet.workers")
+    parser.add_argument("--autoscale", dest="autoscale",
+                        action="store_true",
+                        help="with --fleet: the queue-driven autoscaler "
+                             "spawns and retires workers from sustained "
+                             "queue-depth and stream-lag pressure, with "
+                             "hysteresis and cooldown (the "
+                             "DELPHI_AUTOSCALE_* settings). Equivalent to "
+                             "DELPHI_AUTOSCALE=1")
     parser.add_argument("--targets", dest="targets", type=str, default="",
                         help="comma-separated target attributes")
     parser.add_argument("--constraints", dest="constraints", type=str,
@@ -310,17 +346,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(json.dumps(plan_report(args.plan_report), indent=2,
                          sort_keys=True))
         return 0
-    if not (args.input and args.row_id and args.output):
-        parser.error("--input, --row-id and --output are required")
+    serving = args.serve or args.fleet > 0
+    if not serving and not (args.input and args.row_id and args.output):
+        parser.error("--input, --row-id and --output are required "
+                     "(unless --serve)")
 
     session = get_session()
     # the settings belong to this invocation, not the session; a stream
-    # takes the fault plan only, as in the JAX package
+    # and the serving plane take the fault plan only, as in the JAX package
     conf = {"repair.fault.plan": args.fault_plan,
             "repair.collective.timeout_s":
                 "" if args.collective_timeout_s is None
                 else str(args.collective_timeout_s)}
-    if args.stream <= 0:
+    if args.stream <= 0 and not serving:
         # the drift gate needs this run's scorecards, which come from the
         # provenance ledger; an in-memory ledger costs no file I/O
         provenance = args.provenance_out
@@ -342,6 +380,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         # join the cluster (DELPHI_COORDINATOR) before any work, under the
         # collective deadline set above
         maybe_initialize_distributed()
+        if args.fleet > 0:
+            from delphi_tpu_torch.observability.fleet import run_fleet
+            return run_fleet(port=args.serve_port, workers=args.fleet,
+                             cache_dir=args.serve_cache_dir or None,
+                             autoscale=args.autoscale or None)
+        if args.serve:
+            from delphi_tpu_torch.observability.serve import serve
+            return serve(port=args.serve_port,
+                         cache_dir=args.serve_cache_dir or None)
         if args.stream > 0:
             if not args.snapshot_dir:
                 parser.error("--stream requires --snapshot-dir (the "

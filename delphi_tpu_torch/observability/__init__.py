@@ -28,8 +28,16 @@
 * :mod:`.diff` — the ``report-diff`` CLI
   (``python -m delphi_tpu_torch.observability.diff``).
 
-The serving plane and the fleet are queue 1 item 10b of ``ROADMAP.md``,
-the gauntlet item 10c; the CLI raises for their flags.
+* :mod:`.serve` — the serving plane: ``RepairServer``, a persistent
+  repair service (``POST /repair``) with admission control, per-request
+  deadlines and fault isolation, and graceful drain (``main.py --serve``).
+* :mod:`.fleet` — the elastic fleet: ``FleetRouter`` spawns N serving
+  workers behind a rendezvous-hashing router with liveness-routed
+  failover, and ``FleetAutoscaler`` scales them from queue pressure
+  (``main.py --fleet N [--autoscale]``).
+
+The gauntlet is queue 1 item 10c of ``ROADMAP.md``; the CLI raises for its
+flags.
 """
 
 import os

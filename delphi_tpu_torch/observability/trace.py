@@ -16,8 +16,9 @@ plane:
   the trace id (``DELPHI_TRACE_SAMPLE``: keep fraction, default 1.0) so
   every process independently keeps or drops the SAME traces. Disabled (no
   ``DELPHI_TRACE_DIR``) every per-span hook is one thread-local pointer
-  check. The serving plane that opens request scopes per HTTP request is
-  queue 1 item 10b of ``ROADMAP.md``.
+  check. The serving plane (:mod:`.serve`) opens one request scope per
+  HTTP request, and the fleet router (:mod:`.fleet`) carries it to its
+  workers.
 
 * **Launch-cost ledger** — each executed launch from
   :mod:`delphi_tpu_torch.parallel.planner` records (phase, bucket shape,

@@ -31,6 +31,7 @@ Nothing in a call copies to or waits for the device.
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -41,10 +42,12 @@ from delphi_tpu_torch.ops.kernels import build
 
 # Launches of the CUDA kernel since the last reset, in all and by mode
 # ("weak", "int") and by where the pair tables were read ("shared",
-# "global").
+# "global"). Requests served in threads launch side by side: the counts
+# move under a lock.
 launches = 0
 mode_launches = {"weak": 0, "int": 0}
 branch_launches = {"shared": 0, "global": 0}
+_count_lock = threading.Lock()
 
 THREADS = 256                 # csrc: kThreads, one cell per thread
 # the launch's pair tables are staged in shared memory when they take at
@@ -406,7 +409,8 @@ def _launch(ops: Operands, weak: bool, beta: float, n_rows: float) \
         ctypes.addressof(t), shape["grid"][0], shape["grid"][1],
         shape["smem"], build.current_stream())
     build.check(err, "domain_scores")
-    launches += 1
-    mode_launches["weak" if weak else "int"] += 1
-    branch_launches["shared" if shape["shared"] else "global"] += 1
+    with _count_lock:
+        launches += 1
+        mode_launches["weak" if weak else "int"] += 1
+        branch_launches["shared" if shape["shared"] else "global"] += 1
     return out

@@ -29,6 +29,7 @@ plane's ranks reduce the pairs they own this way.
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,8 +39,11 @@ from delphi_tpu_torch.ops.kernels import build
 
 # Launches of the CUDA kernel since the last reset, and of those the
 # launches of the owned-segment entry point (entropy_terms_owned).
+# Requests served in threads launch side by side: the counts move under a
+# lock.
 launches = 0
 owned_launches = 0
+_count_lock = threading.Lock()
 
 # Counts per chunk (one warp each): the call's counts over TARGET_CHUNKS,
 # rounded up to a power of two within [MIN_CHUNK, MAX_CHUNK].
@@ -305,7 +309,8 @@ def _launch(counts: torch.Tensor, offsets: Sequence[int], n_rows: int,
     err = build.library().delphi_entropy_terms(ctypes.addressof(t),
                                                build.current_stream())
     build.check(err, "entropy_terms")
-    launches += 1
-    if segments is not None:
-        owned_launches += 1
+    with _count_lock:
+        launches += 1
+        if segments is not None:
+            owned_launches += 1
     return out

@@ -21,6 +21,7 @@ waits for the device.
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -30,8 +31,10 @@ import torch
 from delphi_tpu_torch.ops.kernels import build
 
 # Launches of the CUDA kernel since the last reset (read by the chip smoke
-# test to prove the main path went through the kernel).
+# test to prove the main path went through the kernel). Requests served in
+# threads launch side by side, so the count moves under a lock.
 launches = 0
+_count_lock = threading.Lock()
 
 THREADS = 256                 # threads per block (csrc: kThreads)
 MAX_PAIRS = 128               # pairs per launch (csrc: kMaxPairs)
@@ -258,5 +261,6 @@ def _launch(codes: torch.Tensor, pairs: Sequence[Tuple[int, int]],
             ctypes.addressof(t), grid_size(n_rows, sms, ln.smem_bytes),
             ln.smem_bytes, stream)
         build.check(err, "pair_counts")
-        launches += 1
+        with _count_lock:
+            launches += 1
     return out, offsets

@@ -160,9 +160,14 @@ def report_section() -> Optional[Dict[str, Any]]:
 _toucher: Dict[str, Any] = {"thread": None, "stop": None}
 
 
+_LIVENESS_PREFIX = "rank_"
+_LIVENESS_SUFFIX = ".alive"
+
+
 def member_liveness_path(directory: str, member) -> str:
     """Liveness file of one member under a membership directory."""
-    return os.path.join(directory, f"rank_{member}.alive")
+    return os.path.join(directory,
+                        f"{_LIVENESS_PREFIX}{member}{_LIVENESS_SUFFIX}")
 
 
 def touch_liveness_file(path: str) -> None:
@@ -190,6 +195,39 @@ def liveness_file_age_s(path: Optional[str],
     except Exception:
         return None
     return max(0.0, (now if now is not None else float(_wall())) - stamp)
+
+
+def diagnose_liveness_file(path: Optional[str], interval_s: float,
+                           now: Optional[float] = None) -> str:
+    """``live`` (stamp fresher than 3x the heartbeat interval), ``dead``
+    (stale stamp) or ``unknown`` (no file)."""
+    age = liveness_file_age_s(path, now=now)
+    if age is None:
+        return "unknown"
+    return "live" if age <= 3.0 * max(interval_s, 0.001) else "dead"
+
+
+def scan_membership(directory: str, interval_s: float,
+                    now: Optional[float] = None) -> Dict[str, Dict[str, Any]]:
+    """``{member_id: {"age_s": float|None, "status": live|dead|unknown}}``
+    for every liveness file under ``directory``: the fleet router's ring
+    is built from it."""
+    members: Dict[str, Dict[str, Any]] = {}
+    try:
+        entries = os.listdir(directory)
+    except OSError:
+        return members
+    for name in sorted(entries):
+        if not (name.startswith(_LIVENESS_PREFIX)
+                and name.endswith(_LIVENESS_SUFFIX)):
+            continue
+        member = name[len(_LIVENESS_PREFIX):-len(_LIVENESS_SUFFIX)]
+        path = os.path.join(directory, name)
+        members[member] = {
+            "age_s": liveness_file_age_s(path, now=now),
+            "status": diagnose_liveness_file(path, interval_s, now=now),
+        }
+    return members
 
 
 def _liveness_path(rank: int) -> Optional[str]:

@@ -41,9 +41,9 @@ fingerprint of the input and options, so a run that died resumes at the
 last completed phase. Pickles carry no CUDA tensor.
 
 **Request scopes** carry a per-request plan, deadline, abort and CPU latch
-and checkpoint directory; the serving plane that opens them is queue 1
-item 10 of ``ROADMAP.md``, and so is the stall watchdog that calls
-:func:`on_watchdog_stall`.
+and checkpoint directory; the serving plane
+(:mod:`delphi_tpu_torch.observability.serve`) opens one per request, and
+the live plane's stall watchdog calls :func:`on_watchdog_stall`.
 """
 
 import contextlib
@@ -319,7 +319,7 @@ KNOWN_SITES = frozenset({
     "freq.distinct",
     # the process-local tables' distinct-count merge
     "freq.distinct_merge",
-    # the fleet router and the autoscaler: queue 1 item 10b
+    # the fleet router and the autoscaler (observability/fleet.py)
     "fleet.dispatch",
     "autoscale.http",
     "domain.score",

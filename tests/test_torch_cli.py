@@ -11,9 +11,12 @@ with the JAX package's models, as ``tests/test_torch_escalate.py`` explains);
 injected ``crash`` exits with code 23 in both; ``--pipeline`` and
 ``--compile-cache-dir`` write equal CSVs and ``--plan-report`` prints
 equal reports of the JAX package's ledgers; ``--metrics-port`` writes the
-JAX package's CSV with the live plane serving during the run; every flag
-of the JAX package's CLI that the port does not have yet raises, naming
-the ``ROADMAP.md`` item that brings it.
+JAX package's CSV with the live plane serving during the run; ``--serve``
+(with ``--serve-port`` and ``--serve-cache-dir``) answers ``/healthz`` and
+a ``POST /repair`` with the JAX package's frame, ``--fleet 2`` (with and
+without ``--autoscale``) routes that request to a worker process; every
+flag of the JAX package's CLI that the port does not have yet (the
+gauntlet's) raises, naming the ``ROADMAP.md`` item that brings it.
 
 Both CLIs run in this process (``main(argv)``); one case also runs the
 port as ``python -m`` in a subprocess. The input has only string columns
@@ -122,9 +125,6 @@ def test_cli_as_module_matches_in_process(inputs, tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--serve", None, "item 10b"), ("--serve-port", "8080", "item 10b"),
-    ("--serve-cache-dir", "d", "item 10b"), ("--fleet", "2", "item 10b"),
-    ("--autoscale", None, "item 10b"),
     ("--gauntlet", None, "item 10c"), ("--gauntlet-rows", "100", "item 10c"),
     ("--gauntlet-seed", "1", "item 10c"),
     ("--gauntlet-scenarios", "wide", "item 10c"),
@@ -140,6 +140,120 @@ def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
                        match=f"{flag} .*queue 1 {item} of ROADMAP.md"):
         t_main.main(argv)
     assert not (tmp_path / "o.csv").exists()
+
+
+@pytest.fixture(scope="module")
+def served_want(inputs):
+    """The served frame the JAX package's ``run()`` implies for in.csv:
+    sorted by all columns, through ``to_json(orient="records")``."""
+    from delphi_tpu import NullErrorDetector, delphi
+    df = pd.read_csv(inputs / "in.csv")
+    out = delphi.repair.setInput(df).setRowId("tid") \
+        .setErrorDetectors([NullErrorDetector()]).run()
+    out = out.sort_values(list(out.columns)).reset_index(drop=True)
+    split = json.loads(df.to_json(orient="split"))
+    table = {c: [row[i] for row in split["data"]]
+             for i, c in enumerate(split["columns"])}
+    return table, json.loads(out.to_json(orient="records"))
+
+
+def _http(port, path, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="GET" if body is None
+        else "POST", data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=240) as r:
+        return r.status, json.loads(r.read())
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.parametrize("flag", ["--serve", "--serve-port",
+                                  "--serve-cache-dir", "--fleet",
+                                  "--autoscale"])
+def test_serving_flags_serve_the_jax_frame(inputs, tmp_path, monkeypatch,
+                                           served_want, flag):
+    """``main(argv)`` runs the service (or the fleet) on this thread; the
+    entry point's signal-handler hook is replaced by one that exercises
+    the started server from a thread and then drains it, as SIGTERM would.
+    ``/healthz`` answers, and a ``POST /repair`` of in.csv answers the JAX
+    package's frame. Fleet workers are ``python -m delphi_tpu_torch.main
+    --serve`` processes on the CPU."""
+    from delphi_tpu_torch.observability import fleet, serve
+
+    table, want = served_want
+    cache = tmp_path / "cache"
+    port = _free_port() if flag == "--serve-port" else 0
+    argv = ["--serve", "--serve-port", str(port)]
+    if flag == "--serve-cache-dir":
+        argv += ["--serve-cache-dir", str(cache)]
+    if flag in ("--fleet", "--autoscale"):
+        argv = ["--fleet", "2", "--serve-port", "0", "--serve-cache-dir",
+                str(cache)] + (["--autoscale"] if flag == "--autoscale"
+                               else [])
+        for key, value in (("DELPHI_TORCH_DEVICE", "cpu"),
+                           ("OMP_NUM_THREADS", "1"),
+                           ("DELPHI_FLEET_HEARTBEAT_S", "0.5"),
+                           ("DELPHI_COMPILE_CACHE_DIR", str(cache / "cc"))):
+            monkeypatch.setenv(key, value)
+    else:
+        # RepairServer.start arms the build cache in the environment
+        monkeypatch.setenv("DELPHI_COMPILE_CACHE_DIR", str(cache / "cc"))
+    scalers = []
+
+    class _Scaler(fleet.FleetAutoscaler):
+        def start(self):
+            scalers.append(self)
+            return super().start()
+
+    monkeypatch.setattr(fleet, "FleetAutoscaler", _Scaler)
+    seen = {}
+
+    def exercise(target):
+        try:
+            seen["port"] = target.port
+            seen["health"] = _http(target.port, "/healthz")
+            seen["repair"] = _http(target.port, "/repair",
+                                   {"table": table, "row_id": "tid"})
+            seen["cache"] = target.cache_dir
+        except BaseException as e:
+            seen["error"] = e
+        finally:
+            if isinstance(target, fleet.FleetRouter):
+                target.drain()
+            else:
+                target.drain(grace_s=10)
+
+    def hook(target):
+        import threading
+        threading.Thread(target=exercise, args=(target,),
+                         daemon=True).start()
+
+    monkeypatch.setattr(serve, "install_signal_handlers", hook)
+    monkeypatch.setattr(fleet, "install_signal_handlers", hook)
+    assert t_main.main(argv) == 0
+    assert "error" not in seen, seen.get("error")
+    status, health = seen["health"]
+    assert status == 200 and health["status"] == "ok"
+    status, body = seen["repair"]
+    assert status == 200 and body["frame"] == want
+    if flag == "--serve-port":
+        assert seen["port"] == port
+    if flag in ("--serve-cache-dir", "--fleet", "--autoscale"):
+        assert seen["cache"] == str(cache)
+        assert (cache / "plans").is_dir() and (cache / "models").is_dir()
+    if flag in ("--fleet", "--autoscale"):
+        assert sorted(health["live"]) == ["0", "1"]
+        assert body["worker_id"] in ("0", "1") and body["hops"] == 1
+    assert len(scalers) == (flag == "--autoscale")
 
 
 @pytest.mark.parametrize("flags", [

@@ -1427,3 +1427,105 @@ def test_live_device_gauges_on_card(card, monkeypatch):
         == gauges[f"device.{index}.bytes_in_use"]
     assert gauges["device.peak_bytes_in_use"] >= gauges["device.bytes_in_use"]
     assert rec.live is None
+
+
+@pytest.mark.cuda
+def test_launch_counts_exact_when_threads_launch_side_by_side(card):
+    """Served requests launch K1 and K2 from several threads at once: the
+    wrappers' launch counts lose no update (16 threads, 40 calls each, a
+    switch interval of a microsecond) and every result equals the plain
+    version's."""
+    import sys
+    import threading
+
+    rng = np.random.default_rng(3)
+    vocab = [7, 5, 31]
+    n = 4_099
+    cpu = torch.from_numpy(np.stack([_codes(rng, n, v) for v in vocab]))
+    pairs = [(0, 1), (1, 2), (2, 0)]
+    want, off = k_pair.pair_counts_plain(cpu, pairs, vocab)
+    _, want_t, _ = k_entropy.entropy_terms_plain(want, off, n)
+    codes = cpu.to(card)
+    threads, calls, bad = 16, 40, []
+    before = (k_pair.launches, k_entropy.launches)
+
+    def work():
+        for _ in range(calls):
+            got, _ = k_pair.pair_counts(codes, pairs, vocab)
+            _, t, _ = k_entropy.entropy_terms(got, off, n)
+            if not (torch.equal(got.cpu(), want)
+                    and torch.equal(t.cpu(), want_t)):
+                bad.append(1)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert not bad
+    assert (k_pair.launches - before[0],
+            k_entropy.launches - before[1]) == (threads * calls,
+                                                threads * calls)
+
+
+@pytest.mark.cuda
+def test_served_frame_is_the_card_run_on_card(card, tmp_path):
+    """A request served on the card answers the card's ``run()`` frame,
+    sorted by all columns, byte for byte, and launches K1 and K2 inside
+    the request."""
+    import json
+    import urllib.request
+
+    from delphi_tpu_torch.observability.serve import RepairServer
+
+    rng = np.random.RandomState(5)
+    n = 2_000
+    level = rng.randint(0, 10, n)
+    df = pd.DataFrame({"tid": np.arange(n),
+                       "level": [f"lv{v}" for v in level],
+                       "tier": [f"t{v // 2}" for v in level],
+                       "band": [f"b{v % 5}" for v in level],
+                       "seg": [f"s{v}" for v in rng.randint(0, 4, n)]})
+    for col in ("tier", "band"):
+        df.loc[rng.rand(n) < 0.2, col] = None
+    options = {"error.max_attrs_to_compute_pairwise_stats": "4",
+               "model.hp.max_evals": "1"}
+    T.set_device("cuda")
+    model = T.delphi.repair.setInput(df).setRowId("tid") \
+        .setErrorDetectors([T.NullErrorDetector()])
+    for key, value in options.items():
+        model = model.option(key, value)
+    out = model.run()
+    out = out.sort_values(list(out.columns)).reset_index(drop=True)
+    want = json.dumps(json.loads(out.to_json(orient="records")))
+    split = json.loads(df.to_json(orient="split"))
+    table = {c: [row[i] for row in split["data"]]
+             for i, c in enumerate(split["columns"])}
+    compile_dir = os.environ.get("DELPHI_COMPILE_CACHE_DIR")
+    srv = RepairServer(port=0, workers=2,
+                       cache_dir=str(tmp_path / "cache")).start()
+    try:
+        before = (k_pair.launches, k_entropy.launches)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/repair", method="POST",
+            data=json.dumps({"table": table, "row_id": "tid",
+                             "options": options}).encode())
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = json.loads(r.read())
+        assert k_pair.launches > before[0]
+        assert k_entropy.launches > before[1]
+    finally:
+        srv.stop()
+        if compile_dir is None:
+            os.environ.pop("DELPHI_COMPILE_CACHE_DIR", None)
+        else:
+            os.environ["DELPHI_COMPILE_CACHE_DIR"] = compile_dir
+    assert body["status"] == "ok"
+    assert json.dumps(body["frame"]) == want

@@ -383,6 +383,46 @@ print(json.dumps({"span": [lo, hi], "want": want[0][0].tolist(),
                   "mods": mods}))
 """
 
+_RUN_SLICE15 = """
+import json, os, sys, tempfile, urllib.request
+from delphi_tpu_torch.observability.fleet import FleetRouter, rendezvous_rank
+from delphi_tpu_torch.observability.serve import RepairServer
+from delphi_tpu_torch.parallel import dist_resilience
+
+n = 24
+table = {"tid": [str(i) for i in range(n)],
+         "c0": ["a" if i % 2 else "b" for i in range(n)],
+         "c1": [None if i % 11 == 0 else str(i % 4) for i in range(n)],
+         "c2": [str((i * 7) % 5) for i in range(n)]}
+cache = tempfile.mkdtemp()
+srv = RepairServer(port=0, workers=1, cache_dir=cache,
+                   fleet_dir=os.path.join(cache, "fleet"),
+                   worker_id="0").start()
+try:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}/repair", method="POST",
+        data=json.dumps({"table": table, "row_id": "tid"}).encode())
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body = json.loads(r.read())
+    members = dist_resilience.scan_membership(os.path.join(cache, "fleet"),
+                                              srv.fleet_heartbeat_s)
+    router = FleetRouter(port=0, cache_dir=cache, spawn=False).start()
+    try:
+        routed, answer, _ = router.handle_repair({"table": table,
+                                                  "row_id": "tid"})
+    finally:
+        router.stop()
+finally:
+    srv.drain(grace_s=5)
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({"status": body["status"], "rows": body["rows"],
+                  "members": members["0"]["status"], "routed": routed,
+                  "same": answer.get("frame") == body["frame"],
+                  "mods": mods}))
+"""
+
 
 def _python(code, **env_over):
     env = {k: v for k, v in os.environ.items()
@@ -574,4 +614,19 @@ def test_shard_plane_modules_run_without_jax():
     mine = [r for r in out["want"] if r < 40]
     assert out["got"] == mine + mine
     assert out["latched"]
+    assert out["mods"] == []
+
+
+def test_serving_plane_and_fleet_run_without_jax():
+    """The serving plane and the fleet (slice 15) run without JAX or
+    ``delphi_tpu`` loaded: a fleet-registered ``RepairServer`` answers a
+    ``POST /repair`` on the CPU, ``scan_membership`` reads its liveness
+    stamp, and a router attached to it routes the same request to it."""
+    proc = _python(_RUN_SLICE15, DELPHI_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["status"] == "ok" and out["rows"] > 0
+    assert out["members"] == "live"
+    assert out["routed"] == 200 and out["same"]
     assert out["mods"] == []
