@@ -47,11 +47,17 @@ persistent repair service instead of a batch repair (``POST /repair`` with
 a JSON table; SIGTERM drains it); ``--fleet N [--autoscale]`` runs N such
 workers behind a router on ``--serve-port``
 (:mod:`delphi_tpu_torch.observability.fleet`). ``--input``, ``--row-id``
-and ``--output`` are required unless ``--serve`` or ``--fleet`` is given.
+and ``--output`` are required unless ``--serve``, ``--fleet`` or
+``--gauntlet`` is given.
 
-The gauntlet's flags of the JAX package's CLI are accepted under their
-own names and raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings them.
+The gauntlet: ``--gauntlet [--gauntlet-rows N] [--gauntlet-seed S]
+[--gauntlet-scenarios a,b] [--gauntlet-no-repairs]`` runs the generated
+scenarios (:mod:`delphi_tpu_torch.gauntlet`) through the pipeline instead
+of a batch repair, prints one line per scenario on stderr and one JSON
+line on stdout, and writes the run report's ``gauntlet`` section with
+``--metrics-out``. It exits with code 1 when a scenario errored, and with
+code 3 when ``--baseline-report`` and ``--drift-fail-over`` trip the
+per-scenario drift gate.
 """
 
 import argparse
@@ -67,21 +73,6 @@ from delphi_tpu_torch.errors import ConstraintErrorDetector, NullErrorDetector
 from delphi_tpu_torch.observability.provenance import MEMORY_PATH
 from delphi_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from delphi_tpu_torch.session import get_session
-
-_GAUNTLET = "queue 1 item 10c of ROADMAP.md (the gauntlet)"
-
-# (flag, argparse keyword arguments, the ROADMAP item that brings it)
-_UNPORTED = [
-    ("--gauntlet", dict(action="store_true"), _GAUNTLET),
-    ("--gauntlet-rows", dict(type=int, default=None), _GAUNTLET),
-    ("--gauntlet-seed", dict(type=int, default=None), _GAUNTLET),
-    ("--gauntlet-scenarios", dict(type=str, default=""), _GAUNTLET),
-    ("--gauntlet-no-repairs", dict(action="store_true"), _GAUNTLET),
-]
-
-
-def _dest(flag: str) -> str:
-    return flag.lstrip("-").replace("-", "_")
 
 
 def _detectors(args) -> list:
@@ -148,6 +139,83 @@ def _stream_batch(args, session) -> int:
         return 1
     result.to_csv(args.output, index=False)
     print(f"wrote {len(result)} rows to {args.output}", file=sys.stderr)
+    return 0
+
+
+def _run_gauntlet_cli(args) -> int:
+    """``--gauntlet``: runs the scenario gauntlet and emits the v7 run
+    report's ``gauntlet`` section. Exit 0 on success, 1 when any scenario
+    errored, 3 when the per-scenario drift gate trips against
+    ``--baseline-report``."""
+    from delphi_tpu_torch.gauntlet.runner import (emit_gauntlet_metrics,
+                                                  run_gauntlet)
+
+    names = [n.strip() for n in args.gauntlet_scenarios.split(",")
+             if n.strip()] or None
+    report = run_gauntlet(
+        names=names, rows=args.gauntlet_rows, seed=args.gauntlet_seed,
+        repairs_enabled=not args.gauntlet_no_repairs,
+        heartbeat=lambda msg: print(msg, file=sys.stderr))
+
+    # Each scenario ran under its own recorder (so its scorecards came
+    # from its own provenance ledger); the wrapper recorder opens AFTER
+    # them to carry the aggregate gauntlet.* metrics and the run report.
+    drift_result = None
+    recorder = obs.start_recording(
+        "batch.gauntlet",
+        events_path=obs.events_path_for(args.metrics_out or None))
+    try:
+        if recorder is not None:
+            emit_gauntlet_metrics(recorder.registry, report)
+            recorder.gauntlet = report
+        if args.baseline_report:
+            from delphi_tpu_torch.observability import drift
+            baseline = obs.load_run_report(args.baseline_report)
+            drift_result = drift.evaluate_gauntlet(
+                report, baseline, fail_over=args.drift_fail_over,
+                registry=recorder.registry if recorder else None)
+            if recorder is not None:
+                recorder.drift = drift_result
+    finally:
+        if recorder is not None:
+            obs.stop_recording(recorder)
+            if args.metrics_out:
+                obs.write_run_report(
+                    obs.build_run_report(
+                        recorder,
+                        run={"mode": "gauntlet",
+                             "scenarios": sorted(report["scenarios"])},
+                        status="ok"),
+                    args.metrics_out)
+
+    for name, s in sorted(report["scenarios"].items()):
+        d = s["downstream"]
+        print(f"gauntlet {name}: f1={s['repair']['f1']} "
+              f"({s['repair']['correct']}/{s['repair']['injected']} cells) "
+              f"downstream[{d['metric']}] dirty={d['dirty']} "
+              f"repaired={d['repaired']} clean={d['clean']} "
+              f"gap_closed={d['gap_closed']}"
+              + (f" ERROR={s['error']}" if s.get("error") else ""),
+              file=sys.stderr)
+    print(json.dumps({
+        "mode": "gauntlet", "rows": report["rows"], "seed": report["seed"],
+        "repairs_enabled": report["repairs_enabled"],
+        "mean_f1": report["mean_f1"],
+        "mean_gap_closed": report["mean_gap_closed"],
+        "scenarios": {n: s["repair"]["f1"]
+                      for n, s in report["scenarios"].items()},
+        **({"drift": {k: drift_result[k] for k in
+                      ("max_severity", "failed", "baseline_missing")}}
+           if drift_result else {}),
+    }))
+    if drift_result is not None and drift_result.get("failed"):
+        print(f"gauntlet drift gate FAILED (fail-over "
+              f"{args.drift_fail_over})", file=sys.stderr)
+        return 3
+    errored = [n for n, s in report["scenarios"].items() if s.get("error")]
+    if errored:
+        print(f"gauntlet scenarios errored: {errored}", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -324,15 +392,41 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "under ROOT (a plans directory, or a directory "
                              "holding one) as JSON and exit: buckets "
                              "ranked by pad-adjusted device milliseconds")
-    for flag, kwargs, item in _UNPORTED:
-        parser.add_argument(flag, dest=_dest(flag),
-                            help=f"not ported yet ({item})", **kwargs)
+    parser.add_argument("--gauntlet", dest="gauntlet", action="store_true",
+                        help="run the generated scenario gauntlet instead of "
+                             "a batch repair: seeded synthetic workloads "
+                             "with injected errors through the full "
+                             "pipeline, scored per-cell (P/R/F1 vs injected "
+                             "ground truth) and by downstream accuracy "
+                             "(dirty vs repaired vs clean). Needs no "
+                             "--input/--output and zero external testdata; "
+                             "with --baseline-report, gates per-scenario "
+                             "quality (exit 3 on --drift-fail-over trip). "
+                             "See docs/source/gauntlet.rst")
+    parser.add_argument("--gauntlet-rows", dest="gauntlet_rows", type=int,
+                        default=None,
+                        help="rows per gauntlet scenario (default 2000; "
+                             "each scenario documents a 2k->100k scale "
+                             "series). Equivalent to DELPHI_GAUNTLET_ROWS")
+    parser.add_argument("--gauntlet-seed", dest="gauntlet_seed", type=int,
+                        default=None,
+                        help="gauntlet generation seed (default 0): the "
+                             "same (scenario, rows, seed) triple is byte-"
+                             "identical everywhere. Equivalent to "
+                             "DELPHI_GAUNTLET_SEED")
+    parser.add_argument("--gauntlet-scenarios", dest="gauntlet_scenarios",
+                        type=str, default="",
+                        help="comma-separated scenario names (default: the "
+                             "full registry). Equivalent to "
+                             "DELPHI_GAUNTLET_SCENARIOS")
+    parser.add_argument("--gauntlet-no-repairs", dest="gauntlet_no_repairs",
+                        action="store_true",
+                        help="deliberate degradation self-test: score the "
+                             "scenarios with repairs disabled, so a "
+                             "--baseline-report gate against a healthy run "
+                             "must trip")
     args = parser.parse_args(argv)
 
-    for flag, kwargs, item in _UNPORTED:
-        if getattr(args, _dest(flag)) != kwargs.get("default", False):
-            raise NotImplementedError(
-                f"{flag} is not ported to delphi_tpu_torch yet ({item})")
     if args.fsck:
         # files only: scan the root, print per-store health, exit 0 (clean)
         # or 4 (corruption found, now quarantined)
@@ -347,7 +441,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          sort_keys=True))
         return 0
     serving = args.serve or args.fleet > 0
-    if not serving and not (args.input and args.row_id and args.output):
+    if not serving and not args.gauntlet \
+            and not (args.input and args.row_id and args.output):
         parser.error("--input, --row-id and --output are required "
                      "(unless --serve)")
 
@@ -358,7 +453,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             "repair.collective.timeout_s":
                 "" if args.collective_timeout_s is None
                 else str(args.collective_timeout_s)}
-    if args.stream <= 0 and not serving:
+    if args.gauntlet:
+        # the gauntlet joins no cluster and takes the live plane's port
+        # only, as in the JAX package
+        conf = {"repair.metrics.port":
+                "" if args.metrics_port is None else str(args.metrics_port)}
+    elif args.stream <= 0 and not serving:
         # the drift gate needs this run's scorecards, which come from the
         # provenance ledger; an in-memory ledger costs no file I/O
         provenance = args.provenance_out
@@ -377,6 +477,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     prior = {k: session.conf.get(k) for k, v in conf.items() if v}
     session.conf.update((k, v) for k, v in conf.items() if v)
     try:
+        if args.gauntlet:
+            return _run_gauntlet_cli(args)
         # join the cluster (DELPHI_COORDINATOR) before any work, under the
         # collective deadline set above
         maybe_initialize_distributed()

@@ -35,9 +35,9 @@
   workers behind a rendezvous-hashing router with liveness-routed
   failover, and ``FleetAutoscaler`` scales them from queue pressure
   (``main.py --fleet N [--autoscale]``).
-
-The gauntlet is queue 1 item 10c of ``ROADMAP.md``; the CLI raises for its
-flags.
+* :mod:`.load` — the sustained-load harness: a seeded open-loop arrival
+  schedule over gauntlet-generated tables, bounded retries, and the run
+  report's ``slo`` section (``DELPHI_LOAD_*``).
 """
 
 import os

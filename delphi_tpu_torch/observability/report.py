@@ -16,6 +16,7 @@ Schema (version 8; version 1-7 reports still load, see
       "metrics": {"counters": {}, "gauges": {}, "histograms": {}},
       "spans": {name, start_s, wall_s, [device_s], children: [...]},
       "device_time": {trace_dir, device_busy_s, per_phase: {},
+                      complete: bool,                     # the port's
                       top_kernels: [{name, total_s}],     # the port's
                       per_phase_kernels: {}} | null,      # the port's
       "per_process": null | {                # multi-host runs only
@@ -106,8 +107,10 @@ def attribute_device_time(events: Optional[List[Any]],
     span names.
 
     Returns ``{"device_busy_s": float, "per_phase": {name: seconds},
-    "top_kernels": [...], "per_phase_kernels": {name: [...]}}`` (the
-    kernels by device seconds, overall and inside each span's ranges), or
+    "complete": bool, "top_kernels": [...], "per_phase_kernels": {name:
+    [...]}}`` (``complete`` False when the profile's primer kept no record,
+    :func:`delphi_tpu_torch.utils.profiling.drop_primer`; the kernels by
+    device seconds, overall and inside each span's ranges), or
     ``None`` when the profile holds no device records (a run on the CPU)
     or no range of the spans."""
     from delphi_tpu_torch.utils import profiling
@@ -122,6 +125,7 @@ def attribute_device_time(events: Optional[List[Any]],
                  for name, iv in sorted(windows.items())}
     busy_s, top = profiling.busy_and_top_kernels(events)
     return {"device_busy_s": round(busy_s, 6), "per_phase": per_phase,
+            "complete": bool(getattr(events, "complete", True)),
             "top_kernels": _named(top),
             "per_phase_kernels": {
                 name: _named(kernels) for name, kernels in

@@ -304,10 +304,10 @@ def default_policy() -> RetryPolicy:
 
 # -- fault injection ---------------------------------------------------------
 
-#: Every site name of the JAX package's guarded seam. The port enters
-#: those its tests check against its ``run_guarded`` / ``_maybe_inject``
-#: literals; the others wait for the ROADMAP.md items named beside them,
-#: and stay here so one plan text validates alike in both packages.
+#: Every site name of the JAX package's guarded seam, so one plan text
+#: validates alike in both packages. The port enters each of them but
+#: ``freq.pairs``, the JAX package's XLA pair-count route (noted beside
+#: it).
 KNOWN_SITES = frozenset({
     "backend.init",
     "xfer.upload",
@@ -324,7 +324,7 @@ KNOWN_SITES = frozenset({
     "autoscale.http",
     "domain.score",
     "domain.weak_label",
-    # the launch planner's bucketed domain launches: queue 1 item 8b
+    # the launch planner's bucketed domain launches
     "domain.bucket",
     "detect.percentile",
     "detect.rank",

@@ -21,11 +21,24 @@ back:
 ``device_busy_s``, ``top_kernels``, ``profile_error``). A run on the CPU
 has no device records: it answers ``device_busy_frac: None`` with an
 error string, as the JAX class answers "no device planes in trace".
+
+A session that is not the process's first can lose the records of its
+first launches, while the process's first session keeps them
+(``python3 chip_smoke.py --profile-probe`` counts them on a card; the
+port's ``PERF.md`` has its numbers). So a session on the card opens with
+a primer (:data:`PRIMER`): launches of a one-element kernel, each waited
+for, that take that loss ahead of the profiled work. Its records are
+dropped from what
+:func:`stop_profiler` returns, and when none of them survived the loss may
+reach past the primer: the returned :class:`ProfileEvents` then say
+``complete=False``, which the run report and :class:`DeviceUtilization`
+pass on.
 """
 
 import bisect
 import os
 import tempfile
+import time
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 KERNEL = "kernel"
@@ -48,6 +61,15 @@ _ACTIVITY_KINDS = {"kernel": KERNEL, "gpu_memcpy": MEMCPY,
 DEFAULT_TOP_KERNELS = 3
 
 Interval = Tuple[int, int]
+
+#: the ``record_function`` range that opens a profile on the card
+PRIMER = "profiler.primer"
+#: its launches, each waited for and followed by a short idle gap, as the
+#: spaced launches that a later session loses are
+PRIMER_LAUNCHES = 64
+PRIMER_GAP_S = 0.001
+#: what a profile whose primer kept no record reports
+INCOMPLETE = "the profile lost the device records of its first launches"
 
 
 class DeviceEvent(NamedTuple):
@@ -99,14 +121,59 @@ def events_from_kineto(raw: Iterable[Any]) -> List[DeviceEvent]:
     return out
 
 
+class ProfileEvents(list):
+    """A session's normalized records; ``complete`` is False when the
+    session's primer kept none of its records, so that the loss at the
+    session's start may have taken the profiled work's first records."""
+    complete = True
+
+
 def profiler_events(prof: Any) -> List[DeviceEvent]:
     """The normalized records of a stopped ``torch.profiler.profile``."""
     return events_from_kineto(prof.profiler.kineto_results.events())
 
 
+def prime(torch: Any) -> None:
+    """Runs the primer on the current card inside a started profile."""
+    from torch.profiler import record_function
+    x = torch.zeros(1, device=torch.device("cuda",
+                                           torch.cuda.current_device()))
+    with record_function(PRIMER):
+        for _ in range(PRIMER_LAUNCHES):
+            x.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(PRIMER_GAP_S)
+
+
+def drop_primer(events: Iterable[DeviceEvent]) -> ProfileEvents:
+    """``events`` without the primer's range, its device-side shadow and
+    the device records inside the shadow (on the card's clock: the host's
+    range can end a few microseconds after the card's clock has passed the
+    next launch). ``complete`` says whether the primer kept any device
+    record: a session whose primer lost every record has no shadow of it.
+    A session without a primer is complete."""
+    events = list(events)
+    out = ProfileEvents(e for e in events if e.name != PRIMER)
+    if not any(e.name == PRIMER and e.kind == ANNOTATION for e in events):
+        return out
+    shadow = annotation_windows(events, [PRIMER], DEVICE_RANGE).get(PRIMER)
+    if not shadow:
+        out.complete = False
+        return out
+    lo, hi = shadow[0][0], shadow[-1][1]
+
+    def inside(e: DeviceEvent) -> bool:
+        return e.kind in DEVICE_KINDS and lo <= e.start_ns and e.end_ns <= hi
+
+    out = ProfileEvents(e for e in out if not inside(e))
+    out.complete = any(inside(e) for e in events)
+    return out
+
+
 def start_profiler() -> Any:
     """A started ``torch.profiler.profile`` over host activity and, when a
-    card is present, CUDA activity."""
+    card is present, CUDA activity; on a card this process already uses,
+    the primer has run in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
@@ -114,17 +181,19 @@ def start_profiler() -> Any:
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        prime(torch)
     return prof
 
 
-def stop_profiler(prof: Any) -> List[DeviceEvent]:
+def stop_profiler(prof: Any) -> ProfileEvents:
     """Stops ``prof`` (after the card's queued work) and returns its
-    normalized records."""
+    normalized records without the primer's."""
     import torch
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     prof.stop()
-    return profiler_events(prof)
+    return drop_primer(profiler_events(prof))
 
 
 def export_trace(prof: Any, directory: str, name: str) -> str:
@@ -277,6 +346,8 @@ class DeviceUtilization:
                 out.update({"device_busy_frac": None,
                             "profile_error": "no device records in trace"})
                 return out
+            if not getattr(events, "complete", True):
+                out["profile_error"] = INCOMPLETE
             busy_s, top = busy_and_top_kernels(events, self._top_kernels)
             frac = min(1.0, busy_s / wall_seconds) if wall_seconds > 0 \
                 else 0.0

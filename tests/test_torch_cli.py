@@ -14,9 +14,11 @@ equal reports of the JAX package's ledgers; ``--metrics-port`` writes the
 JAX package's CSV with the live plane serving during the run; ``--serve``
 (with ``--serve-port`` and ``--serve-cache-dir``) answers ``/healthz`` and
 a ``POST /repair`` with the JAX package's frame, ``--fleet 2`` (with and
-without ``--autoscale``) routes that request to a worker process; every
-flag of the JAX package's CLI that the port does not have yet (the
-gauntlet's) raises, naming the ``ROADMAP.md`` item that brings it.
+without ``--autoscale``) routes that request to a worker process;
+``--gauntlet`` (with ``--gauntlet-rows``, ``--gauntlet-scenarios``,
+``--metrics-out``, and ``--gauntlet-no-repairs`` with
+``--baseline-report`` / ``--drift-fail-over``) gives the JAX CLI's exit
+codes, per-scenario lines, stdout JSON and report section.
 
 Both CLIs run in this process (``main(argv)``); one case also runs the
 port as ``python -m`` in a subprocess. The input has only string columns
@@ -39,6 +41,7 @@ import bench
 import delphi_tpu_torch as T
 from delphi_tpu import main as j_main
 from delphi_tpu_torch import main as t_main
+from delphi_tpu_torch import observability as t_obs
 from delphi_tpu.session import get_session as j_session
 from delphi_tpu_torch.parallel import store as t_store
 from delphi_tpu_torch.session import get_session as t_session
@@ -124,22 +127,141 @@ def test_cli_as_module_matches_in_process(inputs, tmp_path):
     assert out.read_text() == want.read_text()
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    ("--gauntlet", None, "item 10c"), ("--gauntlet-rows", "100", "item 10c"),
-    ("--gauntlet-seed", "1", "item 10c"),
-    ("--gauntlet-scenarios", "wide", "item 10c"),
-    ("--gauntlet-no-repairs", None, "item 10c"),
-])
-def test_unported_flags_raise_naming_their_item(inputs, tmp_path, flag,
-                                                value, item):
-    argv = ["--input", str(inputs / "in.csv"), "--row-id", "tid",
-            "--output", str(tmp_path / "o.csv"), flag]
-    if value is not None:
-        argv.append(value)
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag} .*queue 1 {item} of ROADMAP.md"):
-        t_main.main(argv)
-    assert not (tmp_path / "o.csv").exists()
+GAUNTLET_ARGS = ["--gauntlet", "--gauntlet-rows", "160",
+                 "--gauntlet-scenarios", "fd_categorical,correlated_multi"]
+
+
+def _captured(main, argv):
+    """(exit code, stdout, stderr) of ``main(argv)`` in this process."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.fixture(scope="module")
+def gauntlet_runs(tmp_path_factory):
+    """Both CLIs' ``--gauntlet`` on the two cheapest scenarios that launch
+    K1, K2 and K5 (160 rows, the size of the JAX package's gauntlet smoke),
+    each writing its run report, then ``--gauntlet-no-repairs`` against
+    that report with ``--drift-fail-over 0.25``. The port runs once more
+    repairing with the JAX run's trees (``from_state``): at this size the
+    CV search's trees tie in the last ulp, which moves posteriors (the
+    scorecards' confidences) though no repair."""
+    from test_torch_provenance import carry_jax_models
+    root = tmp_path_factory.mktemp("gauntlet")
+    T.set_device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    runs = {}
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            carry_jax_models(mp)
+            for name, main in (("jax", j_main.main),
+                               ("jax_trees", t_main.main)):
+                report = root / f"{name}.json"
+                runs[name] = {"healthy": _captured(
+                    main, GAUNTLET_ARGS + ["--metrics-out", str(report)]),
+                    "report": t_obs.load_run_report(str(report))}
+        runs["torch"] = {}
+        for name, main in (("jax", j_main.main), ("torch", t_main.main)):
+            report = root / f"{name}.json"
+            if name == "torch":
+                runs[name]["healthy"] = _captured(
+                    main, GAUNTLET_ARGS + ["--metrics-out", str(report)])
+                runs[name]["report"] = t_obs.load_run_report(str(report))
+            runs[name]["degraded"] = _captured(main, GAUNTLET_ARGS + [
+                "--gauntlet-no-repairs", "--baseline-report", str(report),
+                "--drift-fail-over", "0.25"])
+    finally:
+        torch.set_num_threads(threads)
+        T.set_device(None)
+    return runs["jax"], runs["torch"], runs["jax_trees"]
+
+
+def _scenario_lines(stderr):
+    return [ln for ln in stderr.splitlines()
+            if ln.startswith("gauntlet ") and ": f1=" in ln]
+
+
+def _section(report, cards=False):
+    """A run report's ``gauntlet`` section without its walls, and with
+    only (``cards``) or without each scenario's scorecards."""
+    section = json.loads(json.dumps(report["gauntlet"]))
+    scenarios = section["scenarios"]
+    for name, s in scenarios.items():
+        s.pop("elapsed_s")
+        if cards:
+            scenarios[name] = {k: s[k] for k in ("scorecards",
+                                                 "scorecard_summary")}
+        else:
+            s.pop("scorecards")
+            s.pop("scorecard_summary")
+    return section
+
+
+def _assert_close(got, want, tol, path=""):
+    """Equal structure, ints and strings; floats within ``tol``."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), path
+        for k in want:
+            _assert_close(got[k], want[k], tol, f"{path}/{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_close(g, w, tol, f"{path}[{i}]")
+    elif isinstance(want, float):
+        assert abs(got - want) <= tol, (path, got, want)
+    else:
+        assert got == want, (path, got, want)
+
+
+@pytest.mark.parametrize("part", [
+    "exit_codes", "scenario_lines", "stdout_json", "report_section",
+    "report_metrics", "degraded_gate"])
+def test_gauntlet_flags_match_jax(gauntlet_runs, part):
+    want, got, jax_trees = gauntlet_runs
+    if part == "exit_codes":
+        assert got["healthy"][0] == want["healthy"][0] == 0
+        assert got["degraded"][0] == want["degraded"][0] == 3
+    elif part == "scenario_lines":
+        lines = _scenario_lines(got["healthy"][2])
+        assert len(lines) == 2
+        assert lines == _scenario_lines(want["healthy"][2])
+    elif part == "stdout_json":
+        out = json.loads(got["healthy"][1].strip().splitlines()[-1])
+        assert out == json.loads(want["healthy"][1].strip().splitlines()[-1])
+        assert out["mode"] == "gauntlet" and out["rows"] == 160
+        assert sorted(out["scenarios"]) == ["correlated_multi",
+                                            "fd_categorical"]
+    elif part == "report_section":
+        section = _section(got["report"])
+        assert section == _section(want["report"])
+        # the posteriors behind the scorecards, with the JAX run's trees
+        _assert_close(_section(jax_trees["report"], cards=True),
+                      _section(want["report"], cards=True), 1e-5)
+        assert _section(jax_trees["report"]) == section
+        assert got["report"]["run"] == want["report"]["run"] == {
+            "mode": "gauntlet",
+            "scenarios": ["correlated_multi", "fd_categorical"]}
+    elif part == "report_metrics":
+        def gauntlet_metrics(report):
+            m = report["metrics"]
+            return {kind: {k: v for k, v in m[kind].items()
+                           if k.startswith("gauntlet.")}
+                    for kind in ("counters", "gauges")}
+        metrics = gauntlet_metrics(got["report"])
+        assert metrics == gauntlet_metrics(want["report"])
+        assert metrics["counters"]["gauntlet.scenarios"] == 2
+    else:
+        out = json.loads(got["degraded"][1].strip().splitlines()[-1])
+        assert out == json.loads(
+            want["degraded"][1].strip().splitlines()[-1])
+        assert out["drift"]["failed"] is True
+        assert out["repairs_enabled"] is False
+        assert "gauntlet drift gate FAILED" in got["degraded"][2]
 
 
 @pytest.fixture(scope="module")

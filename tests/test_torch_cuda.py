@@ -1529,3 +1529,34 @@ def test_served_frame_is_the_card_run_on_card(card, tmp_path):
             os.environ["DELPHI_COMPILE_CACHE_DIR"] = compile_dir
     assert body["status"] == "ok"
     assert json.dumps(body["frame"]) == want
+
+
+@pytest.mark.cuda
+def test_gauntlet_card_matches_cpu(card):
+    """``run_gauntlet`` over ``fd_categorical`` and ``correlated_multi`` at
+    160 rows on the card and on the CPU: the same injected, repaired and
+    correct cell counts, ``train.*`` counters and downstream triples (null
+    where scikit-learn does not import, the runner's only stand-in), and
+    the card's run launched K1, K2 and K5's integer mode."""
+    import chip_smoke as cs
+    from delphi_tpu_torch.gauntlet.runner import run_gauntlet
+    from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
+    names = ["fd_categorical", "correlated_multi"]
+    reports = {}
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        before = (k_pair.launches, k_entropy.launches,
+                  k_domain.mode_launches["int"])
+        with cs.downstream_or_null():
+            reports[dev] = run_gauntlet(names=names, rows=160, seed=0)
+        if dev == "cuda":
+            assert all(a > b for a, b in zip(
+                (k_pair.launches, k_entropy.launches,
+                 k_domain.mode_launches["int"]), before))
+    for n in names:
+        cpu = reports["cpu"]["scenarios"][n]
+        gpu = reports["cuda"]["scenarios"][n]
+        assert not cpu.get("error") and not gpu.get("error")
+        assert gpu["repair"] == cpu["repair"] and gpu["repair"]["repairs"]
+        assert gpu["counters"] == cpu["counters"]
+        assert gpu["downstream"] == cpu["downstream"]

@@ -630,3 +630,38 @@ def test_serving_plane_and_fleet_run_without_jax():
     assert out["members"] == "live"
     assert out["routed"] == 200 and out["same"]
     assert out["mods"] == []
+
+
+_IMPORT_ONE = """
+import importlib, json, sys
+mod = importlib.import_module(sys.argv[1])
+from delphi_tpu_torch.gauntlet import generate_scenario
+from delphi_tpu_torch.observability import load
+data = generate_scenario("correlated_multi", 60, 0)
+segments = load.default_segments(20, 6.0, 3.0)
+schedule = load.build_schedule(segments, 4, 1.1, load.parse_mix("batch=1"), 0)
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "delphi_tpu" or m.startswith("delphi_tpu."))
+print(json.dumps({"truth": len(data.truth), "arrivals": len(schedule),
+                  "mods": mods}))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "delphi_tpu_torch.gauntlet", "delphi_tpu_torch.gauntlet.runner",
+    "delphi_tpu_torch.observability.load"])
+def test_gauntlet_and_load_import_without_jax(module):
+    """The gauntlet, its runner and the load harness (slice 16) import,
+    generate a scenario and build a load schedule without JAX or
+    ``delphi_tpu`` loaded."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DELPHI_TORCH_DEVICE", "PYTHONPATH")}
+    env["DELPHI_TORCH_DEVICE"] = "cpu"
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          cwd=REPO_ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["truth"] > 0 and out["arrivals"] > 0
+    assert out["mods"] == []

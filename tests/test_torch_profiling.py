@@ -233,6 +233,64 @@ def test_device_utilization_busy_fraction_from_records(monkeypatch):
         ["domain_scores_kernel", "pair_counts_kernel"]
 
 
+# a primer ahead of EVENTS: its range [-60, -2) us, its shadow [-58, -4)
+# us on the card's clock
+PRIMER_EVENTS = [
+    _ev(profiling.PRIMER, ANNOTATION, -60, -2),
+    _ev(profiling.PRIMER, DEVICE_RANGE, -58, -4),
+    _ev("vectorized_elementwise_kernel<add>", KERNEL, -58, -57),
+    _ev("vectorized_elementwise_kernel<add>", KERNEL, -5, -4),
+]
+# the primer lost its first launch: the shadow spans the second alone
+LATE_PRIMER = [PRIMER_EVENTS[0], _ev(profiling.PRIMER, DEVICE_RANGE, -5, -4),
+               PRIMER_EVENTS[3]]
+
+
+@pytest.mark.parametrize("kept,complete", [
+    (PRIMER_EVENTS, True),            # every primer record kept
+    (LATE_PRIMER, True),              # the loss ended inside the primer
+    (PRIMER_EVENTS[:1], False),       # the primer lost every device record
+])
+def test_drop_primer_removes_its_records_and_judges_the_loss(kept, complete):
+    # the first launch after the primer, on the card before the host's
+    # range has ended: inside the range, past the shadow
+    after = [_ev("vectorized_elementwise_kernel<mul>", KERNEL, -3, -2)]
+    got = profiling.drop_primer(kept + after + EVENTS)
+    assert list(got) == after + EVENTS
+    assert got.complete is complete
+    assert report.attribute_device_time(got, {"attr stats"})["complete"] \
+        is complete
+
+
+def test_drop_primer_without_a_primer_keeps_every_record():
+    got = profiling.drop_primer(EVENTS)
+    assert list(got) == EVENTS and got.complete is True
+    assert report.attribute_device_time(EVENTS, {"domain"})["complete"] \
+        is True
+
+
+def test_start_profiler_on_the_cpu_runs_no_primer():
+    prof = profiling.start_profiler()
+    torch.ones(64).sum()
+    events = profiling.stop_profiler(prof)
+    assert events.complete is True
+    assert not any(e.name == profiling.PRIMER
+                   for e in profiling.profiler_events(prof))
+
+
+def test_device_utilization_flags_a_profile_that_lost_its_start(
+        monkeypatch):
+    monkeypatch.setattr(profiling, "start_profiler", lambda: object())
+    monkeypatch.setattr(profiling, "stop_profiler",
+                        lambda prof: profiling.drop_primer(
+                            PRIMER_EVENTS[:1] + EVENTS))
+    util = profiling.DeviceUtilization()
+    util.start()
+    out = util.stop(0.0005)
+    assert out["profile_error"] == profiling.INCOMPLETE
+    assert out["device_busy_frac"] == pytest.approx(0.26)
+
+
 # -- the recorder, the registry and the report ---------------------------------
 
 def test_phase_spans_record_a_tree_and_profile_ranges(tmp_path,
