@@ -39,14 +39,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    tables exceed the budget, read through ``__ldg``) launch in both modes
    and equal the plain version; the three wrappers are run on the paths'
    inputs under ``torch.cuda.set_sync_debug_mode("error")`` (a
-   synchronisation fails);
+   synchronisation fails); K3 (``gbdt_hist``, ``gbdt_split``,
+   ``gbdt_route``: the tree builder's level kernels) and K4
+   (``gbdt_predict``) launch on every traced path that trains a GBDT (4,
+   4n, 4c, 4f, 4r's cold request, 4t; 4d trains only the logistic head)
+   and on each 4o rank, or the run fails; every traced path and every
+   rank of 4m, 4o and 4p records the first K3 / K4 call of each structure
+   (``gbdt_key``: the shapes but the row count, the levels, bins, channel
+   slots, tree-to-model map and hyperparameter kinds), each held bitwise
+   against its plain version right after its path (the ranks' in their
+   phase); the heaviest call of each kernel on each traced path is timed
+   and run under the sync check too;
    4c. the same table through batched training
    (``setParallelStatTrainingEnabled(True)``): the same frame, at least
    one multi-target CV launch and one batched fit launch, no fallback;
    4d. a seeded 200,000-row table whose one NULL-bearing column has 40
    classes: it must train the logistic head and repair at least 0.85;
-   4e. one boosting round of a CV step at the 1M run's shapes: ms and
-   the kernels it launches;
+   4e. one boosting round of a CV step at the 1M run's shapes, depths 3
+   and 5: ms, the kernels the profiler saw and the K3 launches (one K3a
+   per level and one for the leaf sums, one K3b and one K3c per level);
    4f. the constraints path, on a seeded 1,000,000-row table shaped like
    the gauntlet's ``fd_categorical`` (``fd_table``: typos, NULLs and
    FD-violating rewrites on state and region, outliers on amount), with
@@ -305,13 +316,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    span's wall), the per-phase device seconds and top kernels, the
    report's and the trace's bytes and the launch-cost ledger's buckets;
 
+   ``python3 chip_smoke.py --gbdt-ab PARENT N`` runs phase 1, then the
+   1M NULL run, 4r's 100,000-row table and 4e's rounds of this tree
+   against a ``git archive`` copy of the parent at PARENT, N times in
+   each of four processes, parent, change, change, parent
+   (:func:`parent_ab`: walls, training spans, ms per round, equal
+   frames);
    ``python3 chip_smoke.py --ab N`` runs phases 1 and 2, then N
    same-host pairs of 4l(a) and of 4l(b) in alternating order
    (:func:`planes_ab`), and prints their walls and spans with median and
    spread instead of the kernels line; ``python3 chip_smoke.py
    --domain-ab PARENT N`` runs phase 1, then the domain phase of this tree
    against a ``git archive`` copy of the parent commit at PARENT
-   (:func:`domain_ab`); ``python3 chip_smoke.py --profile-probe`` runs
+   (:func:`parent_ab`); ``python3 chip_smoke.py --profile-probe`` runs
    phase 1, then :func:`profile_probe` (bare and primed profiler sessions
    of spaced launches: which lose their first launches' records);
 
@@ -340,7 +357,9 @@ version and one library call.
 The last lines are a ``{"kernels": [...], "pytorch_programs": [...]}``
 JSON line (the hand kernels K1, K2 and K5, one entry for each of K5's
 modes, the integer mode's numbers from its main path, the escalation run;
-and K8, which is plain PyTorch),
+K3's three kernels and K4, each with the numbers of its heaviest recorded
+call of the main path and every recorded call under ``calls``; and K8,
+which is plain PyTorch),
 the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -361,6 +380,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # rate outside the tensor cores for the f64 entropy arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+# and the FP32 rate outside the tensor cores, for the GBDT kernels' sums
+FP32_OPS_PER_S = 67e12
 # f64 operations per nonzero count in K2: divide, log2, multiply, add
 K2_OPS_PER_NONZERO = 4
 
@@ -429,6 +450,17 @@ CHECK_2K_ROWS = 2_000
 # integer mode (the ledger records each cell's domain size); every other
 # path that scores cells takes its weak-label mode.
 K5_INT_PATHS = ("escalation", "incremental", "resilience", "gauntlet")
+# K3 (the tree builder's three level kernels) and K4 (the predictor)
+GBDT_KERNELS = ("gbdt_hist", "gbdt_split", "gbdt_route", "gbdt_predict")
+# the traced paths that train and apply a GBDT (4d trains only the
+# logistic head): each must launch all four
+GBDT_PATHS = ("e2e", "report", "batched", "constraints", "served",
+              "gauntlet")
+# the path whose heaviest K3 / K4 calls give the kernels line its times
+GBDT_MAIN_PATH = "e2e"
+# the axis of a K3 / K4 argument that runs over the rows: gbdt_key leaves
+# its length out
+GBDT_ROW_AXIS = {"vals": 1, "node": 1, "bins": -2}
 # 4i: the provenance ledger on a missing_heavy run, and the escalation
 # tier on escalation_table (NULL and regex detectors on c2). 4i(a) ran the
 # 1M table of 4 and 4i(b) 1,000,000 rows at a budget of 131,072 at first;
@@ -2152,9 +2184,10 @@ def planes_ab(torch, T, pairs: int) -> dict:
     return out
 
 
-# One side of ``--domain-ab``: run from a tree's root, it imports that
-# tree's package and chip_smoke (the parent commit's too), then runs the
-# 1M NULL run of 4 and the 1M constraints run of 4f(b), once unmeasured
+# One side of ``--domain-ab`` (:func:`parent_ab`): run from a tree's root,
+# it imports that tree's package and chip_smoke (the parent commit's too),
+# then runs the 1M NULL run of 4 and the 1M constraints run of 4f(b), once
+# unmeasured
 # and then argv[1] times each, and prints per run the wall, the domain
 # span, the bytes the domain phase copied off the card and a digest of the
 # frame. Both runs take one GBDT config: the domain phase runs before
@@ -2188,47 +2221,109 @@ print("DOMAIN_AB " + json.dumps(out), flush=True)
 """
 
 
-def domain_ab(parent: str, reps: int) -> dict:
-    """``python3 chip_smoke.py --domain-ab PARENT REPS``: the domain phase
-    of this tree against the parent commit's (a ``git archive`` copy at
-    PARENT), same host, in four processes in the order parent, change,
-    change, parent (:data:`DOMAIN_AB_CHILD`): walls, domain spans and bytes
-    copied off the card of the 1M NULL and 1M constraints runs, with their
-    medians; the frames' digests must be equal on both sides."""
+def parent_ab(tag: str, child: str, parent: str, reps: int) -> dict:
+    """``python3 chip_smoke.py --domain-ab|--gbdt-ab PARENT REPS``: this
+    tree against the parent commit's (a ``git archive`` copy at PARENT),
+    same host, in four processes in the order parent, change, change,
+    parent, each running ``child`` (:data:`DOMAIN_AB_CHILD`,
+    :data:`GBDT_AB_CHILD`) from its tree's root with REPS. A child prints
+    one line ``<TAG> {name: [run, ...]}``; the runs' digests, where they
+    have one, must be equal on both sides. Returns the runs and, per side
+    and name, the spread of every other number of a run (a value that is
+    not a number on every run: the first run's)."""
     out = {"parent": {}, "change": {}}
+    mark = tag.upper().replace("-", "_") + " "
     for side in ("parent", "change", "change", "parent"):
         root = os.path.abspath(parent) if side == "parent" else HERE
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", DOMAIN_AB_CHILD,
-                               str(reps)], cwd=root, capture_output=True,
-                              text=True, timeout=900)
-        lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith("DOMAIN_AB ")]
+        proc = subprocess.run([sys.executable, "-c", child, str(reps)],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(mark)]
         if proc.returncode or not lines:
-            fail(f"domain-ab: the {side} process failed:\n"
+            fail(f"{tag}: the {side} process failed:\n"
                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        res = json.loads(lines[-1][len("DOMAIN_AB "):])
+        res = json.loads(lines[-1][len(mark):])
         for name, runs in res.items():
             out[side].setdefault(name, []).extend(runs)
-        log(f"[domain-ab] {side} ({root}, {time.perf_counter() - t0:.1f} "
-            f"s): {json.dumps(res)}")
+        log(f"[{tag}] {side} ({root}, {time.perf_counter() - t0:.1f} s): "
+            f"{json.dumps(res)}")
+    summary = {side: {} for side in out}
     for name in out["change"]:
-        digests = {r["digest"] for side in out for r in out[side][name]}
-        if len(digests) != 1:
-            fail(f"domain-ab: the {name} frames differ between the parent "
-                 "and the change")
+        digests = {r["digest"] for side in out for r in out[side][name]
+                   if "digest" in r}
+        if len(digests) > 1:
+            fail(f"{tag}: the {name} frames differ between the parent and "
+                 "the change")
         for side in out:
             runs = out[side][name]
-            out[side][name] = {
-                "runs": runs,
-                "domain_s": spread([r["domain_s"] for r in runs]),
-                "wall_s": spread([r["wall_s"] for r in runs]),
-                "bytes_to_host": runs[0]["bytes_to_host"]}
-    summary = {side: {name: {k: v for k, v in res.items() if k != "runs"}
-                      for name, res in runs.items()}
-               for side, runs in out.items()}
-    log(f"[domain-ab] frames equal on both sides; {json.dumps(summary)}")
-    return out
+            summary[side][name] = {
+                k: spread([r[k] for r in runs])
+                if all(isinstance(r[k], (int, float)) for r in runs)
+                else runs[0][k] for k in runs[0] if k != "digest"}
+    log(f"[{tag}] frames equal on both sides; {json.dumps(summary)}")
+    return {"runs": out, "summary": summary}
+
+
+# One side of ``--gbdt-ab`` (:func:`parent_ab`): after a 20,000-row warm-up,
+# argv[1] times the 1M NULL run (4's table and options) and 4r's
+# 100,000-row table A through ``run()``, each with its wall, training span
+# and frame digest, and 4e's ms per round at depths 3 and 5
+GBDT_AB_CHILD = r"""
+import json, sys, time
+import pandas as pd
+import torch
+import chip_smoke as cs
+import delphi_tpu_torch as T
+from delphi_tpu_torch.models import gbdt
+from delphi_tpu_torch.utils import phase_walls
+T.set_device("cuda")
+reps = int(sys.argv[1])
+_, null_df = cs.missing_heavy(cs.E2E_ROWS, seed=0)
+_, serve_df = cs.missing_heavy(cs.SERVE_ROWS, seed=cs.SERVE_SEEDS[0])
+cs.repair(T, cs.missing_heavy(cs.CHECK_ROWS, seed=1)[1])   # warm-up
+
+
+def round_ms(depth):
+    # 4e's timing at its shapes (3 folds x 8 class trees, 10,000 rows, 4
+    # features), written out: the parent's boost_round_profile takes other
+    # arguments
+    g = torch.Generator(device="cuda").manual_seed(0)
+    M, k, n, d = 3, 8, 10_000, 4
+    bins = torch.randint(0, 64, (M, n, d), device="cuda", generator=g)
+    y = torch.randint(0, 6, (M, n), device="cuda", generator=g).float()
+    w = torch.ones((M, n), device="cuda")
+    F = torch.zeros((M, k, n), device="cuda")
+    run = lambda r: gbdt._boost(bins, y, w, F, r, depth, 64, "multiclass",
+                                k, 0.1, 1.0, 0.0, 1.0, 0.0, use_counts=False,
+                                collect_trees=False)
+    run(1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(4)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 4
+
+
+out = {"null_1m": [], "table_100k": [], "round_ms": []}
+for _ in range(reps):
+    for name, df in (("null_1m", null_df), ("table_100k", serve_df)):
+        phase_walls.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = cs.repair(T, df)
+        torch.cuda.synchronize()
+        out[name].append({
+            "wall_s": time.perf_counter() - t0,
+            "training_s": phase_walls.get("repair model training"),
+            "digest": int(pd.util.hash_pandas_object(
+                frame, index=False).sum())})
+    out["round_ms"].append({"depth3": round_ms(3), "depth5": round_ms(5)})
+print("GBDT_AB " + json.dumps(out), flush=True)
+"""
 
 
 def resilience_plane(torch, T, traced, dirty, frame) -> dict:
@@ -2561,8 +2656,9 @@ def shard_rank(rank: int) -> None:
     the spec's repairs on ``missing_heavy`` or, for a run that names a
     ``csv`` (4p), on the rows of it that ``read_csv_encoded_sharded`` gives
     this rank (the counts zeroed just before and read just after each),
-    records the K1, K2 and K5 inputs of the runs marked ``record`` and
-    writes its frames, counts and inputs under the spec's work directory.
+    records the K1, K2 and K5 inputs and the K3 / K4 calls of each
+    structure of the runs marked ``record`` and writes its frames, counts
+    and inputs under the spec's work directory.
     On a 4p run it also counts the seconds and bytes of every gather by
     kind and the gathered payloads that hold a CUDA tensor."""
     import torch
@@ -2575,11 +2671,12 @@ def shard_rank(rank: int) -> None:
     from delphi_tpu_torch.ops import domain as t_domain
     from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
     from delphi_tpu_torch.ops.kernels import entropy as k_entropy
+    from delphi_tpu_torch.ops.kernels import gbdt as k_gbdt
     from delphi_tpu_torch.ops.kernels import pair_counts as k_pair
     from delphi_tpu_torch.utils import counters, gauges, phase_walls
 
     rec = {"pair_counts": [], "entropy_terms": [], "entropy_owned": [],
-           "weak_label": [], "domain_scores": []}
+           "weak_label": [], "domain_scores": [], "gbdt": {}}
     orig = (k_pair.pair_counts, k_entropy.entropy_terms,
             k_entropy.entropy_terms_owned, k_domain.weak_label,
             k_domain.domain_scores)
@@ -2627,6 +2724,18 @@ def shard_rank(rank: int) -> None:
                                 tuple(map(int, p.vcs))) for _, _, p in batch]
         return orig_bucket(batch, *rest)
 
+    def rec_gbdt(name):
+        fn_ = getattr(k_gbdt, name)
+
+        def call(*args, **kwargs):
+            if recording["on"]:
+                gbdt_record(rec["gbdt"], name, fn_, args, kwargs,
+                            copy=lambda t: t.cpu())
+            return fn_(*args, **kwargs)
+        return call
+
+    for name in ("hist", "split", "route", "predict"):
+        setattr(k_gbdt, name, rec_gbdt(name))
     k_pair.pair_counts, k_entropy.entropy_terms = rec_pair_counts, \
         rec_entropy_terms
     k_entropy.entropy_terms_owned = rec_entropy_owned
@@ -2707,7 +2816,7 @@ def shard_rank(rank: int) -> None:
         phase_walls.clear()
         gauges.pop("shard.rows", None)
         gauges.pop("mesh.reduce_seconds", None)
-        for k in (k_pair, k_entropy, k_domain):
+        for k in (k_pair, k_entropy, k_domain, k_gbdt):
             k.reset_launches()
         owned0 = k_entropy.owned_launches
         torch.cuda.synchronize()
@@ -2738,7 +2847,8 @@ def shard_rank(rank: int) -> None:
                          "entropy_terms_owned":
                              k_entropy.owned_launches - owned0,
                          "domain_scores_weak": k_domain.mode_launches["weak"],
-                         "domain_scores_int": k_domain.mode_launches["int"]},
+                         "domain_scores_int": k_domain.mode_launches["int"],
+                         **k_gbdt.launches},
             "ingest_s": ingest_s, "local_rows": n_local,
             "gathers": {k: dict(v) for k, v in gathers["stats"].items()},
             "cuda_payloads": gathers["cuda_payloads"],
@@ -3032,6 +3142,19 @@ def shard_kernel_checks(torch, k_pair, k_entropy, k_domain, recorded,
     return out
 
 
+def rank_gbdt_held(torch, rec, label):
+    """A rank's recorded K3 / K4 calls (:func:`shard_rank`) held bitwise
+    against the plain versions on the card (:func:`gbdt_hold`); None when
+    it recorded none."""
+    from delphi_tpu_torch.ops.kernels import gbdt as k_gbdt
+    if not rec["gbdt"]:
+        return None
+    held, _ = gbdt_hold(torch, k_gbdt, rec["gbdt"], label)
+    log(f"[{label}] K3 / K4 calls of distinct structure, each bitwise "
+        f"equal to its plain version: {json.dumps(held)}")
+    return held
+
+
 def shard_plane(torch, T, build, flush, k_pair, k_entropy, k_domain,
                 recorded, k5_groups, out_e2e, plans_frame) -> dict:
     """Phase 4m (module docstring). Returns the per-rank kernel rows for the
@@ -3178,7 +3301,9 @@ def shard_plane(torch, T, build, flush, k_pair, k_entropy, k_domain,
                 fail(f"4m: rank {r} recorded no K1, owned K2 or K5 input")
             rows[r] = {"pair_counts": k1, "entropy_terms": k2,
                        "entropy_terms_owned": k2o,
-                       "domain_scores_weak": k5, "errs": errs}
+                       "domain_scores_weak": k5, "errs": errs,
+                       "gbdt_held": rank_gbdt_held(torch, rec,
+                                                   f"4m(d) rank {r}")}
         res["rows"] = rows
         return res
     finally:
@@ -3235,7 +3360,8 @@ def mesh_plane(torch, T, build, flush, k_pair, k_entropy, k_domain, out_e2e,
             if bad:
                 fail(f"4o(a): rank {r} counted faults or shard merges: "
                      f"{bad}")
-            for name in ("pair_counts", "entropy_terms", "domain_scores_int"):
+            for name in ("pair_counts", "entropy_terms", "domain_scores_int",
+                         *GBDT_KERNELS):
                 if rank_runs[0]["launches"][name] < 1:
                     fail(f"4o(a): rank {r} did not launch {name}")
             if c.get("mesh.reductions", 0) < 1:
@@ -3334,8 +3460,14 @@ def mesh_plane(torch, T, build, flush, k_pair, k_entropy, k_domain, out_e2e,
                                      f"mesh r{r}"))
             if not (k1 and k2 and k5):
                 fail(f"4o(d): rank {r} recorded no K1, K2 or K5 input")
+            held = rank_gbdt_held(torch, rec, f"4o(d) rank {r}")
+            if not held or not all(h["calls_checked"]
+                                   for h in held.values()):
+                fail(f"4o(d): rank {r} recorded no call of a GBDT kernel: "
+                     f"{held}")
             rows[r] = {"pair_counts": k1, "entropy_terms": k2,
-                       "domain_scores_int": k5, "errs": errs}
+                       "domain_scores_int": k5, "errs": errs,
+                       "gbdt_held": held}
             log(f"[mesh] (d) rank {r}: {len(k1)} K1, {len(k2)} K2 and "
                 f"{len(k5)} K5 integer-mode inputs equal to their plain "
                 f"versions (max |err| {json.dumps(errs)})")
@@ -3530,7 +3662,9 @@ def process_local_plane(torch, T, build, flush, k_pair, k_entropy,
                    for c, _, _ in rec["pair_counts"]):
                 fail(f"4p(a): rank {r}'s K1 did not count its "
                      f"{results[r][0]['local_rows']} local rows")
-            rows[r] = {"pair_counts": k1, "entropy_terms": k2, "errs": errs}
+            rows[r] = {"pair_counts": k1, "entropy_terms": k2, "errs": errs,
+                       "gbdt_held": rank_gbdt_held(torch, rec,
+                                                   f"4p(a) rank {r}")}
             log(f"[process-local] (a) rank {r}: {len(k1)} K1 inputs over "
                 f"its {results[r][0]['local_rows']} rows and {len(k2)} K2 "
                 "inputs on the global counts equal to their plain versions "
@@ -4739,11 +4873,12 @@ def logistic_gaps(T):
     return gaps, restore
 
 
-def boost_round_profile(torch, gbdt, depth: int):
+def boost_round_profile(torch, gbdt, k_gbdt, depth: int):
     """One CV step's tree building at the 1M-row run's shapes (3 folds x 8
     class trees of one 6-class target, 10,000 rows, 4 features, 64 bins):
-    CUDA-event ms per round over 4 rounds, and the kernels the profiler
-    saw per round (None when it kept no device record)."""
+    CUDA-event ms per round over 4 rounds, the kernels the profiler saw
+    per round (None when it kept no device record), and the K3 launches
+    of one round."""
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device="cuda").manual_seed(0)
     M, k, n, d = 3, 8, 10_000, 4
@@ -4766,12 +4901,14 @@ def boost_round_profile(torch, gbdt, depth: int):
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / 4
+    k_gbdt.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(1)
         torch.cuda.synchronize()
+    hand = dict(k_gbdt.launches)
     kernels = sum(1 for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return ms, (kernels or None)
+    return ms, (kernels or None), hand
 
 
 def time_ms(torch, fn, flush, reps: int = 15) -> float:
@@ -5251,6 +5388,210 @@ def measure_k2(torch, k_entropy, build, flush, counts, offsets, n_rows,
     return row
 
 
+_GBDT_SIGNATURES = {}
+
+
+def gbdt_key(name, a) -> tuple:
+    """The structure of one K3 / K4 call: every argument's shape and type
+    with the row count left out, every scalar but a float (the
+    hyperparameters' values do not change the code the kernel runs)."""
+    def part(k, v):
+        if hasattr(v, "shape"):
+            shape = list(v.shape)
+            if k in GBDT_ROW_AXIS:
+                shape[GBDT_ROW_AXIS[k]] = "n"
+            return tuple(shape), str(v.dtype)
+        return v if isinstance(v, (int, bool, str)) or v is None \
+            else type(v).__name__
+    return (name,) + tuple(part(k, v) for k, v in a.items())
+
+
+def gbdt_record(calls, name, fn, args, kwargs, copy=None) -> None:
+    """Keeps the first call of each structure (:func:`gbdt_key`) of the
+    K3 / K4 wrapper ``fn`` in ``calls`` (key -> (name, arguments)): split's
+    output tables cloned (they fill level by level), or every tensor
+    passed through ``copy`` (a rank's inputs go to the host)."""
+    import inspect
+    sig = _GBDT_SIGNATURES.get(name)
+    if sig is None:
+        sig = _GBDT_SIGNATURES[name] = inspect.signature(fn)
+    bound = sig.bind(*args, **kwargs)
+    bound.apply_defaults()
+    a = dict(bound.arguments)
+    key = gbdt_key(name, a)
+    if key in calls:
+        return
+    if copy is not None:
+        a = {k: copy(v) if hasattr(v, "shape") else v for k, v in a.items()}
+    elif name == "split":
+        a["feat"], a["thr"] = a["feat"].clone(), a["thr"].clone()
+    calls[key] = (name, a)
+
+
+def gbdt_run(k_gbdt, name, a, plain=False):
+    """One recorded call run again (the wrapper, or the plain version);
+    split writes into fresh copies of its recorded tables and returns
+    them."""
+    a = dict(a)
+    if name == "split":
+        a["feat"], a["thr"] = a["feat"].clone(), a["thr"].clone()
+        (k_gbdt.split_plain if plain else k_gbdt.split)(
+            **{("hist" if k == "hist_" and plain else k): v
+               for k, v in a.items()})
+        return a["feat"], a["thr"]
+    fn = getattr(k_gbdt, name + "_plain" if plain else name)
+    return (fn(**a),)
+
+
+def gbdt_hold(torch, k_gbdt, calls, label):
+    """Every recorded call (:func:`gbdt_record`) run again on the card and
+    held bitwise against its plain version on the same tensors; fails on
+    a difference. Returns ({kernel: {"calls_checked", "max_abs_err",
+    "layouts", "max_nodes"}}, {kernel: (key, name, arguments) of its
+    heaviest call by bound}); a layout is a histogram's channel count C,
+    for split with its weight and count slots (C 2: the hessian is the
+    weight; a count slot: ``min_child_samples``)."""
+    held = {k: {"calls_checked": 0, "max_abs_err": 0.0, "layouts": [],
+                "max_nodes": 0} for k in GBDT_KERNELS}
+    heaviest = {}
+    for key, (name, a) in calls.items():
+        a = {k: v.cuda() if hasattr(v, "shape") else v for k, v in a.items()}
+        got = gbdt_run(k_gbdt, name, a)
+        want = gbdt_run(k_gbdt, name, a, plain=True)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape \
+                    or not torch.equal(g, w):
+                fail(f"{label}: {name} differs from its plain version at "
+                     f"{key}")
+            if g.dtype.is_floating_point and g.numel():
+                err = max(err, float((g - w).abs().max().item()))
+        kernel = "gbdt_" + name
+        h = held[kernel]
+        h["calls_checked"] += 1
+        h["max_abs_err"] = max(h["max_abs_err"], err)
+        layout = {"hist": lambda: int(a["vals"].shape[2]),
+                  "split": lambda: [int(a["hist_"].shape[4]), a["w_slot"],
+                                    a["c_slot"]]}.get(name)
+        if layout is not None and layout() not in h["layouts"]:
+            h["layouts"].append(layout())
+        nodes = {"hist": lambda: a["n_level"],
+                 "split": lambda: 1 << a["level"],
+                 "route": lambda: 1 << a["level"]}.get(name)
+        if nodes is not None:
+            h["max_nodes"] = max(h["max_nodes"], nodes())
+        bound = max(gbdt_bound_ms(name, a))
+        if kernel not in heaviest or bound > heaviest[kernel][0]:
+            heaviest[kernel] = (bound, key, name, a)
+    return held, {k: v[1:] for k, v in heaviest.items()}
+
+
+def gbdt_bound_ms(name, a):
+    """(bytes ms, operations ms) of one recorded K3 / K4 call. Bytes:
+    each input the function needs read once, each output written once.
+    hist: the rows' channels (4 C bytes), node ids (4, none at the root)
+    and each model's bins (8 a row and feature), the histograms out.
+    split: the histograms in, feat and thr (8 bytes each) out a node.
+    route: a row's node id in (none at the root) and out (4 bytes each)
+    and the one bin its node's split reads (8). predict: the bins, every
+    tree's splits (16 bytes a node) and leaves (4), the margins out.
+    Operations, over the FP32 rate: hist one add a row, feature and
+    channel; split per bin and channel two scan adds, per bin the gain's
+    eleven; route and predict none counted (compares)."""
+    if name == "hist":
+        v, node, bins = a["vals"], a["node"], a["bins"]
+        T, n, C = v.shape
+        d = 1 if bins is None else int(bins.shape[-1])
+        models = 0 if bins is None else (1 if bins.dim() == 2
+                                         else int(bins.shape[0]))
+        nbytes = T * n * 4 * C + (0 if node is None else T * n * 4) \
+            + models * n * d * 8 + T * a["n_level"] * d * a["n_bins"] * C * 4
+        ops = T * n * d * C
+    elif name == "split":
+        T, L, d, B, C = a["hist_"].shape
+        nbytes = T * L * d * B * C * 4 + T * L * 16
+        ops = T * L * d * B * (2 * C + 11)
+    elif name == "route":
+        T, n = a["feat"].shape[0], int(a["bins"].shape[-2])
+        nbytes = T * n * (8 + 4 + (0 if a["node"] is None else 4))
+        ops = 0
+    else:
+        R, T, width = a["feats"].shape
+        n, d = a["bins"].shape
+        nbytes = n * d * 8 + R * T * (16 * width + 4 * (width + 1)) \
+            + T * n * 4
+        ops = 0
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+
+
+def gbdt_library(torch, name, a):
+    """One PyTorch call computing the same function as the recorded call,
+    for ``library_ms`` (hist: ``index_add_`` over the flattened segment
+    index, float atomics in another order; None for the others), built
+    outside the timing."""
+    if name != "hist":
+        return None
+    v, node, bins = a["vals"], a["node"], a["bins"]
+    T, n, C = v.shape
+    n_level, n_bins = a["n_level"], a["n_bins"]
+    if bins is None:
+        bins = torch.zeros((n, 1), dtype=torch.int64, device=v.device)
+    tb = bins.expand(T, *bins.shape) if bins.dim() == 2 \
+        else bins.repeat_interleave(a["per_round"], 0) if bins.shape[0] > 1 \
+        else bins.expand(T, *bins.shape[1:])
+    d = tb.shape[2]
+    nd = torch.zeros((T, n), dtype=torch.int64, device=v.device) \
+        if node is None else node
+    seg = ((torch.arange(T, device=v.device)[:, None, None] * n_level
+            + nd[:, :, None]) * d
+           + torch.arange(d, device=v.device)[None, None, :]) * n_bins + tb
+    seg = seg.reshape(-1)
+    flat = v[:, :, None, :].expand(T, n, d, C).reshape(-1, C).contiguous()
+    out = torch.zeros((T * n_level * d * n_bins, C), dtype=torch.float32,
+                      device=v.device)
+    return lambda: out.index_add_(0, seg, flat)
+
+
+def gbdt_bare(k_gbdt, build, name, a):
+    """The recorded call's kernel launch through ctypes alone (its table
+    prepared once)."""
+    import ctypes
+    if name == "split":
+        a = dict(a, feat=a["feat"].clone(), thr=a["thr"].clone())
+        p = k_gbdt.split_params(**a)
+    else:
+        p, _ = getattr(k_gbdt, name + "_params")(**a)
+    lib, stream = build.library(), build.current_stream()
+    fn = getattr(lib, f"delphi_gbdt_{name}")
+    return lambda: fn(ctypes.addressof(p), stream)
+
+
+def gbdt_measure(torch, k_gbdt, build, flush, label, key, name, a):
+    """4b for K3 and K4: one recorded call (a path's heaviest of its
+    kernel, already held bitwise by :func:`gbdt_hold`) timed: ms, host,
+    plain, ``index_add_`` for K3a, the bound; its kernel_ms deferred."""
+    bytes_ms, ops_ms = gbdt_bound_ms(name, a)
+    fn = lambda: gbdt_run(k_gbdt, name, a)  # noqa: E731
+    lib_fn = gbdt_library(torch, name, a)
+    row = {
+        "ms": time_ms(torch, fn, flush), "host_ms": host_ms(torch, fn),
+        "plain_ms": time_ms(torch, lambda: gbdt_run(k_gbdt, name, a,
+                                                    plain=True), flush),
+        "library_ms": None if lib_fn is None
+        else time_ms(torch, lib_fn, flush),
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "shape": [list(x) if isinstance(x, tuple) else x for x in key[1:]]}
+    kernel = "gbdt_" + name
+    defer_kernel_ms(f"{kernel} {label}", row, fn,
+                    gbdt_bare(k_gbdt, build, name, a), [kernel + "_kernel"],
+                    1)
+    log(f"[{label}-kernels] {kernel} heaviest call {key[1:]}: "
+        f"{fmt({k: v for k, v in row.items() if k != 'shape'})}")
+    return row
+
+
 def fmt(row) -> str:
     return " ".join(f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
                     for k, v in row.items())
@@ -5408,22 +5749,26 @@ def main() -> None:
             "count": torch.cuda.device_count()}}), flush=True)
         return
 
-    if "--domain-ab" in sys.argv[1:]:
-        at = sys.argv.index("--domain-ab")
-        ab = domain_ab(sys.argv[at + 1], int(sys.argv[at + 2]))
-        log(f"[total] {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"domain_ab": ab}))
-        print(smi)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": kind,
-            "count": torch.cuda.device_count()}}), flush=True)
-        return
+    for flag, child in (("--gbdt-ab", GBDT_AB_CHILD),
+                        ("--domain-ab", DOMAIN_AB_CHILD)):
+        if flag in sys.argv[1:]:
+            at = sys.argv.index(flag)
+            ab = parent_ab(flag[2:], child, sys.argv[at + 1],
+                           int(sys.argv[at + 2]))
+            log(f"[total] {time.perf_counter() - t_start:.1f} s")
+            print(json.dumps({flag[2:].replace("-", "_"): ab["summary"]}))
+            print(smi)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": kind,
+                "count": torch.cuda.device_count()}}), flush=True)
+            return
 
     sys.path.insert(0, HERE)
     import delphi_tpu_torch as T
     from delphi_tpu_torch.ops.kernels import build
     from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
     from delphi_tpu_torch.ops.kernels import entropy as k_entropy
+    from delphi_tpu_torch.ops.kernels import gbdt as k_gbdt
     from delphi_tpu_torch.ops.kernels import pair_counts as k_pair
     from delphi_tpu_torch.models import gbdt
     from delphi_tpu_torch.models.encoding import FeatureEncoder
@@ -5476,6 +5821,8 @@ def main() -> None:
     recorded, path_launches = {}, {}
     orig_pc, orig_et = k_pair.pair_counts, k_entropy.entropy_terms
     orig_ds, orig_wl = k_domain.domain_scores, k_domain.weak_label
+    orig_gbdt = {name: getattr(k_gbdt, name)
+                 for name in ("hist", "split", "route", "predict")}
     from delphi_tpu_torch.ops import domain as t_domain
     orig_bucket = t_domain._launch_bucket_once
 
@@ -5537,6 +5884,17 @@ def main() -> None:
                     list(getattr(inflight, "groups", [])))
             return orig_wl(ops, beta, n_rows)
 
+        # the first K3 / K4 call of each structure, held after the run
+        gbdt_calls = {}
+
+        def rec_gbdt(name):
+            fn_ = orig_gbdt[name]
+
+            def call(*args, **kwargs):
+                gbdt_record(gbdt_calls, name, fn_, args, kwargs)
+                return fn_(*args, **kwargs)
+            return call
+
         phase_walls.clear()
         counters.clear()
         histograms.clear()
@@ -5545,6 +5903,7 @@ def main() -> None:
         k_pair.reset_launches()
         k_entropy.reset_launches()
         k_domain.reset_launches()
+        k_gbdt.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -5553,6 +5912,8 @@ def main() -> None:
         k_domain.domain_scores = rec_domain_scores
         k_domain.weak_label = rec_weak_label
         t_domain._launch_bucket_once = rec_launch_bucket
+        for name in orig_gbdt:
+            setattr(k_gbdt, name, rec_gbdt(name))
         try:
             t0 = time.perf_counter()
             res = fn()
@@ -5562,6 +5923,9 @@ def main() -> None:
             k_pair.pair_counts, k_entropy.entropy_terms = orig_pc, orig_et
             k_domain.domain_scores, k_domain.weak_label = orig_ds, orig_wl
             t_domain._launch_bucket_once = orig_bucket
+            for name, fn_ in orig_gbdt.items():
+                setattr(k_gbdt, name, fn_)
+        gbdt_launches = dict(k_gbdt.launches)
         launches = {"pair_counts": k_pair.launches,
                     "entropy_terms": k_entropy.launches}
         # K5 launches only where weak-label demotion scores cells (every
@@ -5571,7 +5935,24 @@ def main() -> None:
         path_launches[label] = {**launches,
                                 "domain_scores": k_domain.launches,
                                 **{f"k5_{m}": n for m, n in
-                                   k_domain.mode_launches.items()}}
+                                   k_domain.mode_launches.items()},
+                                **gbdt_launches}
+        log(f"[{label}] K3 / K4 launches: {json.dumps(gbdt_launches)}")
+        if label in GBDT_PATHS and min(gbdt_launches.values()) < 1:
+            fail(f"{label}: a GBDT kernel was not launched by the run: "
+                 f"{gbdt_launches}")
+        # every structure of K3 / K4 call this path made, bitwise; its
+        # heaviest call of each kernel kept for 4b's times
+        rec["gbdt_held"], rec["gbdt"] = gbdt_hold(torch, k_gbdt, gbdt_calls,
+                                                  label)
+        for kernel, n in gbdt_launches.items():
+            if n and not rec["gbdt_held"][kernel]["calls_checked"]:
+                fail(f"{label}: {kernel} launched {n} times, no call "
+                     "recorded")
+        if any(n for n in gbdt_launches.values()):
+            log(f"[{label}] K3 / K4 calls of distinct structure, each "
+                f"bitwise equal to its plain version: "
+                f"{json.dumps(rec['gbdt_held'])}")
         int_path = label in K5_INT_PATHS
         if k_domain.mode_launches["weak" if int_path else "int"]:
             fail(f"{label}: K5 launched {k_domain.mode_launches}, the "
@@ -5679,9 +6060,15 @@ def main() -> None:
     # -- 4e. tree-builder cost per boosting round ----------------------------
     rounds = {}
     for depth in (3, 5):
-        ms, kernels = boost_round_profile(torch, gbdt, depth)
+        ms, kernels, hand = boost_round_profile(torch, gbdt, k_gbdt, depth)
         rounds[f"depth{depth}"] = {"ms_per_round": ms,
-                                   "kernels_per_round": kernels}
+                                   "kernels_per_round": kernels,
+                                   "gbdt_launches_per_round": hand}
+        if hand["gbdt_hist"] != depth + 1 or hand["gbdt_split"] != depth \
+                or hand["gbdt_route"] != depth:
+            fail(f"4e: a depth-{depth} round launched {hand}, not one K3a "
+                 "per level and the leaf sums, one K3b and one K3c per "
+                 "level")
     log(f"[train-profile] one CV step of a 6-class target (3 folds x 8 "
         f"class trees, 10,000 rows, 4 features): {json.dumps(rounds)}")
 
@@ -5821,6 +6208,14 @@ def main() -> None:
     log(f"[kernels] K5's shared-memory and __ldg table branches, both "
         f"modes, bitwise equal to the plain version: "
         f"{json.dumps(k5_branches)}")
+    # K3 and K4: each traced path's heaviest call of each kernel timed
+    gbdt_rows = {path: {kernel: gbdt_measure(torch, k_gbdt, build, flush,
+                                             path, *call)
+                        for kernel, call in rec["gbdt"].items()}
+                 for path, rec in recorded.items()}
+    for name in GBDT_KERNELS:
+        if name not in gbdt_rows[GBDT_MAIN_PATH]:
+            fail(f"{GBDT_MAIN_PATH}: no {name} call recorded")
 
     # neither wrapper may wait for the card at any path's shapes
     torch.cuda.synchronize()
@@ -5833,12 +6228,14 @@ def main() -> None:
                 k_entropy.entropy_terms(counts, offsets, n_rows)
             for call in rec["domain_scores"]:
                 k5_run(k_domain, call)
+            for _, name, a in rec["gbdt"].values():
+                gbdt_run(k_gbdt, name, a)
     except RuntimeError as exc:
         fail(f"a kernel wrapper synchronised with the card: {exc}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log("[sync] K1, K2 and K5 wrappers ran under "
+    log("[sync] K1, K2, K3, K4 and K5 wrappers ran under "
         "set_sync_debug_mode('error') "
         f"at the shapes of paths {list(recorded)} without synchronising")
 
@@ -6053,6 +6450,60 @@ def main() -> None:
                 and not any(entry["served_launches"].values()):
             fail(f"4r: {entry['name']} was not launched inside a served "
                  "request")
+    # K3 and K4: the main path's heaviest call of each; per traced path and
+    # rank its launches, the calls of distinct structure held bitwise and
+    # (traced paths) its heaviest call's times
+    gbdt_replaces = {
+        "gbdt_hist": ("delphi_tpu/models/gbdt.py:157",
+                      "_build_tree's histograms :157-163 and leaf sums "
+                      ":220-222 (jitted XLA, not Pallas)"),
+        "gbdt_split": ("delphi_tpu/models/gbdt.py:181",
+                       "_build_tree's cumsum, gain and argmax :181-215 "
+                       "(jitted XLA, not Pallas)"),
+        "gbdt_route": ("delphi_tpu/models/gbdt.py:217",
+                       "_build_tree's routing :217-218 (jitted XLA, not "
+                       "Pallas)"),
+        "gbdt_predict": ("delphi_tpu/models/gbdt.py:230",
+                         "_predict_tree :230 and _predict_boosted :373 "
+                         "(jitted XLA, not Pallas)")}
+    for name in GBDT_KERNELS:
+        top = gbdt_rows[GBDT_MAIN_PATH][name]
+        entry_paths = []
+        for p, rec in recorded.items():
+            e = {"path": p, "launches": path_launches[p].get(name, 0),
+                 **rec["gbdt_held"][name]}
+            if name in gbdt_rows[p]:
+                e["heaviest"] = {k: v for k, v in gbdt_rows[p][name].items()
+                                 if k not in ("bytes_ms", "ops_ms")}
+            entry_paths.append(e)
+        for plane, tag in ((shard, "shard"), (mesh, "mesh"),
+                           (pl, "process-local")):
+            for r in range(SHARD_WORLD):
+                held = plane["rows"][r].get("gbdt_held")
+                if held:
+                    entry_paths.append({
+                        "path": f"{tag} r{r}",
+                        "launches": plane[f"rank{r}"]["launches"].get(name, 0),
+                        **held[name]})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "delphi_tpu_torch/csrc/gbdt.cu",
+            "replaces": gbdt_replaces[name][0],
+            "tpu_source": gbdt_replaces[name][1],
+            "main_path": GBDT_MAIN_PATH,
+            "launches": path_launches[GBDT_MAIN_PATH][name],
+            "max_abs_err": max(e["max_abs_err"] for e in entry_paths),
+            "calls_checked": sum(e["calls_checked"] for e in entry_paths),
+            "layouts": sorted({json.dumps(x) for e in entry_paths
+                               for x in e["layouts"]}),
+            "max_nodes": max(e["max_nodes"] for e in entry_paths),
+            "ms": top["ms"], "kernel_ms": top["kernel_ms"],
+            "host_ms": top["host_ms"], "launch_floor_ms": floor["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": "bytes" if top["bytes_ms"] >= top["ops_ms"]
+            else "operations",
+            "library_ms": top["library_ms"], "shape": top["shape"],
+            "paths": entry_paths, "per_round": rounds, "ok": True})
     o_rows = shard["rows"][0]["entropy_terms_owned"]
     o_bytes = sum(r["bytes_ms"] for r in o_rows)
     o_ops = sum(r["ops_ms"] for r in o_rows)

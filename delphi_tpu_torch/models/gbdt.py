@@ -19,12 +19,14 @@ balanced class weights.
 
 Summation order is fixed and the same on the CPU and the card, and it is
 the order the JAX package's CPU route uses (its scatter histograms): each
-histogram bin sums its rows in row order in f32 (a stable sort by segment,
-then ``torch.segment_reduce``, whose kernels add each segment's values one
-after the other), and the bin cumsum reproduces XLA:CPU's blocked scan
-(sequential within blocks of 16, then the block totals). Float atomics,
-whose order changes from run to run and can flip near-tie splits, are
-never used. Rows and features added to stack unequal fits into one launch
+histogram bin sums its rows in row order in f32, and the bin cumsum
+reproduces XLA:CPU's blocked scan (sequential within blocks of 16, then
+the block totals). On the card each tree level is three hand kernels
+and prediction one (K3 and K4, :mod:`delphi_tpu_torch.ops.kernels.gbdt`);
+on the CPU their plain versions (a stable sort by segment, then
+``torch.segment_reduce``). Both give the same bits. Float atomics, whose
+order changes from run to run and can flip near-tie splits, are never
+used. Rows and features added to stack unequal fits into one launch
 carry zero weight and a constant bin, so they add exact zeros to every
 sum and never win a split.
 
@@ -52,6 +54,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from delphi_tpu_torch.ops.kernels import gbdt as k_gbdt
 from delphi_tpu_torch.ops.xfer import to_device
 from delphi_tpu_torch.parallel import planner
 from delphi_tpu_torch.parallel.mesh import (all_gather, get_active_mesh,
@@ -158,46 +161,8 @@ class _Binner:
 
 
 # ---------------------------------------------------------------------------
-# Fixed-order reductions
+# Transcendentals
 # ---------------------------------------------------------------------------
-
-def _segment_sum(vals: torch.Tensor, seg: torch.Tensor,
-                n_seg: int) -> torch.Tensor:
-    """[n_seg, C] sums of the rows of ``vals`` [N, C] grouped by ``seg``
-    [N], each segment summed in index order. Nothing waits for the card."""
-    order = torch.argsort(seg, stable=True)
-    lengths = torch.zeros(n_seg, dtype=torch.int64, device=seg.device) \
-        .index_add_(0, seg, torch.ones_like(seg))
-    return torch.segment_reduce(vals[order], "sum", lengths=lengths, axis=0,
-                                unsafe=True)
-
-
-def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
-    out = torch.empty_like(x)
-    acc = x[..., 0] + 0.0
-    out[..., 0] = acc
-    for j in range(1, x.shape[-1]):
-        acc = acc + x[..., j]
-        out[..., j] = acc
-    return out
-
-
-def _blocked_cumsum(x: torch.Tensor, block: int = 16) -> torch.Tensor:
-    """Inclusive cumsum over the last axis in XLA:CPU's order: sequential
-    prefix sums inside blocks of ``block``, the block totals scanned the
-    same way (recursively), then each block's exclusive offset added."""
-    n = x.shape[-1]
-    if n <= block:
-        return _seq_cumsum(x)
-    m = -(-n // block)
-    pad = m * block - n
-    xp = torch.nn.functional.pad(x, (0, pad)) if pad else x
-    inner = _seq_cumsum(xp.reshape(*x.shape[:-1], m, block))
-    outer = _blocked_cumsum(inner[..., -1], block)
-    excl = torch.cat([torch.zeros_like(outer[..., :1]), outer[..., :-1]], -1)
-    out = (inner + excl[..., None]).reshape(*x.shape[:-1], m * block)
-    return out[..., :n]
-
 
 def _exp(x: torch.Tensor) -> torch.Tensor:
     """exp of an f32 tensor, computed in f64 and rounded to f32. The CPU's
@@ -218,19 +183,6 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + _exp(-x))
 
 
-def _row_bins(bins: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-    """bins[t, i, feat[t, i]] for per-tree bins [T, n, d]."""
-    return torch.gather(bins, 2, feat[..., None])[..., 0]
-
-
-def _per_tree(v: Any, T: int, dims: int) -> Any:
-    """A per-tree hyperparameter (f32 [T] tensor) shaped to broadcast over
-    ``dims`` trailing axes; a Python float stays as it is."""
-    if isinstance(v, torch.Tensor):
-        return v.reshape((T,) + (1,) * dims)
-    return v
-
-
 # ---------------------------------------------------------------------------
 # Tree building / prediction
 # ---------------------------------------------------------------------------
@@ -240,14 +192,17 @@ def _build_trees(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                  reg_lambda: Any, min_split_gain: Any,
                  min_child_weight: Any, min_child_samples: Any,
                  use_counts: bool = True, hess_is_weight: bool = False,
-                 reduce: Any = None) \
+                 reduce: Any = None, per_round: int = 1) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grows T depth-wise trees at once, one per row of ``grad``/``hess``
-    [T, n]. ``bins`` is [n, d] shared by every tree or [T, n, d] per tree,
-    ``weight`` [n] or [T, n]; each hyperparameter is a float or an f32 [T]
-    tensor. Returns (feat [T, nodes-1], thr [T, nodes-1], leaf f32
-    [T, nodes], node [T, n]) with all-left sentinel splits (thr = n_bins)
-    for terminated nodes — the JAX package's ``_build_tree`` per tree.
+    [T, n]. ``bins`` is [n, d] shared by every tree, or [M, n, d] per
+    model, tree t reading model t // ``per_round``; ``weight`` [n] or
+    [T, n]; each hyperparameter is a float or an f32 [T] tensor. Returns
+    (feat [T, nodes-1], thr [T, nodes-1], leaf f32 [T, nodes], node
+    [T, n]) with all-left sentinel splits (thr = n_bins) for terminated
+    nodes — the JAX package's ``_build_tree`` per tree. Each level is
+    three calls of :mod:`delphi_tpu_torch.ops.kernels.gbdt` (histograms,
+    split search, routing), the leaf sums a fourth.
     Rows with weight 0 drop out of the row-count channel
     (``min_child_samples``), which exists only when ``use_counts``; for L2
     (``hess_is_weight``) the hessian doubles as the weight channel. Under
@@ -255,20 +210,12 @@ def _build_trees(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     histograms and the leaf sums over the mesh (the JAX package's psums):
     every rank takes the same splits."""
     T, n = grad.shape
-    if bins.dim() == 2:
-        bins = bins.expand(T, *bins.shape)
-    d = bins.shape[2]
     dev = grad.device
     n_nodes = 1 << depth
     weight = weight.expand(T, n)
-    lam = _per_tree(reg_lambda, T, 3)
-    msg = _per_tree(min_split_gain, T, 1)
-    mcw = _per_tree(min_child_weight, T, 3)
-    mcs = _per_tree(min_child_samples, T, 3)
 
     feat = torch.zeros((T, n_nodes - 1), dtype=torch.int64, device=dev)
     thr = torch.full((T, n_nodes - 1), n_bins, dtype=torch.int64, device=dev)
-    node = torch.zeros((T, n), dtype=torch.int64, device=dev)
 
     channels = [grad, hess]
     w_slot = 1 if hess_is_weight else len(channels)
@@ -277,64 +224,25 @@ def _build_trees(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     c_slot = len(channels) if use_counts else -1
     if use_counts:
         channels.append((weight > 0).to(grad.dtype))
-    C = len(channels)
-    # rows of the flattened (tree, row, feature) order the histograms use
-    vals = torch.stack(channels, dim=-1)[:, :, None, :] \
-        .expand(T, n, d, C).reshape(T * n * d, C)
-    tree_ids = torch.arange(T, device=dev)[:, None, None]
-    feat_ids = torch.arange(d, device=dev)[None, None, :]
+    vals = torch.stack(channels, dim=-1)      # [T, n, C]
 
+    node = None                               # every row at the root
     for level in range(depth):
-        n_level = 1 << level
-        seg = ((tree_ids * n_level + node[:, :, None]) * d + feat_ids) \
-            * n_bins + bins
-        hist = _segment_sum(vals, seg.reshape(-1), T * n_level * d * n_bins)
+        hist = k_gbdt.hist(vals, node, bins, 1 << level, n_bins, per_round)
         if reduce is not None:
             hist = reduce(hist)
-        hist = hist.reshape(T, n_level, d, n_bins, C).permute(4, 0, 1, 2, 3)
-        # every channel's cumsum in one pass (elementwise the same sums)
-        cum = _blocked_cumsum(hist)
-        tot = cum[..., -1:]
-        GL, HL, WL = cum[0], cum[1], cum[w_slot]
-        G, H, W = tot[0], tot[1], tot[w_slot]
-        GR, HR, WR = G - GL, H - HL, W - WL
-
-        gain = (GL * GL / (HL + lam)
-                + GR * GR / (HR + lam)
-                - G * G / (H + lam))
-        ok = (WL >= mcw) & (WR >= mcw)
-        if use_counts:
-            CL, Ct = cum[c_slot], tot[c_slot]
-            CR = Ct - CL
-            ok = ok & (CL >= mcs) & (CR >= mcs)
-        gain = torch.where(ok, gain, torch.full_like(gain, -torch.inf))
-        # never split on the last bin (right side empty by construction)
-        gain[..., -1] = -torch.inf
-
-        flat_gain = gain.reshape(T, n_level, d * n_bins)
-        best = torch.argmax(flat_gain, dim=2)      # first max, like jnp
-        best_gain = torch.gather(flat_gain, 2, best[..., None])[..., 0]
-        best_f = best // n_bins
-        best_b = best % n_bins
-        do_split = best_gain > msg
-        best_f = torch.where(do_split, best_f, torch.zeros_like(best_f))
-        best_b = torch.where(do_split, best_b, torch.full_like(best_b, n_bins))
-
-        offset = n_level - 1
-        feat[:, offset:offset + n_level] = best_f
-        thr[:, offset:offset + n_level] = best_b
-
-        f_row = torch.gather(best_f, 1, node)
-        b_row = torch.gather(best_b, 1, node)
-        go_right = _row_bins(bins, f_row) > b_row
-        node = node * 2 + go_right.to(torch.int64)
-
-    leaf_seg = (torch.arange(T, device=dev)[:, None] * n_nodes + node).reshape(-1)
-    leaf_gh = _segment_sum(torch.stack([grad, hess], dim=-1).reshape(T * n, 2),
-                          leaf_seg, T * n_nodes).reshape(T, n_nodes, 2)
+        k_gbdt.split(hist, feat, thr, level, n_bins, reg_lambda,
+                     min_split_gain, min_child_weight, min_child_samples,
+                     w_slot, c_slot)
+        node = k_gbdt.route(node, bins, feat, thr, level, per_round)
+    leaf_gh = k_gbdt.hist(torch.stack([grad, hess], dim=-1), node, None,
+                          n_nodes, 1)[:, :, 0, 0, :]
     if reduce is not None:
         leaf_gh = reduce(leaf_gh)
-    leaf = -leaf_gh[..., 0] / (leaf_gh[..., 1] + _per_tree(reg_lambda, T, 1))
+    lam = k_gbdt.per_tree(reg_lambda, T, 1)
+    leaf = -leaf_gh[..., 0] / (leaf_gh[..., 1] + lam)
+    if node is None:
+        node = torch.zeros((T, n), dtype=torch.int32, device=dev)
     return feat, thr, leaf, node
 
 
@@ -383,22 +291,18 @@ def _boost(bins: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
             return v.repeat_interleave(per_round)
         return v
 
-    if per_round > 1:
-        tree_bins = bins.repeat_interleave(per_round, dim=0) if M > 1 \
-            else bins.expand(T, *bins.shape[1:])
-        tree_w = weight.repeat_interleave(per_round, dim=0)
-    else:
-        tree_bins, tree_w = bins, weight
-    lr_t = _per_tree(trees_of(lr), T, 1)
+    tree_w = weight.repeat_interleave(per_round, dim=0) if per_round > 1 \
+        else weight
+    lr_t = k_gbdt.per_tree(trees_of(lr), T, 1)
     hyper = [trees_of(v) for v in (reg_lambda, min_split_gain,
                                    min_child_weight, min_child_samples)]
     feats, thrs, leaves = [], [], []
     for _ in range(n_rounds):
         g, h = _grad_hess(F, y, weight, objective, k)
         feat, thr, leaf, node = _build_trees(
-            tree_bins, g, h, tree_w, depth, n_bins, *hyper,
+            bins, g, h, tree_w, depth, n_bins, *hyper,
             use_counts=use_counts, hess_is_weight=(objective == "regression"),
-            reduce=reduce)
+            reduce=reduce, per_round=per_round)
         leaf = leaf * lr_t
         delta = torch.gather(leaf, 1, node)     # [T, n]
         F = F + delta.reshape(F.shape)
@@ -415,25 +319,10 @@ def _predict_boosted(bins: torch.Tensor, feats: torch.Tensor,
                      thrs: torch.Tensor, leaves: torch.Tensor, depth: int,
                      objective: str, base: torch.Tensor) -> torch.Tensor:
     """Sums every round's tree outputs onto the base margin, round by round
-    in f32 (the JAX package's scan order). [n], or [k, n] multiclass."""
-    n = bins.shape[0]
-    T = feats.shape[1]
-    tree_bins = bins.expand(T, *bins.shape)
-    if objective == "multiclass":
-        F = base[:, None].expand(T, n).clone()
-    else:
-        F = torch.full((n,), float(base[0]), dtype=torch.float32,
-                       device=bins.device)
-    for r in range(feats.shape[0]):
-        node = torch.zeros((T, n), dtype=torch.int64, device=bins.device)
-        for level in range(depth):
-            idx = (1 << level) - 1 + node
-            f = torch.gather(feats[r], 1, idx)
-            b = torch.gather(thrs[r], 1, idx)
-            node = node * 2 + (_row_bins(tree_bins, f) > b).to(torch.int64)
-        delta = torch.gather(leaves[r], 1, node)
-        F = F + (delta[0] if objective != "multiclass" else delta)
-    return F
+    in f32 (the JAX package's scan order): K4. [n], or [k, n]
+    multiclass."""
+    return k_gbdt.predict(bins, feats, thrs, leaves, depth, base,
+                          objective == "multiclass")
 
 
 def _init_margin(base: np.ndarray, n: int, objective: str, k: int) -> np.ndarray:

@@ -5,7 +5,11 @@
 * :mod:`.entropy` — K2, replacing its Pallas ``_entropy_kernel``;
 * :mod:`.domain_scores` — K5, replacing both modes of its jitted
   ``_jit_bucket_kernel`` (the bucketed domain route's gather-reduce and
-  its weak-label epilogue).
+  its weak-label epilogue);
+* :mod:`.gbdt` — K3 (``gbdt_hist``, ``gbdt_split``, ``gbdt_route``: one
+  level of the tree builder) and K4 (``gbdt_predict``), replacing the
+  jitted ``_build_tree`` and ``_predict_tree`` / ``_predict_boosted`` of
+  its ``models/gbdt.py``.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and uses its plain
 version for a CPU tensor; nothing falls back from one to the other.

@@ -172,6 +172,11 @@ def library() -> ctypes.CDLL:
             # (table pointer, grid x, grid y, shared bytes, stream)
             lib.delphi_domain_scores.restype = i32
             lib.delphi_domain_scores.argtypes = [vp, i32, i32, i32, vp]
+            # (parameter table pointer, stream)
+            for name in ("delphi_gbdt_hist", "delphi_gbdt_split",
+                         "delphi_gbdt_route", "delphi_gbdt_predict"):
+                getattr(lib, name).restype = i32
+                getattr(lib, name).argtypes = [vp, vp]
             lib.delphi_launch_floor.restype = i32
             lib.delphi_launch_floor.argtypes = [vp]
             _lib = lib

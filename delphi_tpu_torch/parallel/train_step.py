@@ -18,7 +18,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from delphi_tpu_torch.models.gbdt import _blocked_cumsum, _segment_sum
+from delphi_tpu_torch.ops.kernels import gbdt as k_gbdt
 from delphi_tpu_torch.parallel.mesh import Mesh, _axis_slot, pmax, psum
 from delphi_tpu_torch.utils import counter_inc
 
@@ -60,55 +60,35 @@ def gbdt_histogram_round(mesh: Mesh, depth: int, n_bins: int,
     """``(bins, grad, hess) -> (feat, thr, leaf, delta)`` over this rank's
     rows: ``bins`` int ``[n/dp, d]``, ``grad`` / ``hess`` f32 ``[n/dp]``.
     The tree arrays are the same on every rank; ``delta`` is the round's
-    prediction step for this rank's rows. Histograms sum each bin's rows in
-    row order (a stable sort by segment, then ``segment_reduce``)."""
+    prediction step for this rank's rows. Each level goes through the tree
+    builder's kernels (:mod:`delphi_tpu_torch.ops.kernels.gbdt`: each
+    histogram bin sums its rows in row order), its histograms summed over
+    the mesh before the split search; no weight or count mask."""
     counter_inc("parallel.gbdt_round_programs")
     n_nodes = 1 << depth
 
-    def seg_sum(vals: torch.Tensor, seg: torch.Tensor,
-                size: int) -> torch.Tensor:
-        return _segment_sum(vals[:, None], seg, size)[:, 0]
-
     def round_fn(bins: torch.Tensor, grad: torch.Tensor,
                  hess: torch.Tensor):
-        n, d = bins.shape
         dev = grad.device
-        bins = bins.long()
-        feat = torch.zeros(n_nodes - 1, dtype=torch.int32, device=dev)
-        thr = torch.full((n_nodes - 1,), n_bins, dtype=torch.int32,
+        bins = bins.long().contiguous()
+        vals = torch.stack([grad, hess], dim=-1)[None]      # [1, n, 2]
+        feat = torch.zeros((1, n_nodes - 1), dtype=torch.int64, device=dev)
+        thr = torch.full((1, n_nodes - 1), n_bins, dtype=torch.int64,
                          device=dev)
-        node = torch.zeros(n, dtype=torch.int64, device=dev)
+        node = None
         for level in range(depth):
-            n_level = 1 << level
-            flat = ((node[:, None] * d + torch.arange(d, device=dev)[None, :])
-                    * n_bins + bins).reshape(-1)
-            size = n_level * d * n_bins
-            hg = psum(seg_sum(grad.repeat_interleave(d), flat, size), mesh,
-                      "dp").reshape(n_level, d, n_bins)
-            hh = psum(seg_sum(hess.repeat_interleave(d), flat, size), mesh,
-                      "dp").reshape(n_level, d, n_bins)
-            GL, HL = _blocked_cumsum(hg), _blocked_cumsum(hh)
-            G, H = GL[:, :, -1:], HL[:, :, -1:]
-            GR, HR = G - GL, H - HL
-            gain = (GL * GL / (HL + reg_lambda) + GR * GR / (HR + reg_lambda)
-                    - G * G / (H + reg_lambda))
-            gain[:, :, -1] = -torch.inf
-            flat_gain = gain.reshape(n_level, d * n_bins)
-            best = torch.argmax(flat_gain, dim=1)
-            best_gain = flat_gain.gather(1, best[:, None])[:, 0]
-            best_f = torch.where(best_gain > 0, best // n_bins,
-                                 torch.zeros_like(best))
-            best_b = torch.where(best_gain > 0, best % n_bins,
-                                 torch.full_like(best, n_bins))
-            offset = n_level - 1
-            feat[offset:offset + n_level] = best_f.to(torch.int32)
-            thr[offset:offset + n_level] = best_b.to(torch.int32)
-            go_right = bins.gather(1, best_f[node][:, None])[:, 0] \
-                > best_b[node]
-            node = node * 2 + go_right.long()
-        leaf_g = psum(seg_sum(grad, node, n_nodes), mesh, "dp")
-        leaf_h = psum(seg_sum(hess, node, n_nodes), mesh, "dp")
-        leaf = -leaf_g / (leaf_h + reg_lambda) * lr
-        return feat, thr, leaf, leaf[node]
+            hist = psum(k_gbdt.hist(vals, node, bins, 1 << level, n_bins),
+                        mesh, "dp")
+            k_gbdt.split(hist, feat, thr, level, n_bins, reg_lambda, 0.0,
+                         0.0, 0.0, w_slot=-1, c_slot=-1)
+            node = k_gbdt.route(node, bins, feat, thr, level)
+        leaf_gh = psum(k_gbdt.hist(vals, node, None, n_nodes, 1), mesh,
+                       "dp")[0, :, 0, 0, :]
+        leaf = -leaf_gh[:, 0] / (leaf_gh[:, 1] + reg_lambda) * lr
+        if node is None:
+            node = torch.zeros((1, grad.shape[0]), dtype=torch.int32,
+                               device=dev)
+        return (feat[0].to(torch.int32), thr[0].to(torch.int32), leaf,
+                leaf[node[0]])
 
     return round_fn

@@ -18,6 +18,7 @@ import torch
 import delphi_tpu_torch as T
 from delphi_tpu_torch.models import gbdt
 from delphi_tpu_torch.ops.kernels import entropy as k_entropy
+from delphi_tpu_torch.ops.kernels import gbdt as k_gbdt
 from delphi_tpu_torch.ops.kernels import pair_counts as k_pair
 
 
@@ -746,8 +747,12 @@ def test_boosting_rounds_bitwise_card_matches_cpu(card):
         args = (30, depth, n_bins, objective, k, 0.1, 1.0, 0.0, 1e-3, 20.0,
                 True)
         F_c, t_c = gbdt._boost(bins, y, w, F, *args)
+        k_gbdt.reset_launches()
         F_g, t_g = gbdt._boost(bins.to(card), y.to(card), w.to(card),
                                F.to(card), *args)
+        torch.cuda.synchronize()
+        assert all(k_gbdt.launches[name] > 0 for name in
+                   ("gbdt_hist", "gbdt_split", "gbdt_route"))
         assert torch.equal(F_g.cpu(), F_c)
         assert all(torch.equal(a.cpu(), b) for a, b in zip(t_g, t_c))
         kk = max(k, 2)
@@ -759,6 +764,123 @@ def test_boosting_rounds_bitwise_card_matches_cpu(card):
         s_g = gbdt._cv_stats(F_g, y.to(card), val.to(card),
                              *[c.to(card) for c in consts], objective, kk)
         assert torch.equal(s_g.cpu(), s_c)
+
+
+# (T, per_round, n, d, n_bins, C, level): small shapes, odd bin counts,
+# and 4e's (3 folds x 8 class trees, 10,000 rows, 4 features, 64 bins)
+GBDT_SHAPES = [(1, 1, 1, 1, 2, 2, 0), (3, 1, 777, 5, 33, 3, 2),
+               (4, 4, 2500, 2, 256, 4, 5), (6, 2, 1000, 3, 17, 2, 6),
+               (24, 8, 10_000, 4, 64, 3, 0), (24, 8, 10_000, 4, 64, 3, 4)]
+
+
+def _gbdt_inputs(shape, seed):
+    T, per_round, n, d, n_bins, C, level = shape
+    rng = np.random.default_rng(seed)
+    M = T // per_round
+    vals = rng.normal(size=(T, n, C)).astype(np.float32)
+    vals[:, -n // 10:] = 0.0                       # padded rows
+    bins = rng.integers(0, n_bins, (M, n, d))
+    if d > 1:
+        bins[:, :, 1] = bins[:, :, 0]              # a duplicate column
+    node = rng.integers(0, 1 << level, (T, n)).astype(np.int32)
+    return (torch.from_numpy(vals), torch.from_numpy(node),
+            torch.from_numpy(bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GBDT_SHAPES)
+def test_gbdt_kernels_match_plain_on_card(card, shape):
+    """K3a, K3b, K3c bit for bit their plain versions at small shapes and
+    at 4e's, per-model bins read through the tree-to-model map; each
+    launch counted once."""
+    T, per_round, n, d, n_bins, C, level = shape
+    vals, node, bins = _gbdt_inputs(shape, sum(shape))
+    L = 1 << level
+    k_gbdt.reset_launches()
+    want = k_gbdt.hist(vals, node, bins, L, n_bins, per_round)
+    got = k_gbdt.hist(vals.to(card), node.to(card), bins.to(card), L,
+                      n_bins, per_round)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    # hessian-like second channel, weight and counts for the masks
+    h = want.clone()
+    h[..., 1] = h[..., 1].abs() + 0.01
+    if C > 2:
+        h[..., 2] = h[..., 2].abs()
+    width = 2 * L - 1
+    for w_slot, c_slot, lam, mcw in ((1 if C == 2 else 2, C - 1 if C == 4
+                                      else -1, 1.0, 0.5),
+                                     (-1, -1, torch.rand(T) + 0.1, 0.0)):
+        feats = [torch.zeros((T, width), dtype=torch.int64, device=dev)
+                 for dev in ("cpu", card, "cpu", card)]
+        feats[2].fill_(n_bins)
+        feats[3].fill_(n_bins)
+        k_gbdt.split(h, feats[0], feats[2], level, n_bins, lam, 0.0, mcw,
+                     2.0, w_slot, c_slot)
+        lam_g = lam.to(card) if isinstance(lam, torch.Tensor) else lam
+        k_gbdt.split(h.to(card), feats[1], feats[3], level, n_bins, lam_g,
+                     0.0, mcw, 2.0, w_slot, c_slot)
+        torch.cuda.synchronize()
+        assert torch.equal(feats[1].cpu(), feats[0])
+        assert torch.equal(feats[3].cpu(), feats[2])
+        for prev in (None, node):
+            want_r = k_gbdt.route(prev, bins, feats[0], feats[2], level,
+                                  per_round)
+            got_r = k_gbdt.route(None if prev is None else prev.to(card),
+                                 bins.to(card), feats[1], feats[3], level,
+                                 per_round)
+            torch.cuda.synchronize()
+            assert torch.equal(got_r.cpu(), want_r)
+    assert k_gbdt.launches == {"gbdt_hist": 1, "gbdt_split": 2,
+                               "gbdt_route": 4, "gbdt_predict": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,k,depth,R,n", [
+    ("multiclass", 8, 5, 40, 100_000), ("binary", 1, 3, 200, 4099),
+    ("regression", 1, 7, 3, 1)])
+def test_gbdt_predict_matches_plain_on_card(card, objective, k, depth, R, n):
+    """K4 bit for bit its plain version (the round-by-round f32 sum)."""
+    rng = np.random.default_rng(R + n)
+    d, n_bins = 6, 64
+    width = (1 << depth) - 1
+    bins = torch.from_numpy(rng.integers(0, n_bins, (n, d)))
+    feats = torch.from_numpy(rng.integers(0, d, (R, k, width)))
+    thrs = torch.from_numpy(rng.integers(0, n_bins + 1, (R, k, width)))
+    leaves = torch.from_numpy(rng.normal(0, 0.3, (R, k, width + 1))
+                              .astype(np.float32))
+    base = torch.from_numpy(rng.normal(size=k).astype(np.float32))
+    multi = objective == "multiclass"
+    want = k_gbdt.predict(bins, feats, thrs, leaves, depth, base, multi)
+    before = k_gbdt.launches["gbdt_predict"]
+    got = k_gbdt.predict(bins.to(card), feats.to(card), thrs.to(card),
+                         leaves.to(card), depth, base.to(card), multi)
+    torch.cuda.synchronize()
+    assert k_gbdt.launches["gbdt_predict"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_gbdt_failed_launch_raises(card):
+    """A launch the entry point refuses (five channels, past the
+    kernel's four) comes back as KernelLaunchError, and the wrappers
+    refuse what the kernels do not take before launching."""
+    from delphi_tpu_torch.ops.kernels import build
+    p = k_gbdt.HistParams()
+    p.trees, p.levels, p.d, p.n_bins, p.channels = 1, 1, 1, 1, 5
+    p.per_round, p.models = 1, 1
+    import ctypes
+    err = build.library().delphi_gbdt_hist(ctypes.addressof(p),
+                                           build.current_stream())
+    with pytest.raises(build.KernelLaunchError):
+        build.check(err, "gbdt_hist")
+    vals = torch.zeros((1, 8, 2), device=card)
+    with pytest.raises(ValueError):
+        k_gbdt.hist(vals, None, torch.zeros((8, 1), dtype=torch.int64,
+                                            device=card), 1, 257)
+    with pytest.raises(ValueError):
+        k_gbdt.hist(vals, None, torch.zeros((8, 1), dtype=torch.int32,
+                                            device=card), 1, 8)
 
 
 # -- the resilience plane on the card -----------------------------------------

@@ -17,6 +17,7 @@ before this slice each return the frame of a run without them.
 import os
 import re
 import shutil
+import traceback
 
 import numpy as np
 import pandas as pd
@@ -47,11 +48,27 @@ COUNTERS_THAT_DIFFER = {
                        "library's builds (deviation D3)",
     "domain.bytes_to_host": "the bytes K5 returns; the JAX package's XLA "
                             "program has no such count",
+    # the transfer ledger (deviation D12; every upload reconciled in
+    # test_transfer_ledger_matches_jax_but_the_deviation): the port uploads
+    # the column codes in error detection, the JAX package in attr stats
+    "transfer.phase.error_detection.*": "D12: the port's NULL scan reads "
+                                        "the resident column codes",
+    "transfer.phase.attr_stats.*": "D12: the JAX package uploads the column "
+                                   "codes and its pair index here",
+    "transfer.phase.cell_domain_analysis.bytes": "D12: one K5 blob against "
+                                                 "the JAX package's operands",
+    "transfer.phase.repair_model_training.*": "D12: the port's GBDT slabs "
+                                              "go through the ledger",
+    "transfer.phase.repairing.*": "D12: the port's predictions upload their "
+                                  "bins and trees through the ledger",
+    "transfer.calls": "D12: the sum of the phases above",
+    "transfer.bytes": "D12: the sum of the phases above",
+    "transfer.reuses": "D12: the port's attr stats reuse the codes its "
+                       "NULL scan uploaded; the JAX package uploads them "
+                       "there",
     "launch.ledger.records": "one record per executed planned launch, and "
                              "the launch counts of `entropy` and "
                              "`gbdt.cv[i]` differ (deviation D6)",
-    "transfer.*": "the JAX package's device-table transfer ledger "
-                  "(ops/xfer.py); the port's uploads keep no byte ledger",
 }
 
 _ENV = ("DELPHI_METRICS_PATH", "DELPHI_METRICS_EVENTS", "DELPHI_PROFILE_DIR",
@@ -98,10 +115,42 @@ def _reported(lib, path, model, monkeypatch):
     return frame, report
 
 
+# each package's uploads during the plain reported run, by package name:
+# (phase, bytes, calling module:function) per ledger entry
+UPLOADS = {}
+
+
+def _spy_uploads(lib, xfer, spans, mp):
+    """Records every transfer-ledger entry of ``lib`` with its phase and
+    the function outside ``ops/xfer.py`` that uploaded."""
+    got = UPLOADS[lib.__name__] = []
+    orig = xfer.record_transfer
+
+    def record(nbytes, calls=1):
+        # the outermost ops/xfer.py function, and the caller outside it
+        entry, site = None, None
+        for f in reversed(traceback.extract_stack()[:-1]):
+            if f.filename.endswith(os.path.join("ops", "xfer.py")):
+                entry = f.name
+                continue
+            site = f"{os.sep.join(f.filename.split(os.sep)[-2:])}:{f.name}"
+            break
+        rec = spans.current_recorder()
+        got.append((rec.current_phase if rec else None, int(nbytes),
+                    f"{entry} {site}"))
+        return orig(nbytes, calls)
+
+    mp.setattr(xfer, "record_transfer", record)
+
+
 @pytest.fixture(scope="module")
 def reports(tmp_path_factory):
     """(JAX report, port report, JAX frame, port frame, directory) of the
     plain reported run."""
+    from delphi_tpu.observability import spans as j_spans
+    from delphi_tpu.ops import xfer as j_xfer
+    from delphi_tpu_torch.observability import spans as t_spans
+    from delphi_tpu_torch.ops import xfer as t_xfer
     mp = pytest.MonkeyPatch()
     root = tmp_path_factory.mktemp("run_report")
     for v in _ENV:
@@ -109,6 +158,8 @@ def reports(tmp_path_factory):
     T.set_device("cpu")
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    _spy_uploads(J, j_xfer, j_spans, mp)
+    _spy_uploads(T, t_xfer, t_spans, mp)
     try:
         jf, jr = _reported(J, root / "jax.json", _model(J), mp)
         tf, tr = _reported(T, root / "port.json", _model(T), mp)
@@ -166,6 +217,78 @@ def test_counters_equal_but_the_listed_ones(reports):
                 if key == k or (key.endswith("*")
                                 and k.startswith(key[:-1]))]
         assert seen, key
+
+
+def _ledger(counters):
+    """The run's transfer counters: totals and {phase: (calls, bytes)}."""
+    phases = {}
+    for key, v in counters.items():
+        m = re.fullmatch(r"transfer\.phase\.(.+)\.(calls|bytes)", key)
+        if m:
+            calls, nbytes = phases.get(m.group(1), (0, 0))
+            phases[m.group(1)] = (calls + v, nbytes) if m.group(2) == "calls" \
+                else (calls, nbytes + v)
+    return counters.get("transfer.calls"), counters.get("transfer.bytes"), \
+        phases
+
+
+def test_transfer_ledger_matches_jax_but_the_deviation(reports):
+    """Both reports carry the JAX package's transfer ledger: the totals,
+    ``transfer.reuses`` and ``transfer.phase.<span>.calls|bytes`` under
+    the recorder's span names, each package's counters the sum of its
+    uploads. The uploads reconcile with the JAX package's as deviation
+    D12 of ``ROADMAP.md`` says: the same column-code uploads (one per
+    column, 4 bytes a row), in error detection on the port (its NULL scan
+    reads the resident codes) and in attr stats in the JAX package (its
+    CPU detection stays on the host); the JAX package's pair-index upload
+    for its XLA pair counts (8 bytes a pair), which K1 takes in its
+    parameter table; one domain upload each (the port's one K5 blob, of
+    other bytes); and the port's GBDT uploads (slabs, bins, trees),
+    which the JAX package makes outside its ledger."""
+    jr, tr, *_ = reports
+    jc, tc = jr["metrics"]["counters"], tr["metrics"]["counters"]
+    sanitize = lambda s: re.sub(r"[^A-Za-z0-9_.-]+", "_", s)  # noqa: E731
+    spans = set()
+    stack = [tr["spans"]]
+    while stack:
+        span = stack.pop()
+        spans.add(sanitize(span["name"]))
+        stack.extend(span["children"])
+    for counters, lib in ((jc, J), (tc, T)):
+        ups = UPLOADS[lib.__name__]
+        calls, nbytes, phases = _ledger(counters)
+        assert (calls, nbytes) == (len(ups), sum(b for _, b, _ in ups))
+        assert sum(c for c, _ in phases.values()) == calls
+        assert sum(b for _, b in phases.values()) == nbytes
+        want = {}
+        for phase, b, _ in ups:
+            c0, b0 = want.get(sanitize(phase), (0, 0))
+            want[sanitize(phase)] = (c0 + 1, b0 + b)
+        assert phases == want
+        assert counters["transfer.reuses"] > 0
+    assert set(_ledger(tc)[2]) <= spans
+
+    def sites(lib, phase=None, site=None):
+        return sorted(b for p, b, s in UPLOADS[lib.__name__]
+                      if (phase is None or p == phase)
+                      and (site is None or site in s))
+
+    codes_t = sites(T, site="device_codes ")
+    codes_j = sites(J, site="device_codes ")
+    assert codes_t == codes_j == [4 * N_ROWS] * len(codes_j) and codes_j
+    assert codes_t == sites(T, phase="error detection")
+    pair_index = sites(J, site="to_device ops/freq.py:compute_freq_stats")
+    assert len(pair_index) == 1 and pair_index[0] % 8 == 0
+    assert sorted(codes_j + pair_index) == sites(J, phase="attr stats")
+    assert not sites(T, phase="attr stats")
+    assert len(sites(T, phase="cell domain analysis")) \
+        == len(sites(J, phase="cell domain analysis")) == 1
+    gbdt = [u for u in UPLOADS["delphi_tpu_torch"]
+            if u[0] in ("repair model training", "repairing")]
+    assert gbdt and all(s.startswith("to_device models/gbdt.py:")
+                        for _, _, s in gbdt)
+    assert len(UPLOADS["delphi_tpu_torch"]) == len(codes_t) + 1 + len(gbdt)
+    assert len(UPLOADS["delphi_tpu"]) == len(codes_j) + 2
 
 
 def test_gauge_and_histogram_names_equal(reports):
