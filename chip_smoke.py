@@ -49,7 +49,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    slots, tree-to-model map and hyperparameter kinds), each held bitwise
    against its plain version right after its path (the ranks' in their
    phase); the heaviest call of each kernel on each traced path is timed
-   and run under the sync check too;
+   and run under the sync check too, K3a's with its order floor (its
+   longest per-bin chain times one dependent add's latency, measured at
+   the start by ``delphi_add_chain``); K3a and K3b run the edge shapes of
+   ``GBDT_EDGES`` (a skewed bin, one to 256 bins, an empty node, partial
+   windows and rounds, 55 features, every C, -0.0 / inf / NaN values)
+   bitwise against their plain versions on the card (:func:`gbdt_edges`);
    4c. the same table through batched training
    (``setParallelStatTrainingEnabled(True)``): the same frame, at least
    one multi-target CV launch and one batched fit launch, no fallback;
@@ -322,6 +327,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    each of four processes, parent, change, change, parent
    (:func:`parent_ab`: walls, training spans, ms per round, equal
    frames);
+   ``python3 chip_smoke.py --gbdt-probe [-DNAME ...]`` builds the
+   kernels (with those macros; ``-DDELPHI_GBDT_PHASE_CLOCKS`` adds K3a's
+   per-phase clocks of its slowest block) and times K3a and K3b
+   (:func:`gbdt_probe`) at 4e's shapes, the gauntlet's width, a skewed
+   bin, and on the heaviest calls of phase 4's 1M repair and of the
+   gauntlet's ``wide`` scenario at the top of its scale series, each held
+   bitwise first: kernel ms, ``index_add_``, the byte bound, the order
+   floor (longest chain times one add's latency, from ``delphi_add_chain``);
    ``python3 chip_smoke.py --ab N`` runs phases 1 and 2, then N
    same-host pairs of 4l(a) and of 4l(b) in alternating order
    (:func:`planes_ab`), and prints their walls and spans with median and
@@ -461,6 +474,30 @@ GBDT_MAIN_PATH = "e2e"
 # the axis of a K3 / K4 argument that runs over the rows: gbdt_key leaves
 # its length out
 GBDT_ROW_AXIS = {"vals": 1, "node": 1, "bins": -2}
+# K3a and K3b at their edges (4b, gbdt_edges): (T, per_round, n, d, n_bins,
+# C, level, kind), as tests/test_torch_cuda.py's GBDT_SHAPES past 4e's
+# two: about 80% of the rows in one bin ("skew", the order floor's case,
+# also at 200,000 rows), one bin (every gain -inf), 16, 17 and 256 bins,
+# a node without rows ("empty"), n below a window of node ids (1,024) and
+# one past whole rounds of staged rows (2,048), 55 and 9 features (K3b's
+# chunks of eight features, the last partial), every C, -0.0 / +inf / -inf
+# / NaN values ("special": NaN gains); a duplicate column everywhere
+# (equal gains across features)
+GBDT_EDGES = [(24, 8, 10_000, 4, 64, 3, 0, "skew"),
+              (24, 8, 10_000, 4, 64, 3, 4, "skew"),
+              (3, 1, 20_000, 3, 64, 4, 0, "skew"),
+              (24, 8, 200_000, 4, 64, 3, 0, "skew"),
+              (4, 1, 3000, 3, 1, 1, 1, "empty"),
+              (8, 1, 4097, 5, 17, 4, 3, "empty"),
+              (4, 2, 700, 3, 16, 2, 2, ""),
+              (2, 1, 2049, 2, 256, 3, 1, "special"),
+              (6, 3, 1500, 2, 64, 1, 3, "special"),
+              (24, 4, 5000, 55, 64, 3, 2, ""),
+              (16, 16, 3000, 9, 64, 2, 4, "")]
+# dependent f32 adds in the chain whose time gives one add's latency (the
+# order floor of K3a: its longest per-bin chain times that latency)
+ADD_CHAIN = 1 << 22
+ADD_NS = []
 # 4i: the provenance ledger on a missing_heavy run, and the escalation
 # tier on escalation_table (NULL and regex detectors on c2). 4i(a) ran the
 # 1M table of 4 and 4i(b) 1,000,000 rows at a budget of 131,072 at first;
@@ -5553,18 +5590,280 @@ def gbdt_library(torch, name, a):
     return lambda: out.index_add_(0, seg, flat)
 
 
+def gbdt_chain(torch, a) -> int:
+    """The longest chain of dependent adds of one recorded K3a call: the
+    rows of its fullest (tree, node, feature, bin)."""
+    v, node, bins = a["vals"], a["node"], a["bins"]
+    T, n, _ = v.shape
+    n_level, n_bins = a["n_level"], a["n_bins"]
+    if bins is None:
+        bins = torch.zeros((n, 1), dtype=torch.int64, device=v.device)
+    tb = bins.expand(T, *bins.shape) if bins.dim() == 2 \
+        else bins.repeat_interleave(a["per_round"], 0) if bins.shape[0] > 1 \
+        else bins.expand(T, *bins.shape[1:])
+    d = tb.shape[2]
+    nd = torch.zeros((T, n), dtype=torch.int64, device=v.device) \
+        if node is None else node.long()
+    seg = ((torch.arange(T, device=v.device)[:, None, None] * n_level
+            + nd[:, :, None]) * d
+           + torch.arange(d, device=v.device)[None, None, :]) * n_bins + tb
+    return int(torch.bincount(seg.reshape(-1)).max().item()) if n else 0
+
+
+def gbdt_edge_inputs(shape, seed):
+    """vals, node, bins (CPU tensors) of one (T, per_round, n, d, n_bins, C,
+    level, kind) shape: normal values with the last tenth of the rows 0
+    (padding), uniform bins with column 1 a copy of column 0, uniform
+    nodes. Kinds: "skew" puts about 80% of each feature's rows in bin 3,
+    "empty" leaves node 1 without rows, "special" sets about 1% of the
+    values to -0.0, +inf, -inf or NaN."""
+    import torch
+    T, per_round, n, d, n_bins, C, level, kind = shape
+    rng = np.random.default_rng(seed)
+    M = T // per_round
+    vals = rng.normal(size=(T, n, C)).astype(np.float32)
+    vals[:, -n // 10:] = 0.0
+    bins = rng.integers(0, n_bins, (M, n, d))
+    if kind == "skew":
+        bins[rng.random((M, n, d)) < 0.8] = min(3, n_bins - 1)
+    if d > 1:
+        bins[:, :, 1] = bins[:, :, 0]
+    node = rng.integers(0, 1 << level, (T, n)).astype(np.int32)
+    if kind == "empty":
+        node[node == 1] = 0
+    if kind == "special":
+        flat = vals.reshape(-1)
+        at = rng.choice(flat.size, max(4, flat.size // 100), replace=False)
+        flat[at] = np.resize(np.float32([-0.0, np.inf, -np.inf, np.nan]),
+                             at.size)
+    return (torch.from_numpy(vals), torch.from_numpy(node),
+            torch.from_numpy(bins))
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit, a NaN equal to any NaN (the CPU's and the card's
+    adds make NaNs of other payloads)."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return torch.equal(nan_a, nan_b) and torch.equal(
+        torch.where(nan_a, 0.0, a).view(torch.int32),
+        torch.where(nan_b, 0.0, b).view(torch.int32))
+
+
+def gbdt_edges(torch, k_gbdt) -> dict:
+    """4b: K3a and K3b at their edges (GBDT_EDGES) on the card against
+    their plain versions on the same card tensors: the level's histograms
+    and the leaf sums (no bins) bit for bit, NaN equal to NaN; the split
+    search on each level's histograms (a hessian-like channel appended at
+    C = 1) with the weight and count masks and without, feat / thr equal;
+    one bin leaves every node the sentinel. Fails on a difference. These
+    launches come after every traced path and count in no path's
+    launches. Returns the calls checked and each shape's longest chain."""
+    calls = {"hist": 0, "split": 0}
+    chains = []
+    for shape in GBDT_EDGES:
+        T, per_round, n, d, n_bins, C, level, kind = shape
+        vals, node, bins = (x.cuda() for x in
+                            gbdt_edge_inputs(shape, sum(shape[:7])))
+        L = 1 << level
+        hist_calls = ((vals, node, bins, L, n_bins),
+                      (vals[..., :min(C, 2)].contiguous(), node, None, L, 1))
+        for v, nd, b, levels, nb in hist_calls:
+            got = k_gbdt.hist(v, nd, b, levels, nb, per_round)
+            want = k_gbdt.hist_plain(v, nd, b, levels, nb, per_round)
+            torch.cuda.synchronize()
+            if not same_bits(torch, got, want):
+                fail(f"4b: gbdt_hist differs from its plain version at the "
+                     f"edge {shape} ({'leaf sums' if b is None else 'level'})")
+            calls["hist"] += 1
+            if b is not None:
+                level_hist = want
+        chains.append(gbdt_chain(torch, {"vals": vals, "node": node,
+                                         "bins": bins, "n_level": L,
+                                         "n_bins": n_bins,
+                                         "per_round": per_round}))
+        h = level_hist.clone() if C > 1 \
+            else torch.cat([level_hist, level_hist], -1)
+        Cs = h.shape[-1]
+        h[..., 1] = h[..., 1].abs() + 0.01
+        if Cs > 2:
+            h[..., 2] = h[..., 2].abs()
+        lam_t = torch.from_numpy(np.random.default_rng(T).uniform(
+            0.1, 1.1, T).astype(np.float32)).cuda()
+        for w_slot, c_slot, lam, mcw in (
+                (1 if Cs == 2 else 2, Cs - 1 if Cs == 4 else -1, 1.0, 0.5),
+                (-1, -1, lam_t, 0.0)):
+            tabs = [torch.zeros((T, 2 * L - 1), dtype=torch.int64,
+                                device="cuda") for _ in range(4)]
+            tabs[2].fill_(n_bins)
+            tabs[3].fill_(n_bins)
+            k_gbdt.split(h, tabs[0], tabs[2], level, n_bins, lam, 0.0, mcw,
+                         2.0, w_slot, c_slot)
+            k_gbdt.split_plain(h, tabs[1], tabs[3], level, n_bins, lam, 0.0,
+                               mcw, 2.0, w_slot, c_slot)
+            torch.cuda.synchronize()
+            if not (torch.equal(tabs[0], tabs[1])
+                    and torch.equal(tabs[2], tabs[3])):
+                fail(f"4b: gbdt_split differs from its plain version at the "
+                     f"edge {shape}")
+            if n_bins == 1 and not (tabs[2] == 1).all():
+                fail(f"4b: gbdt_split split a one-bin histogram at {shape}")
+            calls["split"] += 1
+    return {"shapes": len(GBDT_EDGES), "calls": calls,
+            "longest_chains": chains}
+
+
 def gbdt_bare(k_gbdt, build, name, a):
     """The recorded call's kernel launch through ctypes alone (its table
     prepared once)."""
     import ctypes
     if name == "split":
         a = dict(a, feat=a["feat"].clone(), thr=a["thr"].clone())
-        p = k_gbdt.split_params(**a)
+        p, keep = k_gbdt.split_params(**a), a
     else:
-        p, _ = getattr(k_gbdt, name + "_params")(**a)
+        p, keep = getattr(k_gbdt, name + "_params")(**a)
     lib, stream = build.library(), build.current_stream()
     fn = getattr(lib, f"delphi_gbdt_{name}")
-    return lambda: fn(ctypes.addressof(p), stream)
+
+    def launch():
+        return fn(ctypes.addressof(p), stream)
+    launch.keep = keep  # the tensors the table points at stay allocated
+    return launch
+
+
+# --gbdt-probe: (label, T, per_round, n, d, n_bins, C, level, kind) of
+# K3a calls timed with the K3b call on their histograms: 4e's CV launch
+# (3 folds x 8 class trees, 10,000 rows, 4 features, 64 bins) at its root
+# and fifth level, its leaf sums at depth 5 ("leaf": no bins, one bin, C
+# 2), the gauntlet's wide width (55 features) and a bin holding 80% of
+# the rows
+GBDT_PROBE = [("4e root", 24, 8, 10_000, 4, 64, 3, 0, ""),
+              ("4e level 4", 24, 8, 10_000, 4, 64, 3, 4, ""),
+              ("4e leaf sums", 24, 8, 10_000, 4, 64, 2, 5, "leaf"),
+              ("wide level 2", 24, 4, 10_000, 55, 64, 3, 2, ""),
+              ("skew root", 24, 8, 10_000, 4, 64, 3, 0, "skew"),
+              ("skew level 4", 24, 8, 10_000, 4, 64, 3, 4, "skew")]
+
+
+HIST_PHASES = ("windows", "bins", "rank", "scan", "place", "walk", "output")
+
+
+def hist_clocks(torch, k_gbdt, build, a) -> dict:
+    """The slowest block's cycles by phase in one K3a launch of ``a``, when
+    the library was built with -DDELPHI_GBDT_PHASE_CLOCKS (else {})."""
+    import ctypes
+    lib = build.library()
+    if not hasattr(lib, "delphi_gbdt_hist_clocks"):
+        return {}
+    buf = (ctypes.c_ulonglong * (len(HIST_PHASES) + 2))()
+    k_gbdt.hist(**a)
+    torch.cuda.synchronize()
+    lib.delphi_gbdt_hist_clocks(buf)
+    k_gbdt.hist(**a)
+    torch.cuda.synchronize()
+    lib.delphi_gbdt_hist_clocks(buf)
+    return {"blocks": buf[-1], "slowest_block_cycles": dict(
+        zip(HIST_PHASES + ("total",), buf[:-1]))}
+
+
+def gbdt_probe(torch, k_gbdt, build, flush) -> list:
+    """``python3 chip_smoke.py --gbdt-probe``: each GBDT_PROBE call of K3a
+    and the K3b call on its histograms checked bitwise against the plain
+    versions, then timed: kernel ms from back-to-back bare launches,
+    ``index_add_`` for K3a, the byte bound and K3a's order floor."""
+    rows = []
+    for label, *shape in GBDT_PROBE:
+        T, per_round, n, d, n_bins, C, level, kind = shape
+        vals, node, bins = (x.cuda() for x in gbdt_edge_inputs(
+            (T, per_round, n, d, n_bins, C, level,
+             "" if kind == "leaf" else kind), sum(shape[:7])))
+        if kind == "leaf":
+            a = {"vals": vals, "node": node, "bins": None,
+                 "n_level": 1 << level, "n_bins": 1, "per_round": 1}
+        else:
+            a = {"vals": vals, "node": None if level == 0 else node,
+                 "bins": bins, "n_level": 1 << level, "n_bins": n_bins,
+                 "per_round": per_round}
+        got = k_gbdt.hist(**a)
+        want = k_gbdt.hist_plain(**a)
+        torch.cuda.synchronize()
+        if not same_bits(torch, got, want):
+            fail(f"--gbdt-probe: gbdt_hist differs at {label}")
+        bytes_ms, ops_ms = gbdt_bound_ms("hist", a)
+        row = {"label": label, **hist_clocks(torch, k_gbdt, build, a),
+               "hist_ms": bare_ms(torch, gbdt_bare(k_gbdt, build, "hist", a),
+                                  flush),
+               "index_add_ms": time_ms(torch, gbdt_library(torch, "hist", a),
+                                       flush),
+               "hist_bound_ms": max(bytes_ms, ops_ms),
+               "order_chain": gbdt_chain(torch, a)}
+        row["order_floor_ms"] = row["order_chain"] * ADD_NS[0] / 1e6
+        if kind != "leaf":
+            h = want.clone()
+            h[..., 1] = h[..., 1].abs() + 0.01
+            h[..., 2] = h[..., 2].abs()
+            L = 1 << level
+            sa = {"hist_": h, "level": level, "n_bins": n_bins,
+                  "reg_lambda": 1.0, "min_split_gain": 0.0,
+                  "min_child_weight": 0.5, "min_child_samples": 0.0,
+                  "w_slot": 2, "c_slot": -1,
+                  "feat": torch.zeros((T, 2 * L - 1), dtype=torch.int64,
+                                      device="cuda"),
+                  "thr": torch.full((T, 2 * L - 1), n_bins,
+                                    dtype=torch.int64, device="cuda")}
+            g_f, g_t = gbdt_run(k_gbdt, "split", sa)
+            w_f, w_t = gbdt_run(k_gbdt, "split", sa, plain=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(g_f, w_f) and torch.equal(g_t, w_t)):
+                fail(f"--gbdt-probe: gbdt_split differs at {label}")
+            row["split_ms"] = bare_ms(torch, gbdt_bare(k_gbdt, build,
+                                                       "split", sa), flush)
+            row["split_bound_ms"] = max(gbdt_bound_ms("split", sa))
+        log(f"[gbdt-probe] {label}: {fmt(row)}")
+        rows.append(row)
+    # real calls: phase 4's 1M repair and the gauntlet's wide scenario at
+    # the top of its scale series (4t(b)), recorded as 4b records them,
+    # the heaviest K3a and K3b call of each timed the same way
+    import delphi_tpu_torch as T
+    from delphi_tpu_torch.gauntlet import SCENARIOS, generate_scenario
+    from delphi_tpu_torch.gauntlet import runner
+    T.set_device("cuda")
+    _, dirty = missing_heavy(E2E_ROWS, seed=0)
+    wide = generate_scenario("wide", max(SCENARIOS["wide"].scales), 0)
+
+    def gauntlet_wide():
+        with downstream_or_null():
+            runner.run_scenario(wide, seed=0)
+    for path, run in (("e2e", lambda: repair(T, dirty)),
+                      ("gauntlet wide", gauntlet_wide)):
+        calls = {}
+        orig = {name: getattr(k_gbdt, name) for name in ("hist", "split")}
+
+        def recording(name):
+            def fn(*args, **kwargs):
+                gbdt_record(calls, name, orig[name], args, kwargs)
+                return orig[name](*args, **kwargs)
+            return fn
+        try:
+            for name in orig:
+                setattr(k_gbdt, name, recording(name))
+            run()
+        finally:
+            for name, fn in orig.items():
+                setattr(k_gbdt, name, fn)
+        _, heaviest = gbdt_hold(torch, k_gbdt, calls, f"--gbdt-probe {path}")
+        for kernel, (key, name, a) in sorted(heaviest.items()):
+            clk = hist_clocks(torch, k_gbdt, build, a) if name == "hist" else {}
+            row = {"label": f"{path} {kernel}", **clk, "ms": bare_ms(
+                torch, gbdt_bare(k_gbdt, build, name, a), flush),
+                   "bound_ms": max(gbdt_bound_ms(name, a))}
+            if name == "hist":
+                row["index_add_ms"] = time_ms(
+                    torch, gbdt_library(torch, name, a), flush)
+                row["order_chain"] = gbdt_chain(torch, a)
+                row["order_floor_ms"] = row["order_chain"] * ADD_NS[0] / 1e6
+            log(f"[gbdt-probe] {row['label']}: {fmt(row)}")
+            rows.append(row)
+    return rows
 
 
 def gbdt_measure(torch, k_gbdt, build, flush, label, key, name, a):
@@ -5583,6 +5882,10 @@ def gbdt_measure(torch, k_gbdt, build, flush, label, key, name, a):
         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "shape": [list(x) if isinstance(x, tuple) else x for x in key[1:]]}
+    if name == "hist":
+        # the order floor: the longest chain of dependent adds
+        row["order_chain"] = gbdt_chain(torch, a)
+        row["order_floor_ms"] = row["order_chain"] * ADD_NS[0] / 1e6
     kernel = "gbdt_" + name
     defer_kernel_ms(f"{kernel} {label}", row, fn,
                     gbdt_bare(k_gbdt, build, name, a), [kernel + "_kernel"],
@@ -5749,6 +6052,36 @@ def main() -> None:
             "count": torch.cuda.device_count()}}), flush=True)
         return
 
+    if "--gbdt-probe" in sys.argv[1:]:
+        sys.path.insert(0, HERE)
+        from delphi_tpu_torch.ops.kernels import build
+        from delphi_tpu_torch.ops.kernels import gbdt as k_gbdt
+        # -DNAME arguments: a build of the sources with those macros
+        build.NVCC_FLAGS = build.NVCC_FLAGS + [
+            a for a in sys.argv[1:] if a.startswith("-D")]
+        path, compiler_log = build.build(ptxas_verbose=True)
+        for line in compiler_log.splitlines():
+            if "registers" in line or "Compiling entry" in line \
+                    or "spill" in line:
+                log(f"[build] {line.strip()}")
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
+                            device="cuda")
+        lib, stream = build.library(), build.current_stream()
+        chain_out = torch.empty(1, dtype=torch.float32, device="cuda")
+        ADD_NS.append(1e6 * time_ms(torch, lambda: lib.delphi_add_chain(
+            chain_out.data_ptr(), ADD_CHAIN, 1e-3, stream), flush, reps=5)
+            / ADD_CHAIN)
+        log(f"[add-latency] {ADD_NS[0]:.4f} ns an add")
+        probe = gbdt_probe(torch, k_gbdt, build, flush)
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"gbdt_probe": probe, "add_latency_ns": ADD_NS[0],
+                          "flags": build.NVCC_FLAGS}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+
     for flag, child in (("--gbdt-ab", GBDT_AB_CHILD),
                         ("--domain-ab", DOMAIN_AB_CHILD)):
         if flag in sys.argv[1:]:
@@ -5784,7 +6117,8 @@ def main() -> None:
     log(f"[build] {os.path.relpath(path, HERE)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in compiler_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line \
+                or "spill" in line:
             log(f"[build] {line.strip()}")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
@@ -5809,6 +6143,13 @@ def main() -> None:
              "bare_ms": bare_ms(torch, empty, flush)}
     defer_kernel_ms("launch floor", floor, empty, empty, ["empty_kernel"], 1)
     log(f"[launch-floor] empty kernel through ctypes: {fmt(floor)}")
+    # one dependent f32 add's latency: a one-thread chain over its length
+    chain_out = torch.empty(1, dtype=torch.float32, device="cuda")
+    add_chain = lambda: lib.delphi_add_chain(  # noqa: E731
+        chain_out.data_ptr(), ADD_CHAIN, 1e-3, stream)
+    ADD_NS.append(1e6 * time_ms(torch, add_chain, flush, reps=5) / ADD_CHAIN)
+    log(f"[add-latency] {ADD_CHAIN} dependent __fadd_rn in one thread: "
+        f"{ADD_NS[0]:.4f} ns an add")
     k1_shapes, k2_shapes = kernel_cases(torch, k_pair, k_entropy, build,
                                         flush)
 
@@ -6208,6 +6549,9 @@ def main() -> None:
     log(f"[kernels] K5's shared-memory and __ldg table branches, both "
         f"modes, bitwise equal to the plain version: "
         f"{json.dumps(k5_branches)}")
+    edges = gbdt_edges(torch, k_gbdt)
+    log(f"[kernels] K3a and K3b at their edges bitwise equal to their plain "
+        f"versions (NaN equal to NaN): {json.dumps(edges)}")
     # K3 and K4: each traced path's heaviest call of each kernel timed
     gbdt_rows = {path: {kernel: gbdt_measure(torch, k_gbdt, build, flush,
                                              path, *call)
@@ -6503,6 +6847,11 @@ def main() -> None:
             "bound_by": "bytes" if top["bytes_ms"] >= top["ops_ms"]
             else "operations",
             "library_ms": top["library_ms"], "shape": top["shape"],
+            **({"order_chain": top["order_chain"],
+                "order_floor_ms": top["order_floor_ms"],
+                "add_latency_ns": ADD_NS[0]} if name == "gbdt_hist" else {}),
+            **({"edges": edges} if name in ("gbdt_hist", "gbdt_split")
+               else {}),
             "paths": entry_paths, "per_round": rounds, "ok": True})
     o_rows = shard["rows"][0]["entropy_terms_owned"]
     o_bytes = sum(r["bytes_ms"] for r in o_rows)

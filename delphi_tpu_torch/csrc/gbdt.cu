@@ -36,18 +36,35 @@
 //
 // What bounds them on an H100. K3a: by bytes, each input read once
 // (T * n * (4C + 4) bytes plus the bins), each output written once; its
-// order constraint makes it latency bound instead: each bin's sum is a
-// chain of dependent adds in row order. Design: one block per (t, node,
-// f); the block scans its tree's node ids 1,024 rows a step, compacts the
-// rows of its node in row order into shared memory (their bin and
-// channel values), and warp w then walks the staged rows in order with
-// lane l owning bin 32 w + l, its C sums in registers. Every block rescans
-// its tree's node ids (4 bytes a row, from L2); that is the price of not
-// partitioning the rows by node. K3b reads each histogram twice (the
-// totals, then the gains) from L2: a thread per feature, a block per
-// (t, node), the block's first maximum by a comparison that is a total
-// order (NaN first, then value, then lower index). K3c and K4 are a thread
-// per (tree, row) and read each row's bins where the traversal leads.
+// order rule adds a second floor: each bin's sum is a chain of dependent
+// adds in row order, so no call is faster than its longest chain (the
+// rows of its fullest (tree, node, feature, bin)) times an add's latency.
+// Design: one block per (tree, node, feature). The block reads its tree's
+// node ids 1,024 a window through a ring of cp.async copies three windows
+// ahead, and compacts its node's row indices into a stage in row order
+// (a block scan of each thread's four rows). Each stage of up to 2,048
+// rows is one round: the rows' bins are copied in; each warp ranks its
+// run of rows within their bins (__match_any_sync and the popcount of the
+// lower peers, a per-warp count carried from 32 rows to the next); an
+// exclusive scan over (bin, warp) gives each warp's offset in each bin;
+// each row's channels are copied straight from global memory into its
+// place in bin order, one vector a row; and thread b adds bin b's segment
+// to its sums in registers, two batches of rows taking turns between
+// loading and adding. Every bin's segment keeps row order, so a thread
+// walks its own bin's rows only, and the sums carry across rounds in
+// shared memory. Grouping features in a block (the node's rows compacted
+// once for several features) was measured slower on the main path's own
+// calls: a group's skewed bins are walked one feature after another.
+// K3b: a block per (tree, node), a thread per (feature, bin) over
+// chunks of features: the chunk's histograms staged in shared memory
+// (the next chunk's loaded while this one is searched), each thread's
+// inner prefix in its block of 16 bins (its loads first, then at most 16
+// adds), the block totals scanned by a thread per (feature, channel), the
+// gain and masks per (feature, bin), and the first maximum by a reduction
+// with a comparison that is a total order (NaN first, then value, then
+// lower index), so the tree of the reduction does not change the winner.
+// K3c and K4 are a thread per (tree, row) and read each row's bins where
+// the traversal leads.
 //
 // Each entry point takes a host pointer to its parameter table (mirrored
 // by a ctypes.Structure in ops/kernels/gbdt.py) and the stream, launches
@@ -56,19 +73,23 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-constexpr int kHistThreads = 256;              // 8 warps: 8 windows of 32 bins
-constexpr int kRowsPerThread = 4;              // rows a thread stages a step
-constexpr int kStage = kHistThreads * kRowsPerThread;
+constexpr int kHistThreads = 256;              // 8 warps
 constexpr int kWarps = kHistThreads / 32;
-constexpr int kMaxBins = 32 * kWarps;          // 256
-constexpr int kSplitThreads = 128;
+constexpr int kWindow = 4 * kHistThreads;      // node ids a window scans, 4 a thread
+constexpr int kRing = 4;                       // windows of node ids in flight
+constexpr int kStage = 2048;                   // rows a round buckets
+constexpr int kPieces = kStage / kHistThreads; // 32-row pieces a warp ranks
+constexpr int kMaxBins = 256;                  // a thread per bin
+constexpr int kSplitThreads = 512;
 constexpr int kRowThreads = 256;
 constexpr int kBlock = 16;                     // XLA:CPU's scan block
 constexpr int kMaxChannels = 4;
+constexpr size_t kStaticSmem = 48 * 1024;
 
 struct HistParams {
   const float* vals;     // [T, n, C]
@@ -141,89 +162,375 @@ struct PredictParams {
 // K3a
 // ---------------------------------------------------------------------------
 
+// A staged row in bin order: its C channels as one vector (3 padded to
+// 4), so that the walk loads a row at once.
 template <int C>
-__global__ void __launch_bounds__(kHistThreads)
-gbdt_hist_kernel(const HistParams p) {
-  __shared__ int32_t s_bin[kStage];
-  __shared__ float s_val[kStage * C];
-  __shared__ int32_t s_count[kRowsPerThread * kWarps];
+struct Row {  // 3 or 4 channels
+  using T = float4;
+  __device__ static void add(float* acc, T v) {
+    acc[0] = __fadd_rn(acc[0], v.x);
+    acc[1] = __fadd_rn(acc[1], v.y);
+    acc[2] = __fadd_rn(acc[2], v.z);
+    if (C == 4) acc[3] = __fadd_rn(acc[3], v.w);
+  }
+};
+template <>
+struct Row<1> {
+  using T = float;
+  __device__ static void add(float* acc, T v) { acc[0] = __fadd_rn(acc[0], v); }
+};
+template <>
+struct Row<2> {
+  using T = float2;
+  __device__ static void add(float* acc, T v) {
+    acc[0] = __fadd_rn(acc[0], v.x);
+    acc[1] = __fadd_rn(acc[1], v.y);
+  }
+};
 
+__host__ __device__ constexpr int row_words(int C) { return C == 3 ? 4 : C; }
+
+// The dynamic shared memory of one K3a block in 4-byte words, its 16-byte
+// parts first: s_rows [kStage, row_words(C)] (the staged rows' channels in
+// bin order), s_ids [kRing, kWindow] (node ids in flight; none at the
+// root), s_acc [n_bins, C] (the sums, carried across rounds), s_bin
+// [kStage] (the staged rows' bins: the low word of each int64), s_row
+// [kStage] (their row indices), s_cnt [kWarps, n_bins] (a warp's rows per
+// bin, then its offset in each bin), s_start [n_bins + 1] (each bin's
+// segment).
+size_t hist_smem(int C, int B, bool ring) {
+  return 4 * (static_cast<size_t>(kStage) * row_words(C) + (ring ? kRing * kWindow : 0) +
+              B * C + 2 * kStage + kWarps * B + B + 1);
+}
+
+#ifdef DELPHI_GBDT_PHASE_CLOCKS
+// Measurement builds only (chip_smoke.py --gbdt-probe
+// -DDELPHI_GBDT_PHASE_CLOCKS): thread 0's cycles in each phase of the
+// slowest block of a launch. Phases: 0 node-id windows, 1 the bins copied
+// in, 2 ranking, 3 the scan over (bin, warp), 4 the rows placed in bin
+// order, 5 the walk, 6 the output; then the slowest block's total and the
+// blocks counted.
+constexpr int kPhases = 7;
+__device__ unsigned long long g_hist_clocks[kPhases + 2];
+__shared__ long long s_clk[kPhases + 1];  // the phases, then the last clock read
+__device__ __forceinline__ void phase(int i) {
+  if (threadIdx.x == 0) {
+    const long long now = clock64();
+    s_clk[i] += now - s_clk[kPhases];
+    s_clk[kPhases] = now;
+  }
+}
+#else
+__device__ __forceinline__ void phase(int) {}
+#endif
+
+// A copy of 4, 8 or 16 bytes from global to shared memory, left in
+// flight (cp.async); wait_copies() waits for every copy of the calling
+// thread and makes them visible to it.
+template <int Bytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(at), "l"(src), "n"(Bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A row's C channels into its slot of s_rows: one copy when C is 2 or 4
+// and the channels are aligned to it (wide), else a copy a channel.
+template <int C>
+__device__ __forceinline__ void fetch_row(void* dst, const float* src, bool wide) {
+  if ((C == 2 || C == 4) && wide) {
+    copy_async<4 * C>(dst, src);
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) copy_async<4>(static_cast<float*>(dst) + c, src + c);
+  }
+}
+
+// The exclusive prefix sum of v over the block's threads in thread order,
+// and its total in *sum (every thread calls it; s_scan holds kWarps ints
+// and is free again after the caller's next __syncthreads()).
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_scan, int* sum) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_scan[warp] = x;
+  __syncthreads();
+  int before = 0;
+  int all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int t = s_scan[w];
+    before += w < warp ? t : 0;
+    all += t;
+  }
+  *sum = all;
+  return before + x - v;
+}
+
+// Adds rows [k0, k1) of v to acc in order. Each add waits on the one
+// before it; the loads do not: two batches of rows (48 words or fewer)
+// take turns, one added while the other is loaded.
+template <int C>
+__device__ __forceinline__ void walk(float* acc, const typename Row<C>::T* v, int k0, int k1) {
+  constexpr int kWalk = C >= 3 ? 6 : 8;
+  using V = typename Row<C>::T;
+  int k = k0;
+  if (k + 2 * kWalk <= k1) {
+    V a[kWalk];
+    V b[kWalk];
+#pragma unroll
+    for (int u = 0; u < kWalk; ++u) a[u] = v[k + u];
+#pragma unroll
+    for (int u = 0; u < kWalk; ++u) b[u] = v[k + kWalk + u];
+    for (k += 2 * kWalk; k + 2 * kWalk <= k1; k += 2 * kWalk) {
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) Row<C>::add(acc, a[u]);
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) a[u] = v[k + u];
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) Row<C>::add(acc, b[u]);
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) b[u] = v[k + kWalk + u];
+    }
+#pragma unroll
+    for (int u = 0; u < kWalk; ++u) Row<C>::add(acc, a[u]);
+#pragma unroll
+    for (int u = 0; u < kWalk; ++u) Row<C>::add(acc, b[u]);
+  }
+  for (; k < k1; ++k) Row<C>::add(acc, v[k]);
+}
+
+// One round of a K3a block over `total` staged rows in row order (rows
+// base + i at the root, else s_row[i]): their bins copied in, a stable
+// bucketing by bin (each row's rank among the earlier rows of its bin in
+// its warp's run from __match_any_sync, each warp's offset in each bin from
+// an exclusive scan over (bin, warp)), each row's channels copied straight
+// into its place in bin order, and thread b adding bin b's segment, in row
+// order, to its sums.
+template <int C>
+__device__ __forceinline__ void hist_round(const HistParams& p, const float* vals,
+                                           const int64_t* bins, bool wide, int64_t base,
+                                           int total, float* s_acc, int32_t* s_bin,
+                                           const int32_t* s_row, int32_t* s_cnt,
+                                           int32_t* s_start, int32_t* s_scan, float* s_rows) {
+  using V = typename Row<C>::T;
+  const int B = p.n_bins;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  V* rows = reinterpret_cast<V*>(s_rows);
+  phase(0);
+  if (base < 0) __syncthreads();  // s_row is complete
+  if (B == 1) {
+    // one bin: the staged rows are its segment, in row order
+    for (int i = tid; i < total; i += kHistThreads) {
+      fetch_row<C>(rows + i, vals + (base < 0 ? s_row[i] : base + i) * C, wide);
+    }
+    wait_copies();
+    __syncthreads();
+    phase(1);
+    if (tid == 0) {
+      float acc[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = s_acc[c];
+      walk<C>(acc, rows, 0, total);
+#pragma unroll
+      for (int c = 0; c < C; ++c) s_acc[c] = acc[c];
+    }
+    __syncthreads();
+    phase(5);
+    return;
+  }
+  for (int i = tid; i < total; i += kHistThreads) {
+    if (bins == nullptr) {
+      s_bin[i] = 0;  // no bins: every row in bin 0
+    } else {
+      copy_async<4>(s_bin + i, bins + (base < 0 ? s_row[i] : base + i) * p.d);
+    }
+  }
+  for (int i = tid; i < kWarps * B; i += kHistThreads) s_cnt[i] = 0;
+  wait_copies();
+  __syncthreads();
+  phase(1);
+  // warp w ranks the staged rows [lo, hi), 32 at a time
+  const int chunk = (total + kHistThreads - 1) / kHistThreads * 32;
+  const int lo = warp * chunk;
+  const int hi = min(total, lo + chunk);
+  const unsigned below = (1u << lane) - 1u;
+  int rank[kPieces];
+#pragma unroll
+  for (int j = 0; j < kPieces; ++j) {
+    const int i = lo + j * 32 + lane;
+    if (lo + j * 32 < hi) {  // warp-uniform
+      const bool on = i < hi;
+      const int b = on ? s_bin[i] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, b);
+      const int before = on ? s_cnt[warp * B + b] : 0;
+      __syncwarp();
+      if (on && (peers & below) == 0) s_cnt[warp * B + b] = before + __popc(peers);
+      __syncwarp();
+      rank[j] = before + __popc(peers & below);
+    }
+  }
+  __syncthreads();
+  phase(2);
+  // each warp's offset in each bin
+  int count = 0;
+  if (tid < B) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) count += s_cnt[w * B + tid];
+  }
+  int staged = 0;
+  const int start = block_exclusive_scan(count, s_scan, &staged);
+  if (tid < B) {
+    int run = start;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_cnt[w * B + tid];
+      s_cnt[w * B + tid] = run;
+      run += c;
+    }
+    s_start[tid] = start;
+    if (tid == B - 1) s_start[B] = run;
+  }
+  __syncthreads();
+  phase(3);
+#pragma unroll
+  for (int j = 0; j < kPieces; ++j) {
+    const int i = lo + j * 32 + lane;
+    if (i < hi) {
+      fetch_row<C>(rows + s_cnt[warp * B + s_bin[i]] + rank[j],
+                   vals + (base < 0 ? s_row[i] : base + i) * C, wide);
+    }
+  }
+  wait_copies();
+  __syncthreads();
+  phase(4);
+  if (tid < B) {
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = s_acc[tid * C + c];
+    walk<C>(acc, rows, s_start[tid], s_start[tid + 1]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) s_acc[tid * C + c] = acc[c];
+  }
+  __syncthreads();  // the stage is free for the next round
+  phase(5);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kHistThreads, 3)
+gbdt_hist_kernel(const HistParams p) {
+  extern __shared__ __align__(16) unsigned char hist_smem_[];
+  __shared__ int32_t s_scan[2 * kWarps];  // block scans, two in turn
+  const int B = p.n_bins;
+  const int tid = threadIdx.x;
   int64_t task = blockIdx.x;
   const int f = static_cast<int>(task % p.d);
   task /= p.d;
   const int nd = static_cast<int>(task % p.levels);
   const int t = static_cast<int>(task / p.levels);
 
-  const int my_bin = warp * 32 + lane;
-  const bool owner = my_bin < p.n_bins;
+  float* s_rows = reinterpret_cast<float*>(hist_smem_);
+  int32_t* s_ids = reinterpret_cast<int32_t*>(s_rows + kStage * row_words(C));
+  float* s_acc = reinterpret_cast<float*>(s_ids + (p.node == nullptr ? 0 : kRing * kWindow));
+  int32_t* s_bin = reinterpret_cast<int32_t*>(s_acc + B * C);
+  int32_t* s_row = s_bin + kStage;
+  int32_t* s_cnt = s_row + kStage;
+  int32_t* s_start = s_cnt + kWarps * B;
+
+  for (int i = tid; i < B * C; i += kHistThreads) s_acc[i] = 0.0f;
+#ifdef DELPHI_GBDT_PHASE_CLOCKS
+  if (tid < kPhases) s_clk[tid] = 0;
+  if (tid == 0) s_clk[kPhases] = clock64();
+#endif
+
   const int model = p.models == 1 ? 0 : t / p.per_round;
-  const int64_t* bins =
-      p.bins == nullptr ? nullptr : p.bins + static_cast<int64_t>(model) * p.n * p.d + f;
+  // one bin needs no bins: every row is in bin 0
+  const int64_t* bins = p.bins == nullptr || B == 1
+                            ? nullptr
+                            : p.bins + static_cast<int64_t>(model) * p.n * p.d + f;
   const int32_t* node = p.node == nullptr ? nullptr : p.node + static_cast<int64_t>(t) * p.n;
   const float* vals = p.vals + static_cast<int64_t>(t) * p.n * C;
+  const bool wide = reinterpret_cast<uintptr_t>(p.vals) % (4 * C) == 0;
 
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-
-  for (int64_t base = 0; base < p.n; base += kStage) {
-    // which of this thread's rows belong to the node, and their ranks in
-    // row order: sub-step k holds rows base + k * 256 + threadIdx.x
-    bool in[kRowsPerThread];
-    unsigned ballot[kRowsPerThread];
-#pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      const int64_t row = base + k * kHistThreads + threadIdx.x;
-      in[k] = row < p.n && (node == nullptr || __ldg(node + row) == nd);
-      ballot[k] = __ballot_sync(0xffffffffu, in[k]);
+  if (node == nullptr) {
+    // the root: every row at node 0, a round for each kStage rows
+    for (int64_t base = 0; base < p.n; base += kStage) {
+      const int64_t left = p.n - base;
+      hist_round<C>(p, vals, bins, wide, base, static_cast<int>(left < kStage ? left : kStage),
+                    s_acc, s_bin, s_row, s_cnt, s_start, s_scan, s_rows);
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k) s_count[k * kWarps + warp] = __popc(ballot[k]);
-    }
-    __syncthreads();
-    int total = 0;
-    int before[kRowsPerThread];
-#pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      for (int w = 0; w < kWarps; ++w) {
-        if (w == warp) before[k] = total;
-        total += s_count[k * kWarps + w];
-      }
-    }
-    const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      if (in[k]) {
-        const int64_t row = base + k * kHistThreads + threadIdx.x;
-        const int pos = before[k] + __popc(ballot[k] & below);
-        s_bin[pos] = bins == nullptr ? 0 : static_cast<int32_t>(__ldg(bins + row * p.d));
-#pragma unroll
-        for (int c = 0; c < C; ++c) s_val[pos * C + c] = __ldg(vals + row * C + c);
-      }
-    }
-    __syncthreads();
-    if (warp * 32 < p.n_bins) {
-      // the staged rows in row order; each lane adds its bin's
-#pragma unroll 4
-      for (int i = 0; i < total; ++i) {
-        if (s_bin[i] == my_bin) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], s_val[i * C + c]);
+  } else {
+    // window w's node ids go to ring slot w % kRing, kRing - 1 windows
+    // ahead; a thread copies (and alone reads) rows base + 4 t .. + 3
+    const bool ids16 = reinterpret_cast<uintptr_t>(node) % 16 == 0;
+    const int64_t windows = (p.n + kWindow - 1) / kWindow;
+    auto fetch_ids = [&](int64_t w) {
+      if (w < windows) {
+        const int64_t row = w * kWindow + 4 * tid;
+        int32_t* dst = s_ids + (w % kRing) * kWindow + 4 * tid;
+        if (ids16 && row + 4 <= p.n) {
+          copy_async<16>(dst, node + row);
+        } else {
+          for (int j = 0; j < 4 && row + j < p.n; ++j) copy_async<4>(dst + j, node + row + j);
         }
       }
-    }
-    __syncthreads();
-  }
-  if (owner) {
-    float* out = p.out +
-        ((static_cast<int64_t>(t) * p.levels + nd) * p.d + f) * p.n_bins * C +
-        static_cast<int64_t>(my_bin) * C;
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    for (int w = 0; w < kRing - 1; ++w) fetch_ids(w);
+    int total = 0;  // rows staged for the next round (the same in every thread)
+    for (int64_t w = 0; w < windows; ++w) {
+      fetch_ids(w + kRing - 1);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
+      const int64_t base = w * kWindow + 4 * tid;
+      const int32_t* ids = s_ids + (w % kRing) * kWindow + 4 * tid;
+      // the window's rows of the node, appended to the stage in row order
+      unsigned in = 0;
 #pragma unroll
-    for (int c = 0; c < C; ++c) out[c] = acc[c];
+      for (int j = 0; j < 4; ++j) {
+        if (base + j < p.n && ids[j] == nd) in |= 1u << j;
+      }
+      int count = 0;
+      int at = total + block_exclusive_scan(__popc(in), s_scan + (w & 1) * kWarps, &count);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (in & (1u << j)) s_row[at++] = static_cast<int32_t>(base + j);
+      }
+      total += count;
+      if (total > kStage - kWindow || (w + 1 == windows && total > 0)) {
+        hist_round<C>(p, vals, bins, wide, -1, total, s_acc, s_bin, s_row, s_cnt, s_start, s_scan,
+                      s_rows);
+        total = 0;
+      }
+    }
   }
+  phase(0);
+  __syncthreads();
+  float* out = p.out + ((static_cast<int64_t>(t) * p.levels + nd) * p.d + f) * B * C;
+  for (int i = tid; i < B * C; i += kHistThreads) out[i] = s_acc[i];
+#ifdef DELPHI_GBDT_PHASE_CLOCKS
+  phase(6);
+  if (tid == 0) {
+    unsigned long long all = 0;
+    for (int i = 0; i < kPhases; ++i) all += s_clk[i];
+    if (all > atomicMax(&g_hist_clocks[kPhases], all)) {
+      for (int i = 0; i < kPhases; ++i) {
+        atomicExch(&g_hist_clocks[i], static_cast<unsigned long long>(s_clk[i]));
+      }
+    }
+    atomicAdd(&g_hist_clocks[kPhases + 1], 1ull);
+  }
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -242,89 +549,121 @@ __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
   return a == b ? ia < ib : a > b;
 }
 
-// The inclusive cumsum over the bins of every channel of one feature's
-// histogram h[n][C] (n <= 256, C <= 4) in XLA:CPU's blocked order,
-// channels in lockstep: visit(j, v) gets bin j's prefix of channel c in
-// v[c], bins in increasing order. Mirrors _blocked_cumsum of the plain
-// version: n <= 16 is one sequential scan from x[0] + 0; past it the row
-// is padded with zeros to whole blocks of 16, each block scanned from its
-// first element + 0, the block totals scanned the same way, and each
-// prefix is its block's prefix + the earlier blocks' total (0 for the
-// first block).
-template <typename Visit>
-__device__ __forceinline__ void blocked_cumsum(const float* h, int n, int C,
-                                               Visit visit) {
-  float acc[kMaxChannels];
-  if (n <= kBlock) {
-#pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) acc[c] = c < C ? __fadd_rn(h[c], 0.0f) : 0.0f;
-    visit(0, acc);
-    for (int j = 1; j < n; ++j) {
-#pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c) {
-        if (c < C) acc[c] = __fadd_rn(acc[c], h[j * C + c]);
-      }
-      visit(j, acc);
-    }
-    return;
-  }
-  const int m = (n + kBlock - 1) / kBlock;
-  float inner[kMaxChannels];
-  float excl[kMaxChannels];   // the block's exclusive offset
-  float outer[kMaxChannels];  // the block totals' running sum
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) excl[c] = outer[c] = 0.0f;
-  for (int i = 0; i < m; ++i) {
-    for (int jj = 0; jj < kBlock; ++jj) {
-      const int j = i * kBlock + jj;
-#pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c) {
-        if (c < C) {
-          const float x = j < n ? h[j * C + c] : 0.0f;
-          inner[c] = jj == 0 ? __fadd_rn(x, 0.0f) : __fadd_rn(inner[c], x);
-          acc[c] = __fadd_rn(inner[c], excl[c]);
-        }
-      }
-      if (j < n) visit(j, acc);
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) {
-      if (c < C) {
-        outer[c] = i == 0 ? __fadd_rn(inner[c], 0.0f) : __fadd_rn(outer[c], inner[c]);
-        excl[c] = outer[c];
-      }
-    }
-  }
-}
-
+// The bin cumsums follow _blocked_cumsum of the plain version: n <= 16
+// bins is one sequential scan from x[0] + 0; past it the row is padded
+// with zeros to whole blocks of 16, each block scanned from its first
+// element + 0, the block totals scanned the same way, and each prefix is
+// its block's prefix + the earlier blocks' total (0 for the first block).
+// Thread (f, j) of a chunk computes bin j's inner prefix in its block
+// (at most 16 adds a channel); a thread per (f, channel) scans the at
+// most 16 block totals, the padding of a partial last block included.
 __global__ void __launch_bounds__(kSplitThreads)
 gbdt_split_kernel(const SplitParams p) {
+  __shared__ float s_h[kSplitThreads * kMaxChannels];     // histograms, then inner prefixes
+  __shared__ float s_excl[kSplitThreads * kMaxChannels];  // each block's exclusive offset
+  __shared__ float s_tot[kSplitThreads * kMaxChannels];   // each feature's totals
   __shared__ float s_gain[kSplitThreads / 32];
   __shared__ int s_idx[kSplitThreads / 32];
   const int nd = blockIdx.x % p.levels;
   const int t = blockIdx.x / p.levels;
   const int B = p.n_bins;
   const int C = p.channels;
+  const int per = blockDim.x / B;             // features a chunk
+  const int m = (B + kBlock - 1) / kBlock;    // blocks of 16 bins
+  const int fl = threadIdx.x / B;
+  const int j = threadIdx.x % B;
+  const int blk = j / kBlock;
   const float lam = hyper(p.lam, p.lam_s, t);
   const float mcw = hyper(p.mcw, p.mcw_s, t);
   const float mcs = hyper(p.mcs, p.mcs_s, t);
   const float neg_inf = -CUDART_INF_F;
   const int ws = p.w_slot < 0 ? 0 : p.w_slot;
   const int cs = p.c_slot < 0 ? 0 : p.c_slot;
+  const float* hist = p.hist + (static_cast<int64_t>(t) * p.levels + nd) * p.d * B * C;
 
+  // a thread's share of a chunk's histograms: at most kMaxChannels values
+  // (a chunk is at most blockDim.x / B features of B * C values)
+  float next[kMaxChannels];
+  auto load = [&](int f0) {
+    const int len = min(per, p.d - f0) * B * C;
+    const float* h = hist + static_cast<int64_t>(f0) * B * C;
+#pragma unroll
+    for (int q = 0; q < kMaxChannels; ++q) {
+      const int e = q * blockDim.x + threadIdx.x;
+      next[q] = e < len ? h[e] : 0.0f;
+    }
+  };
+  load(0);
   float best = neg_inf;
   int best_i = 0x7fffffff;
-  for (int f = threadIdx.x; f < p.d; f += blockDim.x) {
-    const float* h = p.hist + ((static_cast<int64_t>(t) * p.levels + nd) * p.d + f) * B * C;
-    // the totals: every channel's last prefix
-    float tot[kMaxChannels];
-    blocked_cumsum(h, B, C, [&](int, const float* v) {
+  for (int f0 = 0; f0 < p.d; f0 += per) {
+    const int fc = min(per, p.d - f0);
+    const bool on = fl < fc;
 #pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c) tot[c] = v[c];
-    });
-    const float G = tot[0], H = tot[1], W = tot[ws], Ct = tot[cs];
-    const float parent = __fdiv_rn(__fmul_rn(G, G), __fadd_rn(H, lam));
-    blocked_cumsum(h, B, C, [&](int j, const float* v) {
+    for (int q = 0; q < kMaxChannels; ++q) s_h[q * blockDim.x + threadIdx.x] = next[q];
+    if (f0 + per < p.d) load(f0 + per);  // in flight while this chunk is searched
+    __syncthreads();
+    float v[kMaxChannels];
+    if (on) {
+      // bin j's prefix in its block of 16: its loads first, then the adds
+      const float* x = s_h + (fl * B + blk * kBlock) * C;
+      const int jj = j - blk * kBlock;
+#pragma unroll
+      for (int c = 0; c < kMaxChannels; ++c) {
+        v[c] = 0.0f;
+        if (c < C) {
+          float xs[kBlock];
+#pragma unroll
+          for (int u = 0; u < kBlock; ++u) xs[u] = u <= jj ? x[u * C + c] : 0.0f;
+          float acc = __fadd_rn(xs[0], 0.0f);
+#pragma unroll
+          for (int u = 1; u < kBlock; ++u) {
+            if (u <= jj) acc = __fadd_rn(acc, xs[u]);
+          }
+          v[c] = acc;
+        }
+      }
+    }
+    __syncthreads();
+    if (on) {
+#pragma unroll
+      for (int c = 0; c < kMaxChannels; ++c) {
+        if (c < C) s_h[(fl * B + j) * C + c] = v[c];
+      }
+    }
+    __syncthreads();
+    if (B > kBlock && threadIdx.x < fc * C) {
+      const int ff = threadIdx.x / C;
+      const int c = threadIdx.x % C;
+      const float* inner = s_h + ff * B * C + c;
+      float outer = 0.0f;
+      for (int i = 0; i < m; ++i) {
+        const int last = i * kBlock + kBlock - 1;
+        const float tot = last < B ? inner[last * C] : __fadd_rn(inner[(B - 1) * C], 0.0f);
+        s_excl[(ff * m + i) * C + c] = outer;
+        outer = i == 0 ? __fadd_rn(tot, 0.0f) : __fadd_rn(outer, tot);
+      }
+    }
+    __syncthreads();
+    if (on) {
+      if (B > kBlock) {
+#pragma unroll
+        for (int c = 0; c < kMaxChannels; ++c) {
+          if (c < C) v[c] = __fadd_rn(v[c], s_excl[(fl * m + blk) * C + c]);
+        }
+      }
+      if (j == B - 1) {
+#pragma unroll
+        for (int c = 0; c < kMaxChannels; ++c) {
+          if (c < C) s_tot[fl * C + c] = v[c];
+        }
+      }
+    }
+    __syncthreads();
+    if (on) {
+      const float* tot = s_tot + fl * C;
+      const float G = tot[0], H = tot[1], W = tot[ws], Ct = tot[cs];
+      const float parent = __fdiv_rn(__fmul_rn(G, G), __fadd_rn(H, lam));
       const float gL = v[0], hL = v[1];
       const float gR = __fsub_rn(G, gL), hR = __fsub_rn(H, hL);
       float gain = __fsub_rn(
@@ -341,12 +680,13 @@ gbdt_split_kernel(const SplitParams p) {
         ok = ok && cL >= mcs && cR >= mcs;
       }
       if (!ok || j == B - 1) gain = neg_inf;
-      const int idx = f * B + j;
+      const int idx = (f0 + fl) * B + j;
       if (better(gain, idx, best, best_i)) {
         best = gain;
         best_i = idx;
       }
-    });
+    }
+    __syncthreads();  // the chunk's shared memory is free
   }
   // the block's first maximum
   for (int off = 16; off > 0; off >>= 1) {
@@ -365,7 +705,7 @@ gbdt_split_kernel(const SplitParams p) {
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kSplitThreads / 32; ++w) {
+    for (int w = 1; w < static_cast<int>(blockDim.x / 32); ++w) {
       if (better(s_gain[w], s_idx[w], best, best_i)) {
         best = s_gain[w];
         best_i = s_idx[w];
@@ -426,28 +766,57 @@ unsigned row_blocks(int64_t n) {
   return static_cast<unsigned>((n + kRowThreads - 1) / kRowThreads);
 }
 
+template <int C>
+cudaError_t launch_hist(const HistParams& p, cudaStream_t s) {
+  const unsigned grid = static_cast<unsigned>(static_cast<int64_t>(p.trees) * p.levels * p.d);
+  const size_t smem = hist_smem(C, p.n_bins, p.node != nullptr);
+  if (smem > kStaticSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gbdt_hist_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  gbdt_hist_kernel<C><<<grid, kHistThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int delphi_gbdt_hist(const void* params, void* stream) {
   const HistParams& p = *static_cast<const HistParams*>(params);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(
-      static_cast<int64_t>(p.trees) * p.levels * p.d);
-  if (p.n_bins > kMaxBins) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.n_bins < 1 || p.n_bins > kMaxBins || p.d < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (p.channels) {
-    case 1: gbdt_hist_kernel<1><<<grid, kHistThreads, 0, s>>>(p); break;
-    case 2: gbdt_hist_kernel<2><<<grid, kHistThreads, 0, s>>>(p); break;
-    case 3: gbdt_hist_kernel<3><<<grid, kHistThreads, 0, s>>>(p); break;
-    case 4: gbdt_hist_kernel<4><<<grid, kHistThreads, 0, s>>>(p); break;
+    case 1: return static_cast<int>(launch_hist<1>(p, s));
+    case 2: return static_cast<int>(launch_hist<2>(p, s));
+    case 3: return static_cast<int>(launch_hist<3>(p, s));
+    case 4: return static_cast<int>(launch_hist<4>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef DELPHI_GBDT_PHASE_CLOCKS
+// Copies the clocks since the last call into out[kPhases + 2] and resets
+// them (waits for the device).
+extern "C" int delphi_gbdt_hist_clocks(unsigned long long* out) {
+  unsigned long long zero[kPhases + 2] = {0};
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_hist_clocks, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_hist_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 extern "C" int delphi_gbdt_split(const void* params, void* stream) {
   const SplitParams& p = *static_cast<const SplitParams*>(params);
+  if (p.n_bins < 1 || p.n_bins > kMaxBins || p.channels < 2 || p.channels > kMaxChannels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const unsigned grid = static_cast<unsigned>(p.trees * p.levels);
-  gbdt_split_kernel<<<grid, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  // a thread per (feature, bin), whole warps, at most kSplitThreads
+  const int64_t want = (static_cast<int64_t>(p.d) * p.n_bins + 31) / 32 * 32;
+  const int threads = static_cast<int>(want < kSplitThreads ? want : kSplitThreads);
+  gbdt_split_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -179,6 +179,9 @@ def library() -> ctypes.CDLL:
                 getattr(lib, name).argtypes = [vp, vp]
             lib.delphi_launch_floor.restype = i32
             lib.delphi_launch_floor.argtypes = [vp]
+            # (output pointer, chain length, addend, stream)
+            lib.delphi_add_chain.restype = i32
+            lib.delphi_add_chain.argtypes = [vp, i32, ctypes.c_float, vp]
             _lib = lib
         return _lib
 

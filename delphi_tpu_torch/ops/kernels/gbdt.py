@@ -11,15 +11,20 @@ program with one-hot matmul histograms. The port's builder
   every (tree, node, feature, bin, channel), the f32 sum of the channel
   over the rows at that node and bin, added one row at a time in
   increasing row order from 0.0. Bound by bytes on paper (each row's
-  channels, node and bins read once, the histograms written once); the
-  fixed order makes it latency bound: one block per (tree, node,
-  feature) compacts its node's rows into shared memory in row order and a
-  lane per bin adds them in registers.
+  channels, node and bins read once, the histograms written once), and
+  by its order: each bin's sum is a chain of dependent adds, so no call
+  beats its fullest bin's rows times an add's latency. One block per
+  (tree, node, feature) compacts its node's rows into shared memory in
+  row order, buckets them by bin stably (warp ranks from
+  ``__match_any_sync``, a scan over (bin, warp)), and a thread per bin
+  adds only its bin's rows.
 * :func:`split` (K3b ``gbdt_split``; replaces :181-215): per (tree, node)
   the bin cumsums in XLA:CPU's blocked order, the gain and its masks, the
   first maximum with ``torch.argmax``'s NaN rule, the sentinel; writes
-  ``feat`` / ``thr`` at the level's offset. Bound by the histogram bytes,
-  which it reads twice from L2 (a thread per feature).
+  ``feat`` / ``thr`` at the level's offset. Bound by the histogram bytes;
+  a block per (tree, node) and a thread per (feature, bin) over chunks of
+  features, each prefix at most 16 adds from its block of 16 bins and
+  that block's offset.
 * :func:`route` (K3c ``gbdt_route``; replaces :217-218): ``node <- 2 *
   node + (bins[row, feat[node]] > thr[node])``, a fresh tensor each
   level. Bound by bytes (a node id in and out, one bin read a row).
@@ -56,7 +61,7 @@ launches = {"gbdt_hist": 0, "gbdt_split": 0, "gbdt_route": 0,
             "gbdt_predict": 0}
 _count_lock = threading.Lock()
 
-MAX_BINS = 256        # csrc: kMaxBins (one lane per bin, eight warps)
+MAX_BINS = 256        # csrc: kMaxBins (a thread per bin)
 MAX_CHANNELS = 4      # csrc: kMaxChannels
 BLOCK = 16            # XLA:CPU's cumsum block
 

@@ -15,6 +15,7 @@ import pandas as pd
 import pytest
 import torch
 
+import chip_smoke
 import delphi_tpu_torch as T
 from delphi_tpu_torch.models import gbdt
 from delphi_tpu_torch.ops.kernels import entropy as k_entropy
@@ -766,49 +767,42 @@ def test_boosting_rounds_bitwise_card_matches_cpu(card):
         assert torch.equal(s_g.cpu(), s_c)
 
 
-# (T, per_round, n, d, n_bins, C, level): small shapes, odd bin counts,
-# and 4e's (3 folds x 8 class trees, 10,000 rows, 4 features, 64 bins)
-GBDT_SHAPES = [(1, 1, 1, 1, 2, 2, 0), (3, 1, 777, 5, 33, 3, 2),
-               (4, 4, 2500, 2, 256, 4, 5), (6, 2, 1000, 3, 17, 2, 6),
-               (24, 8, 10_000, 4, 64, 3, 0), (24, 8, 10_000, 4, 64, 3, 4)]
-
-
-def _gbdt_inputs(shape, seed):
-    T, per_round, n, d, n_bins, C, level = shape
-    rng = np.random.default_rng(seed)
-    M = T // per_round
-    vals = rng.normal(size=(T, n, C)).astype(np.float32)
-    vals[:, -n // 10:] = 0.0                       # padded rows
-    bins = rng.integers(0, n_bins, (M, n, d))
-    if d > 1:
-        bins[:, :, 1] = bins[:, :, 0]              # a duplicate column
-    node = rng.integers(0, 1 << level, (T, n)).astype(np.int32)
-    return (torch.from_numpy(vals), torch.from_numpy(node),
-            torch.from_numpy(bins))
+# (T, per_round, n, d, n_bins, C, level, kind): small shapes, odd bin
+# counts, and 4e's (3 folds x 8 class trees, 10,000 rows, 4 features, 64
+# bins); then the edge shapes chip_smoke.py holds K3a / K3b to
+# (``GBDT_EDGES``: a skewed bin, 1 to 256 bins, an empty node, partial
+# windows and rounds, 55 and 9 features, every C, -0.0 / inf / NaN values,
+# NaN gains, every gain -inf with one bin)
+GBDT_SHAPES = [(1, 1, 1, 1, 2, 2, 0, ""), (3, 1, 777, 5, 33, 3, 2, ""),
+               (4, 4, 2500, 2, 256, 4, 5, ""), (6, 2, 1000, 3, 17, 2, 6, ""),
+               (24, 8, 10_000, 4, 64, 3, 0, ""),
+               (24, 8, 10_000, 4, 64, 3, 4, "")] + chip_smoke.GBDT_EDGES
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", GBDT_SHAPES)
 def test_gbdt_kernels_match_plain_on_card(card, shape):
-    """K3a, K3b, K3c bit for bit their plain versions at small shapes and
-    at 4e's, per-model bins read through the tree-to-model map; each
-    launch counted once."""
-    T, per_round, n, d, n_bins, C, level = shape
-    vals, node, bins = _gbdt_inputs(shape, sum(shape))
+    """K3a, K3b, K3c bit for bit their plain versions at small shapes, at
+    4e's and at K3a's edges, per-model bins read through the tree-to-model
+    map; each launch counted once. With one channel the split search runs
+    on the histograms with a hessian-like channel appended."""
+    T, per_round, n, d, n_bins, C, level, _ = shape
+    vals, node, bins = chip_smoke.gbdt_edge_inputs(shape, sum(shape[:7]))
     L = 1 << level
     k_gbdt.reset_launches()
     want = k_gbdt.hist(vals, node, bins, L, n_bins, per_round)
     got = k_gbdt.hist(vals.to(card), node.to(card), bins.to(card), L,
                       n_bins, per_round)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+    assert chip_smoke.same_bits(torch, got.cpu(), want)
     # hessian-like second channel, weight and counts for the masks
-    h = want.clone()
+    h = want.clone() if C > 1 else torch.cat([want, want], -1)
+    Cs = h.shape[-1]
     h[..., 1] = h[..., 1].abs() + 0.01
-    if C > 2:
+    if Cs > 2:
         h[..., 2] = h[..., 2].abs()
     width = 2 * L - 1
-    for w_slot, c_slot, lam, mcw in ((1 if C == 2 else 2, C - 1 if C == 4
+    for w_slot, c_slot, lam, mcw in ((1 if Cs == 2 else 2, Cs - 1 if Cs == 4
                                       else -1, 1.0, 0.5),
                                      (-1, -1, torch.rand(T) + 0.1, 0.0)):
         feats = [torch.zeros((T, width), dtype=torch.int64, device=dev)
@@ -823,6 +817,8 @@ def test_gbdt_kernels_match_plain_on_card(card, shape):
         torch.cuda.synchronize()
         assert torch.equal(feats[1].cpu(), feats[0])
         assert torch.equal(feats[3].cpu(), feats[2])
+        if n_bins == 1:                            # the sentinel everywhere
+            assert (feats[2] == 1).all() and (feats[0] == 0).all()
         for prev in (None, node):
             want_r = k_gbdt.route(prev, bins, feats[0], feats[2], level,
                                   per_round)

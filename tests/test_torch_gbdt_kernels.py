@@ -67,21 +67,58 @@ LEVEL_CASES = [
     (3, 33, 1, 4, 3.0, 1.0, 20.0),
     (5, 8, 5, 2, 1.0, 1.0, 0.0),
     (3, 256, 1, 3, 1.0, 1.0, 0.0),
+    # the card's K3a / K3b edges: 16 bins (one cumsum block) and 17 (a
+    # partial second block), the gauntlet's 55 features and 9 (K3b's
+    # chunks of eight features of 64 bins, the last one partial)
+    (4, 16, 3, 2, 1.0, 1.0, 0.0),
+    (4, 17, 3, 3, 1.0, 1.0, 0.0),
+    (3, 17, 2, 4, 1.0, 1.0, 5.0),
+    (3, 64, 55, 3, 1.0, 1.0, 0.0),
+    (4, 64, 9, 2, 1.0, 1.0, 0.0),
+]
+
+# (depth, n_bins, d, C, reg_lambda, min_child_weight, min_child_samples, n,
+# kind): n below one window of the card's K3a (1,024 node ids) and one
+# past whole rounds (2,048 staged rows); one bin (every gain -inf, so
+# every node takes the sentinel and every right child is empty); kinds of
+# _level_inputs
+EDGE_LEVEL_CASES = [
+    (3, 1, 2, 2, 1.0, 1.0, 0.0, 700, ""),
+    (4, 64, 4, 3, 1.0, 1.0, 0.0, 2049, "skew"),
+    (3, 17, 3, 4, 1.0, 1.0, 5.0, 4097, ""),
+    (3, 33, 3, 3, 1.0, 1.0, 0.0, 1025, "special"),
+    (2, 16, 3, 3, 1.0, 1.0, 0.0, 600, "nan"),
 ]
 
 
-@pytest.mark.parametrize("depth,n_bins,d,C,lam,mcw,mcs", LEVEL_CASES)
-def test_plain_levels_match_jax_build_tree(depth, n_bins, d, C, lam, mcw,
-                                           mcs):
-    """Level by level: the plain histograms equal the JAX scatter
-    histograms bit for bit (both add each bin's rows in row order), the
-    splits equal ``_build_tree``'s feat / thr, the final nodes its nodes,
-    the leaves within 1e-5 (JAX sums them with a matmul)."""
-    rng = np.random.default_rng(depth * 1000 + n_bins + d + C)
-    n = 1500
+def _level_inputs(rng, n, n_bins, d, C, kind):
+    """bins, grad, hess, weight of one tree. Kinds: "skew" puts about 80%
+    of each feature's rows in bin 3, "special" sets some gradients to
+    -0.0 and one row's weight (a channel of its own at C >= 3) to +inf,
+    "nan" one gradient to NaN (every gain at the root is NaN: the
+    sentinel)."""
     bins = rng.integers(0, n_bins, (n, d)).astype(np.int32)
     bins[rng.random(n) < 0.1, 0] = 0          # missing values
+    if kind == "skew":
+        bins[rng.random((n, d)) < 0.8] = min(3, n_bins - 1)
     grad, hess, weight = _channels(rng, n, C, zero_rows=37)
+    if kind == "special":
+        grad[rng.choice(n - 37, 20, replace=False)] = -0.0
+        weight[5] = np.inf
+        bins[5, 0] = n_bins - 1
+    if kind == "nan":
+        grad[7] = np.nan
+    return bins, grad, hess, weight
+
+
+def _levels_against_jax(bins, grad, hess, weight, depth, n_bins, C, lam, mcw,
+                        mcs, nan_rows=()):
+    """The plain level programs against ``_build_tree`` on one tree;
+    returns the JAX package's thresholds. The leaves are compared but
+    where ``nan_rows`` hold a NaN gradient: JAX's leaf sums are a matmul
+    with the one-hot node matrix, whose 0 * NaN spreads the NaN to every
+    leaf, while the port's sums leave it in its row's leaf."""
+    n, d = bins.shape
     use_counts = C == 4
     hess_is_weight = C == 2
     jf, jt, jl, jnode = j_gbdt._build_tree(
@@ -114,12 +151,55 @@ def test_plain_levels_match_jax_build_tree(depth, n_bins, d, C, lam, mcw,
     np.testing.assert_array_equal(feat[0].numpy(), np.asarray(jf))
     np.testing.assert_array_equal(thr[0].numpy(), np.asarray(jt))
     np.testing.assert_array_equal(node[0].numpy(), np.asarray(jnode))
-    assert (np.asarray(jt) < n_bins).any(), "the tree must split"
     gh = k_gbdt.hist(torch.from_numpy(np.stack([grad, hess], -1))[None],
                      node, None, 1 << depth, 1)[0, :, 0, 0]
     leaf = -gh[:, 0] / (gh[:, 1] + lam)
+    if len(nan_rows):
+        at = np.unique(node[0].numpy()[list(nan_rows)])
+        assert np.isnan(np.asarray(jl)).all()
+        assert np.isnan(leaf.numpy()[at]).all()
+        assert not np.isnan(np.delete(leaf.numpy(), at)).any()
+        return np.asarray(jt)
     np.testing.assert_allclose(leaf.numpy(), np.asarray(jl), rtol=1e-5,
                                atol=1e-6)
+    return np.asarray(jt)
+
+
+@pytest.mark.parametrize("depth,n_bins,d,C,lam,mcw,mcs", LEVEL_CASES)
+def test_plain_levels_match_jax_build_tree(depth, n_bins, d, C, lam, mcw,
+                                           mcs):
+    """Level by level: the plain histograms equal the JAX scatter
+    histograms bit for bit (both add each bin's rows in row order), the
+    splits equal ``_build_tree``'s feat / thr, the final nodes its nodes,
+    the leaves within 1e-5 (JAX sums them with a matmul)."""
+    rng = np.random.default_rng(depth * 1000 + n_bins + d + C)
+    n = 1500
+    bins = rng.integers(0, n_bins, (n, d)).astype(np.int32)
+    bins[rng.random(n) < 0.1, 0] = 0          # missing values
+    grad, hess, weight = _channels(rng, n, C, zero_rows=37)
+    jt = _levels_against_jax(bins, grad, hess, weight, depth, n_bins, C,
+                             lam, mcw, mcs)
+    assert (jt < n_bins).any(), "the tree must split"
+
+
+@pytest.mark.parametrize("depth,n_bins,d,C,lam,mcw,mcs,n,kind",
+                         EDGE_LEVEL_CASES)
+def test_plain_edge_levels_match_jax_build_tree(depth, n_bins, d, C, lam,
+                                                mcw, mcs, n, kind):
+    """The same check at the card kernels' edges: histograms with -0.0,
+    +inf and NaN bit for bit the JAX package's (NaN where it has NaN),
+    splits and nodes equal (leaves as :func:`_levels_against_jax` says).
+    One bin or a NaN gradient leaves every node the sentinel (feature 0,
+    threshold n_bins) in both packages; the other cases split."""
+    rng = np.random.default_rng(depth * 1000 + n_bins + d + C + n)
+    bins, grad, hess, weight = _level_inputs(rng, n, n_bins, d, C, kind)
+    jt = _levels_against_jax(bins, grad, hess, weight, depth, n_bins, C,
+                             lam, mcw, mcs,
+                             nan_rows=np.flatnonzero(np.isnan(grad)))
+    if n_bins == 1 or kind == "nan":
+        assert (jt == n_bins).all()
+    else:
+        assert (jt < n_bins).any(), "the tree must split"
 
 
 def test_hist_plain_adds_rows_in_order_from_zero():
@@ -150,6 +230,45 @@ def test_hist_plain_adds_rows_in_order_from_zero():
                             torch.from_numpy(np.repeat(bins, per_round, 0)),
                             L, n_bins)
         assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n,n_bins,C", [(700, 16, 1), (2049, 256, 3),
+                                         (4097, 17, 4), (1025, 1, 2)])
+def test_hist_plain_edges_match_add_at(n, n_bins, C):
+    """The plain histograms at the card kernel's edges against
+    ``np.add.at`` (one index at a time, in order, from 0.0): -0.0, +inf,
+    -inf and NaN values, a bin holding about 80% of the rows, a node
+    without rows, n below a window of node ids (1,024) and one past whole
+    rounds (2,048), 1 to 256 bins, every C. Equal bit for bit, NaN where
+    the reference has NaN."""
+    rng = np.random.default_rng(n + n_bins + C)
+    M, per_round, d, L = 2, 2, 3, 4
+    T = M * per_round
+    vals = rng.normal(size=(T, n, C)).astype(np.float32)
+    flat = vals.reshape(-1)
+    at = rng.choice(flat.size, flat.size // 50, replace=False)
+    flat[at] = np.resize(np.float32([-0.0, np.inf, -np.inf, np.nan]),
+                         at.size)
+    node = rng.integers(0, L, (T, n)).astype(np.int32)
+    node[node == 2] = 1                        # node 2 has no rows
+    bins = rng.integers(0, n_bins, (M, n, d))
+    bins[rng.random((M, n, d)) < 0.8] = min(3, n_bins - 1)
+    got = k_gbdt.hist(torch.from_numpy(vals), torch.from_numpy(node),
+                      torch.from_numpy(bins), L, n_bins, per_round).numpy()
+    want = np.zeros((T, L, d, n_bins, C), np.float32)
+    with np.errstate(invalid="ignore"):        # inf + -inf
+        for t in range(T):
+            for f in range(d):
+                for c in range(C):
+                    np.add.at(want[t, :, f, :, c],
+                              (node[t], bins[t // per_round, :, f]),
+                              vals[t, :, c])
+    assert np.isnan(want).any() and (want[:, 2] == 0).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    zero = np.float32(0.0)
+    np.testing.assert_array_equal(
+        np.where(np.isnan(got), zero, got).view(np.int32),
+        np.where(np.isnan(want), zero, want).view(np.int32))
 
 
 def test_split_first_maximum_and_sentinels():
