@@ -54,7 +54,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    the start by ``delphi_add_chain``); K3a and K3b run the edge shapes of
    ``GBDT_EDGES`` (a skewed bin, one to 256 bins, an empty node, partial
    windows and rounds, 55 features, every C, -0.0 / inf / NaN values)
-   bitwise against their plain versions on the card (:func:`gbdt_edges`);
+   bitwise against their plain versions on the card (:func:`gbdt_edges`),
+   K3c and K4 those of ``GBDT_ROUTE_EDGES`` and ``GBDT_PREDICT_EDGES``
+   (:func:`gbdt_route_edges`), one launch a call;
    4c. the same table through batched training
    (``setParallelStatTrainingEnabled(True)``): the same frame, at least
    one multi-target CV launch and one batched fit launch, no fallback;
@@ -327,14 +329,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    each of four processes, parent, change, change, parent
    (:func:`parent_ab`: walls, training spans, ms per round, equal
    frames);
-   ``python3 chip_smoke.py --gbdt-probe [-DNAME ...]`` builds the
-   kernels (with those macros; ``-DDELPHI_GBDT_PHASE_CLOCKS`` adds K3a's
-   per-phase clocks of its slowest block) and times K3a and K3b
+   ``python3 chip_smoke.py --gbdt-probe [-DNAME ...] [--parent DIR]``
+   builds the kernels (with those macros; ``-DDELPHI_GBDT_PHASE_CLOCKS``
+   adds K3a's per-phase clocks) and times K3a, K3b, K3c and K4
    (:func:`gbdt_probe`) at 4e's shapes, the gauntlet's width, a skewed
-   bin, and on the heaviest calls of phase 4's 1M repair and of the
+   bin, the main path's and the constraints run's predictions, and on the
+   heaviest calls of phase 4's 1M repair, 4f's 1M constraints run and the
    gauntlet's ``wide`` scenario at the top of its scale series, each held
-   bitwise first: kernel ms, ``index_add_``, the byte bound, the order
-   floor (longest chain times one add's latency, from ``delphi_add_chain``);
+   bitwise
+   first: kernel ms, the device time from ``torch.profiler`` (L2 flushed,
+   and back to back), ``index_add_``, the bounds, the empty kernel's
+   floor, K3a's order floor (longest chain times one add's latency, from
+   ``delphi_add_chain``); ``--parent DIR`` times the same K3c / K4 calls
+   through DIR's ``csrc/gbdt.cu`` built alone (a ``git archive`` copy of
+   the parent);
    ``python3 chip_smoke.py --ab N`` runs phases 1 and 2, then N
    same-host pairs of 4l(a) and of 4l(b) in alternating order
    (:func:`planes_ab`), and prints their walls and spans with median and
@@ -395,6 +403,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 # and the FP32 rate outside the tensor cores, for the GBDT kernels' sums
 FP32_OPS_PER_S = 67e12
+# and the INT32 rate, for the compares and child indices of K3c and K4:
+# 64 INT32 lanes an SM (NVIDIA Hopper architecture white paper) x 132 SMs
+# x the 1.98 GHz boost clock of the H100 SXM data sheet
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# integer operations a node visit of K3c / K4: the compare, the child index
+GBDT_OPS_PER_VISIT = 2
 # f64 operations per nonzero count in K2: divide, log2, multiply, add
 K2_OPS_PER_NONZERO = 4
 
@@ -494,6 +508,45 @@ GBDT_EDGES = [(24, 8, 10_000, 4, 64, 3, 0, "skew"),
               (6, 3, 1500, 2, 64, 1, 3, "special"),
               (24, 4, 5000, 55, 64, 3, 2, ""),
               (16, 16, 3000, 9, 64, 2, 4, "")]
+# K3c at its edges (4b, gbdt_route_edges): (T, per_round, n, d, n_bins,
+# level, bins layout, kind). Layouts: "models" [T / per_round, n, d] (tree
+# t reads model t // per_round), "shared" [n, d], "one" [1, n, d]. Levels
+# 0 (node ids None and zeros), 1 to 6; n below a block of 256 rows and
+# past it; 1 to 9 and 55 features; 72 one-tree models (the batched fits)
+# and 12 trees of three models (the constraints run's fits); kinds: ""
+# bins in [0, n_bins) and thresholds in [0, n_bins] (the sentinel among
+# them), "wide" bins and thresholds from -3 to 70,000
+GBDT_ROUTE_EDGES = [(24, 8, 10_000, 4, 64, 0, "models", ""),
+                    (24, 8, 10_000, 4, 64, 4, "models", ""),
+                    (8, 1, 100, 3, 16, 6, "shared", ""),
+                    (24, 4, 257, 55, 64, 2, "models", ""),
+                    (8, 8, 5000, 8, 256, 6, "one", ""),
+                    (4, 4, 600, 9, 64, 5, "shared", ""),
+                    (72, 1, 1000, 4, 64, 3, "models", ""),
+                    (12, 4, 700, 4, 64, 2, "models", ""),
+                    (4, 2, 1000, 3, 64, 3, "models", "wide"),
+                    (6, 6, 700, 55, 64, 1, "models", "wide"),
+                    (1, 1, 1, 1, 2, 0, "shared", "")]
+# K4 at its edges (4b, gbdt_route_edges too): (objective, T, R, depth, d, n,
+# n_bins, kind): depths 1, 3, 5 and 7; 1, 25 and 300 rounds (300 past one
+# staged chunk at every depth); 1 and 24 class trees; 1, 4 and 55 features
+# and the widest the wrapper admits (ops/kernels/gbdt.py
+# PREDICT_MAX_FEATURES, 1,024); 1, 255, 257, 1,000, 4,099, 220,000 and
+# 1,000,000 rows; 256 bins (the most the binner's codes take: bins up to
+# 255) at four features (the rows' bins as bytes in a register) and at 9
+# and 55 (the bins staged as 16-bit words). Kinds: "" thresholds in [0,
+# n_bins], "thr" only 0, n_bins - 1 and the sentinel n_bins, "special"
+# about 1% of the leaves -0.0, +inf, -inf or NaN
+GBDT_PREDICT_EDGES = [("regression", 1, 1, 1, 1, 1, 64, ""),
+                      ("multiclass", 24, 25, 5, 4, 220_000, 64, ""),
+                      ("multiclass", 8, 300, 7, 55, 257, 256, "thr"),
+                      ("binary", 1, 300, 3, 4, 1_000_000, 64, ""),
+                      ("multiclass", 24, 25, 7, 1024, 255, 32, "special"),
+                      ("multiclass", 4, 50, 3, 55, 10_000, 64, "special"),
+                      ("regression", 1, 25, 5, 1, 4099, 2, "thr"),
+                      ("multiclass", 24, 3, 7, 4, 1_000_000, 64, "thr"),
+                      ("multiclass", 3, 5, 3, 9, 1000, 256, "thr"),
+                      ("multiclass", 4, 25, 5, 4, 5000, 256, "")]
 # dependent f32 adds in the chain whose time gives one add's latency (the
 # order floor of K3a: its longest per-bin chain times that latency)
 ADD_CHAIN = 1 << 22
@@ -5531,11 +5584,14 @@ def gbdt_bound_ms(name, a):
     and each model's bins (8 a row and feature), the histograms out.
     split: the histograms in, feat and thr (8 bytes each) out a node.
     route: a row's node id in (none at the root) and out (4 bytes each)
-    and the one bin its node's split reads (8). predict: the bins, every
+    and the one bin its node's split reads (8), at most each model's bins
+    once (the trees of a model share its matrix). predict: the bins, every
     tree's splits (16 bytes a node) and leaves (4), the margins out.
     Operations, over the FP32 rate: hist one add a row, feature and
     channel; split per bin and channel two scan adds, per bin the gain's
-    eleven; route and predict none counted (compares)."""
+    eleven. Over the INT32 rate: route and predict two a node visit (the
+    compare and the child index), T x n visits for route, R x T x n x
+    depth for predict."""
     if name == "hist":
         v, node, bins = a["vals"], a["node"], a["bins"]
         T, n, C = v.shape
@@ -5550,15 +5606,21 @@ def gbdt_bound_ms(name, a):
         nbytes = T * L * d * B * C * 4 + T * L * 16
         ops = T * L * d * B * (2 * C + 11)
     elif name == "route":
-        T, n = a["feat"].shape[0], int(a["bins"].shape[-2])
-        nbytes = T * n * (8 + 4 + (0 if a["node"] is None else 4))
-        ops = 0
+        bins = a["bins"]
+        T, n, d = a["feat"].shape[0], int(bins.shape[-2]), int(bins.shape[-1])
+        models = 1 if bins.dim() == 2 else int(bins.shape[0])
+        nbytes = T * n * (4 + (0 if a["node"] is None else 4)) \
+            + min(T * n * 8, models * n * d * 8)
+        return (1e3 * nbytes / HBM_BYTES_PER_S,
+                1e3 * T * n * GBDT_OPS_PER_VISIT / INT32_OPS_PER_S)
     else:
         R, T, width = a["feats"].shape
         n, d = a["bins"].shape
         nbytes = n * d * 8 + R * T * (16 * width + 4 * (width + 1)) \
             + T * n * 4
-        ops = 0
+        visits = R * T * n * a["depth"]
+        return (1e3 * nbytes / HBM_BYTES_PER_S,
+                1e3 * visits * GBDT_OPS_PER_VISIT / INT32_OPS_PER_S)
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
 
 
@@ -5640,6 +5702,53 @@ def gbdt_edge_inputs(shape, seed):
             torch.from_numpy(bins))
 
 
+def gbdt_route_edge_inputs(shape, seed) -> dict:
+    """The arguments of one K3c call (CPU tensors) of a GBDT_ROUTE_EDGES
+    shape: node ids uniform over the level's nodes (None at level 0), the
+    splits' features uniform, a table as wide as the level's tree at odd
+    levels and one level deeper at even ones."""
+    import torch
+    T, per_round, n, d, n_bins, level, layout, kind = shape
+    rng = np.random.default_rng(seed)
+    width = (4 << level) - 1 if level % 2 == 0 else (2 << level) - 1
+    lead = {"models": (T // per_round,), "shared": (), "one": (1,)}[layout]
+    lo, hi = (-3, 70_000) if kind == "wide" else (0, n_bins)
+    bins = rng.integers(lo, hi, lead + (n, d))
+    thr = rng.integers(lo, hi + (0 if kind == "wide" else 1), (T, width))
+    node = None if level == 0 else torch.from_numpy(
+        rng.integers(0, 1 << level, (T, n)).astype(np.int32))
+    return {"node": node, "bins": torch.from_numpy(bins),
+            "feat": torch.from_numpy(rng.integers(0, d, (T, width))),
+            "thr": torch.from_numpy(thr), "level": level,
+            "per_round": per_round}
+
+
+def gbdt_predict_edge_inputs(shape, seed) -> dict:
+    """The arguments of one K4 call (CPU tensors) of a GBDT_PREDICT_EDGES
+    shape: uniform bins and features, normal leaves and base margins."""
+    import torch
+    objective, T, R, depth, d, n, n_bins, kind = shape
+    rng = np.random.default_rng(seed)
+    W = (1 << depth) - 1
+    bins = rng.integers(0, n_bins, (n, d))
+    if kind == "thr":
+        thrs = rng.choice(np.array([0, n_bins - 1, n_bins]), (R, T, W))
+    else:
+        thrs = rng.integers(0, n_bins + 1, (R, T, W))
+    leaves = rng.normal(0, 0.3, (R, T, W + 1)).astype(np.float32)
+    if kind == "special":
+        flat = leaves.reshape(-1)
+        at = rng.choice(flat.size, max(4, flat.size // 100), replace=False)
+        flat[at] = np.resize(np.float32([-0.0, np.inf, -np.inf, np.nan]),
+                             at.size)
+    return {"bins": torch.from_numpy(bins),
+            "feats": torch.from_numpy(rng.integers(0, d, (R, T, W))),
+            "thrs": torch.from_numpy(thrs.astype(np.int64)),
+            "leaves": torch.from_numpy(leaves), "depth": depth,
+            "base": torch.from_numpy(rng.normal(size=T).astype(np.float32)),
+            "multiclass": objective == "multiclass"}
+
+
 def same_bits(torch, a, b) -> bool:
     """Equal bit for bit, a NaN equal to any NaN (the CPU's and the card's
     adds make NaNs of other payloads)."""
@@ -5712,6 +5821,46 @@ def gbdt_edges(torch, k_gbdt) -> dict:
             "longest_chains": chains}
 
 
+def gbdt_route_edges(torch, k_gbdt) -> dict:
+    """4b: K3c and K4 at their edges (GBDT_ROUTE_EDGES, GBDT_PREDICT_EDGES)
+    on the card against their plain versions on the same card tensors, bit
+    for bit (NaN equal to NaN), one launch a call; K3c at level 0 with node
+    ids None and zeros. Fails on a difference. These launches come after
+    every traced path and count in no path's launches. Returns the shapes
+    and the calls checked."""
+    calls = {"route": 0, "predict": 0}
+    cases = [("route", shape) for shape in GBDT_ROUTE_EDGES] \
+        + [("predict", shape) for shape in GBDT_PREDICT_EDGES]
+    for name, shape in cases:
+        a = gbdt_route_edge_inputs(shape, sum(shape[:6])) if name == "route" \
+            else gbdt_predict_edge_inputs(shape, sum(shape[1:7]))
+        a = {k: v.cuda() if hasattr(v, "shape") else v for k, v in a.items()}
+        variants = [a]
+        if name == "route" and a["node"] is None:
+            n = int(a["bins"].shape[-2])
+            variants.append(dict(a, node=torch.zeros(
+                (a["feat"].shape[0], n), dtype=torch.int32, device="cuda")))
+        for v in variants:
+            before = k_gbdt.launches["gbdt_" + name]
+            got = getattr(k_gbdt, name)(**v)
+            want = getattr(k_gbdt, name + "_plain")(**v)
+            torch.cuda.synchronize()
+            launched = k_gbdt.launches["gbdt_" + name] - before
+            if launched != 1:
+                fail(f"4b: gbdt_{name} launched {launched} times at the edge "
+                     f"{shape}")
+            if got.dtype != want.dtype or got.shape != want.shape \
+                    or not (same_bits(torch, got, want)
+                            if got.dtype.is_floating_point
+                            else torch.equal(got, want)):
+                fail(f"4b: gbdt_{name} differs from its plain version at the "
+                     f"edge {shape}")
+            calls[name] += 1
+        del a, variants
+    return {"route_shapes": len(GBDT_ROUTE_EDGES),
+            "predict_shapes": len(GBDT_PREDICT_EDGES), "calls": calls}
+
+
 def gbdt_bare(k_gbdt, build, name, a):
     """The recorded call's kernel launch through ctypes alone (its table
     prepared once)."""
@@ -5744,6 +5893,85 @@ GBDT_PROBE = [("4e root", 24, 8, 10_000, 4, 64, 3, 0, ""),
               ("skew level 4", 24, 8, 10_000, 4, 64, 3, 4, "skew")]
 
 
+# --gbdt-probe's K3c and K4 calls: (label, kernel, shape of
+# GBDT_ROUTE_EDGES / GBDT_PREDICT_EDGES): 4e's CV launch at levels 0, 1 and
+# 4, the gauntlet's wide width, 72 one-tree models (the batched fits); K4
+# at the main path's prediction (220,000 rows, 25 rounds of 8 class trees,
+# depth 5), at the constraints run's (about 1,000,000 rows, 50 rounds of 8
+# at depth 3) and at the gauntlet's width (50 rounds of 4, 55 features)
+GBDT_PROBE_RP = [
+    ("4e root", "route", (24, 8, 10_000, 4, 64, 0, "models", "")),
+    ("4e level 1", "route", (24, 8, 10_000, 4, 64, 1, "models", "")),
+    ("4e level 4", "route", (24, 8, 10_000, 4, 64, 4, "models", "")),
+    ("wide level 2", "route", (24, 4, 10_000, 55, 64, 2, "models", "")),
+    ("batched level 3", "route", (72, 1, 10_000, 4, 64, 3, "models", "")),
+    ("e2e", "predict", ("multiclass", 8, 25, 5, 4, 220_000, 64, "")),
+    ("constraints", "predict",
+     ("multiclass", 8, 50, 3, 4, 1_000_000, 64, "")),
+    ("wide", "predict", ("multiclass", 4, 50, 5, 55, 50_000, 64, ""))]
+
+
+def parent_gbdt_library(build, parent):
+    """``--gbdt-probe --parent DIR``: the parent tree's ``csrc/gbdt.cu``
+    built alone with this tree's flags and loaded. Its K3c / K4 entry
+    points take the same parameter tables (their layouts are unchanged)."""
+    import ctypes
+    out = os.path.join(HERE, "build", "parent_gbdt")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "libparent_gbdt.so")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", path,
+                    os.path.join(parent, "delphi_tpu_torch", "csrc",
+                                 "gbdt.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(path)
+    for name in ("delphi_gbdt_route", "delphi_gbdt_predict"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    return lib
+
+
+def gbdt_rp_row(torch, k_gbdt, build, flush, label, name, a, floor,
+                parent=None) -> dict:
+    """One K3c / K4 call of --gbdt-probe, held bitwise against its plain
+    version on the card, then timed from back-to-back bare launches beside
+    its byte and operation bounds and the empty kernel's launch floor
+    (``floor``: its bare and device times);
+    with ``parent`` (:func:`parent_gbdt_library`) the parent's kernel is
+    held and timed on the same inputs too (``parent_ms``)."""
+    import ctypes
+    got = getattr(k_gbdt, name)(**a)
+    want = getattr(k_gbdt, name + "_plain")(**a)
+    torch.cuda.synchronize()
+
+    def same(x):
+        return same_bits(torch, x, want) if x.dtype.is_floating_point \
+            else torch.equal(x, want)
+    if not same(got):
+        fail(f"--gbdt-probe: gbdt_{name} differs at {label}")
+    bytes_ms, ops_ms = gbdt_bound_ms(name, a)
+    bare = gbdt_bare(k_gbdt, build, name, a)
+    kernel = f"gbdt_{name}_kernel"
+    row = {"label": f"{label} gbdt_{name}",
+           "ms": bare_ms(torch, bare, flush),
+           "device_ms": device_ms(torch, bare, flush, kernel),
+           "device_warm_ms": device_ms(torch, bare, None, kernel),
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms), **floor}
+    if parent is not None:
+        p, out = getattr(k_gbdt, name + "_params")(**a)
+        fn = getattr(parent, f"delphi_gbdt_{name}")
+        stream = build.current_stream()
+        build.check(fn(ctypes.addressof(p), stream), f"parent {name}")
+        torch.cuda.synchronize()
+        if not same(out if name == "route" or a["multiclass"] else out[0]):
+            fail(f"--gbdt-probe: the parent's gbdt_{name} differs at {label}")
+        launch = lambda: fn(ctypes.addressof(p), stream)  # noqa: E731
+        row["parent_ms"] = bare_ms(torch, launch, flush)
+        row["parent_device_ms"] = device_ms(torch, launch, flush, kernel)
+        row["parent_device_warm_ms"] = device_ms(torch, launch, None, kernel)
+    return row
+
+
 HIST_PHASES = ("windows", "bins", "rank", "scan", "place", "walk", "output")
 
 
@@ -5765,12 +5993,50 @@ def hist_clocks(torch, k_gbdt, build, a) -> dict:
         zip(HIST_PHASES + ("total",), buf[:-1]))}
 
 
-def gbdt_probe(torch, k_gbdt, build, flush) -> list:
+def device_ms(torch, launch, flush, name, reps: int = 20):
+    """The mean device time of one bare launch from ``torch.profiler``'s
+    kernel records (the L2 flushed before each, as for ``kernel_ms``; with
+    ``flush`` None, back to back): back-to-back bare launches of a kernel
+    shorter than the host's enqueue time the host. None unless one record
+    a launch names ``name``."""
+    from torch.profiler import ProfilerActivity, profile
+    from delphi_tpu_torch.utils import profiling
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiling.prime(torch)
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            launch()
+        torch.cuda.synchronize()
+    d = [e.end_ns - e.start_ns for e in
+         profiling.drop_primer(profiling.profiler_events(prof))
+         if e.kind == profiling.KERNEL and name in e.name]
+    return sum(d) / len(d) / 1e6 if len(d) == reps else None
+
+
+def gbdt_probe(torch, k_gbdt, build, flush, parent=None) -> list:
     """``python3 chip_smoke.py --gbdt-probe``: each GBDT_PROBE call of K3a
     and the K3b call on its histograms checked bitwise against the plain
     versions, then timed: kernel ms from back-to-back bare launches,
     ``index_add_`` for K3a, the byte bound and K3a's order floor."""
     rows = []
+    lib, stream = build.library(), build.current_stream()
+    empty = lambda: lib.delphi_launch_floor(stream)  # noqa: E731
+    floor = {"launch_floor_ms": bare_ms(torch, empty, flush),
+             "launch_floor_device_ms": device_ms(torch, empty, flush,
+                                                 "empty_kernel")}
+    log(f"[gbdt-probe] launch floor (empty kernel): {fmt(floor)}")
+    for label, name, shape in GBDT_PROBE_RP:
+        a = gbdt_route_edge_inputs(shape, sum(shape[:6])) if name == "route" \
+            else gbdt_predict_edge_inputs(shape, sum(shape[1:7]))
+        a = {k: v.cuda() if hasattr(v, "shape") else v for k, v in a.items()}
+        row = gbdt_rp_row(torch, k_gbdt, build, flush, label, name, a, floor,
+                          parent)
+        log(f"[gbdt-probe] {row['label']}: {fmt(row)}")
+        rows.append(row)
     for label, *shape in GBDT_PROBE:
         T, per_round, n, d, n_bins, C, level, kind = shape
         vals, node, bins = (x.cuda() for x in gbdt_edge_inputs(
@@ -5820,23 +6086,27 @@ def gbdt_probe(torch, k_gbdt, build, flush) -> list:
             row["split_bound_ms"] = max(gbdt_bound_ms("split", sa))
         log(f"[gbdt-probe] {label}: {fmt(row)}")
         rows.append(row)
-    # real calls: phase 4's 1M repair and the gauntlet's wide scenario at
-    # the top of its scale series (4t(b)), recorded as 4b records them,
-    # the heaviest K3a and K3b call of each timed the same way
+    # real calls: phase 4's 1M repair, 4f's 1M constraints run and the
+    # gauntlet's wide scenario at the top of its scale series (4t(b)),
+    # recorded as 4b records them, the heaviest call of each kernel timed
+    # the same way
     import delphi_tpu_torch as T
     from delphi_tpu_torch.gauntlet import SCENARIOS, generate_scenario
     from delphi_tpu_torch.gauntlet import runner
     T.set_device("cuda")
     _, dirty = missing_heavy(E2E_ROWS, seed=0)
+    _, dc_dirty, _ = fd_table(DC_ROWS, seed=4)
     wide = generate_scenario("wide", max(SCENARIOS["wide"].scales), 0)
 
     def gauntlet_wide():
         with downstream_or_null():
             runner.run_scenario(wide, seed=0)
     for path, run in (("e2e", lambda: repair(T, dirty)),
+                      ("constraints", lambda: dc_model(T, dc_dirty).run()),
                       ("gauntlet wide", gauntlet_wide)):
         calls = {}
-        orig = {name: getattr(k_gbdt, name) for name in ("hist", "split")}
+        orig = {name: getattr(k_gbdt, name)
+                for name in ("hist", "split", "route", "predict")}
 
         def recording(name):
             def fn(*args, **kwargs):
@@ -5852,6 +6122,14 @@ def gbdt_probe(torch, k_gbdt, build, flush) -> list:
                 setattr(k_gbdt, name, fn)
         _, heaviest = gbdt_hold(torch, k_gbdt, calls, f"--gbdt-probe {path}")
         for kernel, (key, name, a) in sorted(heaviest.items()):
+            if name in ("route", "predict"):
+                row = gbdt_rp_row(torch, k_gbdt, build, flush, path, name, a,
+                                  floor, parent)
+                row["shape"] = [list(x) if isinstance(x, tuple) else x
+                                for x in key[1:]]
+                log(f"[gbdt-probe] {row['label']}: {fmt(row)}")
+                rows.append(row)
+                continue
             clk = hist_clocks(torch, k_gbdt, build, a) if name == "hist" else {}
             row = {"label": f"{path} {kernel}", **clk, "ms": bare_ms(
                 torch, gbdt_bare(k_gbdt, build, name, a), flush),
@@ -6072,7 +6350,10 @@ def main() -> None:
             chain_out.data_ptr(), ADD_CHAIN, 1e-3, stream), flush, reps=5)
             / ADD_CHAIN)
         log(f"[add-latency] {ADD_NS[0]:.4f} ns an add")
-        probe = gbdt_probe(torch, k_gbdt, build, flush)
+        args = sys.argv[1:]
+        parent = parent_gbdt_library(build, args[args.index("--parent") + 1]) \
+            if "--parent" in args else None
+        probe = gbdt_probe(torch, k_gbdt, build, flush, parent)
         log(f"[total] {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"gbdt_probe": probe, "add_latency_ns": ADD_NS[0],
                           "flags": build.NVCC_FLAGS}))
@@ -6552,6 +6833,10 @@ def main() -> None:
     edges = gbdt_edges(torch, k_gbdt)
     log(f"[kernels] K3a and K3b at their edges bitwise equal to their plain "
         f"versions (NaN equal to NaN): {json.dumps(edges)}")
+    rp_edges = gbdt_route_edges(torch, k_gbdt)
+    log(f"[kernels] K3c and K4 at their edges bitwise equal to their plain "
+        f"versions (NaN equal to NaN), one launch a call: "
+        f"{json.dumps(rp_edges)}")
     # K3 and K4: each traced path's heaviest call of each kernel timed
     gbdt_rows = {path: {kernel: gbdt_measure(torch, k_gbdt, build, flush,
                                              path, *call)
@@ -6851,7 +7136,9 @@ def main() -> None:
                 "order_floor_ms": top["order_floor_ms"],
                 "add_latency_ns": ADD_NS[0]} if name == "gbdt_hist" else {}),
             **({"edges": edges} if name in ("gbdt_hist", "gbdt_split")
-               else {}),
+               else {"edges": rp_edges}),
+            **({"launch_floor_kernel_ms": floor["kernel_ms"]}
+               if name == "gbdt_route" else {}),
             "paths": entry_paths, "per_round": rounds, "ok": True})
     o_rows = shard["rows"][0]["entropy_terms_owned"]
     o_bytes = sum(r["bytes_ms"] for r in o_rows)

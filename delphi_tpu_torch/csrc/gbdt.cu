@@ -28,7 +28,7 @@
 //                    the sentinel (feature 0, threshold n_bins).
 //   K3c gbdt_route   node <- 2 * node + (bins[m(t), row, feat] > thr).
 //   K4 gbdt_predict  for each (class tree t, row): base[t], then + the
-//                    leaf of each round's tree, round by round.
+//                    leaf of each round's tree, round by round (__fadd_rn).
 // No float atomics, and every f32 operation is an explicitly rounded
 // intrinsic (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn): nvcc at -O3
 // would otherwise contract a*b+c into one FMA and move the gain by an ulp,
@@ -63,8 +63,29 @@
 // gain and masks per (feature, bin), and the first maximum by a reduction
 // with a comparison that is a total order (NaN first, then value, then
 // lower index), so the tree of the reduction does not change the winner.
-// K3c and K4 are a thread per (tree, row) and read each row's bins where
-// the traversal leads.
+// K3c: by bytes on paper (a node id in and out a (tree, row), one bin
+// read a row), in practice by the launch and ramp of a grid of rows x
+// trees, close to the empty kernel's time at the main path's shapes. A
+// thread per (tree, row) (the first design);
+// staging the level's splits and the rows' bins in shared memory, reading
+// a row's bins into registers beside its node id, and a thread per (row,
+// group of trees) each cut its chain of dependent loads and were each
+// measured no faster (PERF.md).
+// K4: by its instructions (a handful a node visit, R * T * n * depth
+// visits); the bytes are a small share of that. A block per (group of class
+// trees, share of the row tiles), a thread per row of a tile, one wave of
+// resident blocks. A group's trees whose words and leaves fit 32 KB are
+// staged once into shared memory, one 32-bit word a node (a depth-5
+// tree's 31 words in 31 banks), and the block then walks its tiles with
+// no barrier; larger trees come a chunk of rounds at a time, the next
+// chunk's splits and leaves copied in by cp.async while this one is
+// walked. A row of at most four features whose bins fit a byte holds them
+// in one register, picked by prmt, so a node visit reads shared memory
+// once (its word); wider rows stage their bins in their own column of
+// shared memory. Each thread walks four rounds of a tree at once and adds
+// their leaves to the tree's margin in round order (__fadd_rn). The bins
+// are the binner's codes, in [0, kMaxBins): a byte, so both routes compare
+// them exactly (ops/kernels/gbdt.py predict states that contract).
 //
 // Each entry point takes a host pointer to its parameter table (mirrored
 // by a ctypes.Structure in ops/kernels/gbdt.py) and the stream, launches
@@ -86,7 +107,6 @@ constexpr int kStage = 2048;                   // rows a round buckets
 constexpr int kPieces = kStage / kHistThreads; // 32-row pieces a warp ranks
 constexpr int kMaxBins = 256;                  // a thread per bin
 constexpr int kSplitThreads = 512;
-constexpr int kRowThreads = 256;
 constexpr int kBlock = 16;                     // XLA:CPU's scan block
 constexpr int kMaxChannels = 4;
 constexpr size_t kStaticSmem = 48 * 1024;
@@ -722,7 +742,16 @@ gbdt_split_kernel(const SplitParams p) {
 // K3c
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRowThreads)
+constexpr int kRouteThreads = 256;
+
+// A thread per (tree, row): the node id, then the node's split, then the
+// bin at its feature, three dependent loads through L1. Staging the level's
+// splits and the rows' bins in shared memory behind one barrier, reading a
+// row's bins into registers beside its node id, and a thread per (row,
+// group of trees) were each measured no faster at the main path's shapes
+// (a call is the launch and ramp of a grid of rows x trees, not its chain
+// of loads; PERF.md).
+__global__ void __launch_bounds__(kRouteThreads)
 gbdt_route_kernel(const RouteParams p) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (row >= p.n) return;
@@ -740,30 +769,291 @@ gbdt_route_kernel(const RouteParams p) {
 // K4
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRowThreads)
-gbdt_predict_kernel(const PredictParams p) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= p.n) return;
-  const int t = blockIdx.y;
-  const int width = (1 << p.depth) - 1;
-  const int64_t* bins = p.bins + row * p.d;
-  float acc = __ldg(p.base + t);
-  for (int r = 0; r < p.rounds; ++r) {
-    const int64_t tree = static_cast<int64_t>(r) * p.trees + t;
-    const int64_t* feat = p.feats + tree * width;
-    const int64_t* thr = p.thrs + tree * width;
-    int nd = 0;
-    for (int level = 0; level < p.depth; ++level) {
-      const int k = (1 << level) - 1 + nd;
-      nd = 2 * nd + (__ldg(bins + __ldg(feat + k)) > __ldg(thr + k) ? 1 : 0);
-    }
-    acc = __fadd_rn(acc, __ldg(p.leaves + tree * (width + 1) + nd));
-  }
-  p.out[static_cast<int64_t>(t) * p.n + row] = acc;
+constexpr int kPredictThreads = 256;       // rows of a K4 tile, a thread each
+constexpr int kPredictGroup = 8;           // most class trees of a block
+constexpr int kResidentBytes = 32 * 1024;  // a group's trees staged once when they fit
+constexpr int kNodeBudget = 1024;          // else split words a chunk of rounds stages
+constexpr int kBinsBudget = 8192;          // staged bins of a tile past one warp's rows
+constexpr int kWalk = 4;                   // traversals a thread walks at once
+constexpr int kMaxDepth = 10;
+constexpr int kMaxPredictFeatures = 1024;
+
+// A split as one 32-bit word, t << 16 | where. t = clamp(thr + 1, 0,
+// 65535): for a bin b in [0, kMaxBins), b >= t exactly when b > thr,
+// whatever the int64 thr. where: the prmt selector 0x6054 | f << 8 of the row's
+// bins as bytes (bytes), or the feature's offset f * tile in the staged
+// bins. A feature outside [0, d) is clamped into it (the plain version
+// raises on one).
+__device__ __forceinline__ uint32_t predict_word(int64_t f, int64_t thr, int d, int tile,
+                                                 bool bytes) {
+  const uint32_t fc = static_cast<uint32_t>(f < 0 ? 0 : (f < d ? f : d - 1));
+  const uint32_t t = thr < 0 ? 0u : (thr >= 65535 ? 65535u : static_cast<uint32_t>(thr + 1));
+  return (t << 16) | (bytes ? 0x6054u | fc << 8 : fc * static_cast<uint32_t>(tile));
 }
 
-unsigned row_blocks(int64_t n) {
-  return static_cast<unsigned>((n + kRowThreads - 1) / kRowThreads);
+// The dynamic shared memory of one K4 block in bytes: the split words of
+// a chunk of rc rounds [rc, group, W] (first, at a fixed address); when
+// the rounds come in several chunks, the raw int64 splits of one
+// (features, then thresholds) and two leaf buffers [rc, group, W + 1],
+// else one; the rows' staged bins [d, tile] (not when the bins are bytes
+// in a register) and the margins [group, tile].
+size_t predict_smem(int rc, int group, int W, int d, int tile, bool resident, bool bytes) {
+  const size_t cap = static_cast<size_t>(rc) * group * W;
+  const size_t lcap = static_cast<size_t>(rc) * group * (W + 1);
+  return ((4 * cap + 15) & ~static_cast<size_t>(15)) + (resident ? 0 : 16 * cap) +
+         (resident ? 4 : 8) * lcap + (bytes ? 0 : 4 * static_cast<size_t>(d) * tile) +
+         4 * static_cast<size_t>(group) * tile;
+}
+
+// A word of the split table read at a byte offset (the table sits at the
+// start of the dynamic shared memory).
+__device__ __forceinline__ uint32_t word_at(const unsigned char* words, uint32_t at) {
+  return *reinterpret_cast<const uint32_t*>(words + at);
+}
+
+// The bytes of {b, a} that `sel`'s four low nibbles pick (prmt.b32; the
+// nibbles here are all below 8, and the high half of sel is not read).
+__device__ __forceinline__ uint32_t byte_pick(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// N traversals of one tree by one thread, interleaved: the tree's items
+// (rounds) r0 .. r0 + N - 1 of a staged chunk, r * tg + u, whose leaves are
+// added to acc in round order. A traversal holds the byte offset of its
+// node's word, at = 4 * (first + k) for node k of the item's tree, so a
+// level is: the word (t << 16 | where), the row's bin at `where` as b << 16
+// | 0xffff, one unsigned compare of the two, which is b >= t, and the
+// child's offset 2 * at + 4 - 4 * first (+ 4 to the right). Bytes: the
+// row's (at most four) bins are the bytes of `packed`, and `where` is the
+// prmt selector that makes b << 16 | 0xffff of them; else `where` is the
+// feature's offset in the staged bins (s_row, the row's column).
+template <int N, bool Bytes>
+__device__ __forceinline__ float walk_rounds(const unsigned char* words, const float* leaves,
+                                             const uint32_t* s_row, uint32_t packed, float acc,
+                                             int r0, int tg, int u, int W, int depth) {
+  uint32_t at[N];
+  uint32_t left[N];   // 4 - 4 * first: the left child is 2 * at + left
+  uint32_t right[N];  // and the right one 2 * at + left + 4
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    at[q] = 4u * static_cast<uint32_t>(((r0 + q) * tg + u) * W);
+    left[q] = 4u - at[q];
+    right[q] = 8u - at[q];
+  }
+  for (int level = 0; level < depth; ++level) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      const uint32_t w = word_at(words, at[q]);
+      const uint32_t b = Bytes ? byte_pick(packed, 0xffffu, w) : s_row[w & 0xffffu];
+      at[q] = 2u * at[q] + (b >= w ? right[q] : left[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    // node k = at / 4 - item * W of the tree; its leaf k - W, at
+    // item * (W + 1) + k - W = item + at / 4 - W
+    acc = __fadd_rn(acc, leaves[(r0 + q) * tg + u + static_cast<int>(at[q] / 4u) - W]);
+  }
+  return acc;
+}
+
+// One thread's walks through a staged chunk of nr rounds of its block's
+// tg class trees ([r, u] items): tree by tree, kWalk rounds at a time and
+// the rest one by one, each leaf added to the tree's margin (s_acc[u *
+// tile]) in round order.
+template <bool Bytes>
+__device__ __forceinline__ void walk_chunk(const unsigned char* words, const float* leaves,
+                                           const uint32_t* s_row, uint32_t packed, float* s_acc,
+                                           int tile, int tg, int nr, int W, int depth) {
+  for (int u = 0; u < tg; ++u) {
+    float acc = s_acc[u * tile];
+    int r = 0;
+    for (; r + kWalk <= nr; r += kWalk) {
+      acc = walk_rounds<kWalk, Bytes>(words, leaves, s_row, packed, acc, r, tg, u, W, depth);
+    }
+    for (; r < nr; ++r) {
+      acc = walk_rounds<1, Bytes>(words, leaves, s_row, packed, acc, r, tg, u, W, depth);
+    }
+    s_acc[u * tile] = acc;
+  }
+}
+
+// A block per (group of class trees, share of the row tiles); a thread per
+// row of a tile. A group's trees whose words and leaves fit kResidentBytes
+// are staged once, packed straight from global memory, and the block then
+// walks its tiles with no barrier; larger trees come through shared memory
+// a chunk of rc rounds at a time (the next chunk's int64 splits and f32
+// leaves copied in by cp.async while this one is walked, then packed), a
+// tile at a time. A depth-5 tree's 31 words sit in 31 banks. Bytes (at
+// most four features): the row's bins are the bytes of one register, so a
+// level reads shared memory once; else they go to the row's column of
+// shared memory ([feature, row]: a warp's 32 rows sit in 32 banks whatever
+// features their nodes pick) as b << 16 | 0xffff.
+//
+// The bounds ask for one block an SM: ptxas then keeps the walk in 80
+// registers; without the second bound it chose 48 and spilled, which
+// measured slower.
+template <bool Bytes>
+__global__ void __launch_bounds__(kPredictThreads, 1)
+gbdt_predict_kernel(const PredictParams p, const int group, const int rc) {
+  extern __shared__ __align__(16) unsigned char predict_smem_[];
+  const int tile = blockDim.x;
+  const int tid = threadIdx.x;
+  const int W = (1 << p.depth) - 1;
+  const int t0 = blockIdx.y * group;
+  const int tg = min(group, p.trees - t0);
+  const int chunks = (p.rounds + rc - 1) / rc;
+  const bool resident = chunks <= 1;
+  const int cap = rc * group * W;
+  const int lcap = rc * group * (W + 1);
+  uint32_t* words = reinterpret_cast<uint32_t*>(predict_smem_);
+  int64_t* raw_f = reinterpret_cast<int64_t*>(predict_smem_ + ((4 * cap + 15) & ~15));
+  int64_t* raw_t = raw_f + (resident ? 0 : cap);
+  float* leaves = reinterpret_cast<float*>(raw_t + (resident ? 0 : cap));
+  uint32_t* s_bins = reinterpret_cast<uint32_t*>(leaves + (resident ? 1 : 2) * lcap);
+  float* s_acc = reinterpret_cast<float*>(s_bins + (Bytes ? 0 : p.d * tile));
+
+  // the splits of chunk c: raw (cp.async) or, resident, packed from global
+  // memory; element i is (round r, place j of the tg trees' run), (r, j)
+  // advancing by (tile / per, tile % per) with a carry
+  auto splits = [&](int c, bool direct) {
+    const int nr = min(rc, p.rounds - c * rc);
+    const int per = tg * W;
+    if (per == 0) return;
+    const int64_t first = static_cast<int64_t>(c) * rc * p.trees + t0;
+    const int64_t* feats = p.feats + first * W;
+    const int64_t* thrs = p.thrs + first * W;
+    const int dr = tile / per;
+    const int dj = tile - dr * per;
+    int r = tid / per;
+    int j = tid - r * per;
+#pragma unroll 4
+    for (int i = tid; i < nr * per; i += tile) {
+      const int64_t src = static_cast<int64_t>(r) * p.trees * W + j;
+      if (direct) {
+        words[i] = predict_word(feats[src], thrs[src], p.d, tile, Bytes);
+      } else {
+        copy_async<8>(raw_f + i, feats + src);
+        copy_async<8>(raw_t + i, thrs + src);
+      }
+      r += dr;
+      j += dj;
+      if (j >= per) {
+        j -= per;
+        ++r;
+      }
+    }
+  };
+  // the leaves of chunk c into buffer c & 1 (cp.async)
+  auto leaf_copies = [&](int c) {
+    const int nr = min(rc, p.rounds - c * rc);
+    const int per = tg * (W + 1);
+    const float* lv = p.leaves + (static_cast<int64_t>(c) * rc * p.trees + t0) * (W + 1);
+    float* dst = leaves + (c & 1) * lcap;
+    const int dr = tile / per;
+    const int dj = tile - dr * per;
+    int r = tid / per;
+    int j = tid - r * per;
+    for (int i = tid; i < nr * per; i += tile) {
+      copy_async<4>(dst + i, lv + static_cast<int64_t>(r) * p.trees * (W + 1) + j);
+      r += dr;
+      j += dj;
+      if (j >= per) {
+        j -= per;
+        ++r;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto stage = [&](int c) {
+    splits(c, false);
+    leaf_copies(c);
+  };
+  auto pack = [&](int c) {
+    const int n_words = min(rc, p.rounds - c * rc) * tg * W;
+    for (int i = tid; i < n_words; i += tile) {
+      words[i] = predict_word(raw_f[i], raw_t[i], p.d, tile, Bytes);
+    }
+  };
+
+  if (resident && chunks > 0) {
+    leaf_copies(0);
+    splits(0, true);
+    wait_copies();
+    __syncthreads();
+  }
+  const int64_t tiles = (p.n + tile - 1) / tile;
+  for (int64_t tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+    const int64_t row = tl * tile + tid;
+    const bool on = row < p.n;
+    uint32_t packed = 0;  // the row's bins, a byte each (Bytes)
+    if (on) {
+      const int64_t* b = p.bins + row * p.d;
+#pragma unroll 4
+      for (int f = 0; f < p.d; ++f) {
+        const uint32_t v = static_cast<uint32_t>(b[f]);
+        if (Bytes) {
+          packed |= (v & 0xffu) << (8 * f);
+        } else {
+          s_bins[f * tile + tid] = (v << 16) | 0xffffu;
+        }
+      }
+    }
+    for (int u = 0; u < tg; ++u) s_acc[u * tile + tid] = __ldg(p.base + t0 + u);
+    if (resident) {
+      if (on && chunks > 0) {
+        walk_chunk<Bytes>(reinterpret_cast<const unsigned char*>(words), leaves, s_bins + tid,
+                          packed, s_acc + tid, tile, tg, p.rounds, W, p.depth);
+      }
+    } else {
+      stage(0);
+      wait_copies();
+      __syncthreads();
+      pack(0);
+      __syncthreads();
+      for (int c = 0; c < chunks; ++c) {
+        if (c + 1 < chunks) stage(c + 1);
+        if (on) {
+          walk_chunk<Bytes>(reinterpret_cast<const unsigned char*>(words), leaves + (c & 1) * lcap,
+                            s_bins + tid, packed, s_acc + tid, tile, tg,
+                            min(rc, p.rounds - c * rc), W, p.depth);
+        }
+        if (c + 1 < chunks) {
+          wait_copies();
+          __syncthreads();
+          pack(c + 1);
+          __syncthreads();
+        }
+      }
+      __syncthreads();  // the last chunk's walks are done before the next tile's copies
+    }
+    if (on) {
+      for (int u = 0; u < tg; ++u) {
+        p.out[static_cast<int64_t>(t0 + u) * p.n + row] = s_acc[u * tile + tid];
+      }
+    }
+  }
+}
+
+// The SMs of the current device (cached per device).
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int v = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || v < 1) {
+      v = 132;
+    }
+    cached[dev] = v;
+  }
+  return cached[dev];
+}
+
+unsigned row_blocks(int64_t n, int threads) {
+  return static_cast<unsigned>((n + threads - 1) / threads);
 }
 
 template <int C>
@@ -776,6 +1066,49 @@ cudaError_t launch_hist(const HistParams& p, cudaStream_t s) {
     if (err != cudaSuccess) return err;
   }
   gbdt_hist_kernel<C><<<grid, kHistThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool Bytes>
+cudaError_t launch_predict(const PredictParams& p, cudaStream_t s) {
+  const int W = (1 << p.depth) - 1;
+  const int sms = sm_count();
+  // a group's trees (words and leaves of every round) staged once when
+  // they fit, of at most 8 trees; else chunks of rounds, the group no
+  // larger than leaves a chunk kWalk rounds
+  auto resident_bytes = [&](int g) {
+    return 4 * static_cast<int64_t>(std::max(p.rounds, 1)) * g * (2 * W + 1);
+  };
+  int group = std::min(p.trees, kPredictGroup);
+  while (group > 1 && resident_bytes(group) > kResidentBytes) group = (group + 1) / 2;
+  int rc = std::max(p.rounds, 1);
+  const bool resident = resident_bytes(group) <= kResidentBytes;
+  if (!resident) {
+    group = std::min(std::min(p.trees, kPredictGroup),
+                     std::max(1, kNodeBudget / (kWalk * std::max(W, 1))));
+    rc = std::max(1, std::min(p.rounds, kNodeBudget / std::max(group * W, 1)));
+  }
+  const int groups = (p.trees + group - 1) / group;
+  // rows a tile: fewer as the rows widen (one warp's at the least)
+  int tile = kPredictThreads;
+  while (tile > 32 && static_cast<int64_t>(p.d) * tile > kBinsBudget) tile /= 2;
+  const size_t smem = predict_smem(rc, group, W, p.d, tile, resident, Bytes);
+  if (smem > kStaticSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gbdt_predict_kernel<Bytes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gbdt_predict_kernel<Bytes>, tile, smem);
+  if (err != cudaSuccess) return err;
+  // one wave of resident blocks, every SM holding as many, a group's
+  // blocks taking its row tiles in turn
+  const int64_t tiles = (p.n + tile - 1) / tile;
+  const int64_t wave = std::max<int64_t>(1, static_cast<int64_t>(std::max(per_sm, 1)) * sms / groups);
+  const dim3 grid(static_cast<unsigned>(std::min(tiles, wave)), static_cast<unsigned>(groups));
+  gbdt_predict_kernel<Bytes><<<grid, tile, smem, s>>>(p, group, rc);
   return cudaGetLastError();
 }
 
@@ -822,14 +1155,17 @@ extern "C" int delphi_gbdt_split(const void* params, void* stream) {
 
 extern "C" int delphi_gbdt_route(const void* params, void* stream) {
   const RouteParams& p = *static_cast<const RouteParams*>(params);
-  const dim3 grid(row_blocks(p.n), static_cast<unsigned>(p.trees));
-  gbdt_route_kernel<<<grid, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const dim3 grid(row_blocks(p.n, kRouteThreads), static_cast<unsigned>(p.trees));
+  gbdt_route_kernel<<<grid, kRouteThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int delphi_gbdt_predict(const void* params, void* stream) {
   const PredictParams& p = *static_cast<const PredictParams*>(params);
-  const dim3 grid(row_blocks(p.n), static_cast<unsigned>(p.trees));
-  gbdt_predict_kernel<<<grid, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (p.d < 1 || p.d > kMaxPredictFeatures || p.depth < 0 || p.depth > kMaxDepth || p.trees < 1 ||
+      p.rounds < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(p.d <= 4 ? launch_predict<true>(p, s) : launch_predict<false>(p, s));
 }

@@ -27,13 +27,24 @@ program with one-hot matmul histograms. The port's builder
   that block's offset.
 * :func:`route` (K3c ``gbdt_route``; replaces :217-218): ``node <- 2 *
   node + (bins[row, feat[node]] > thr[node])``, a fresh tensor each
-  level. Bound by bytes (a node id in and out, one bin read a row).
+  level. Bound by bytes on paper (a node id in and out, one bin read a
+  row), in practice by the launch and ramp of its grid: a thread per
+  (tree, row); designs that cut its chain of dependent loads were
+  measured no faster.
 
 and the predictor calls :func:`predict` (K4 ``gbdt_predict``; replaces
 ``_predict_tree`` :230 and ``_predict_boosted`` :373): every round's tree
 traversed for every (class tree, row), its leaf added to the base margin
-round by round in f32. Bound by bytes (the bins and trees read once, the
-margins written once); a thread per (tree, row).
+round by round in f32. Bound by its instructions a node visit, not its
+bytes: a block per (group of class trees, share of the row tiles), a
+thread per row; the group's trees staged in shared memory as one 32-bit
+word a node (a 16-bit threshold, a 16-bit feature offset or byte
+selector), once when they fit, else a chunk of rounds at a time
+through ``cp.async``; a row of at most four features whose bins fit a
+byte holds them in one register. Rows as wide as
+:data:`PREDICT_MAX_FEATURES` and trees as deep as :data:`MAX_DEPTH` are
+taken; a wider or deeper call raises. The bins are the binner's codes,
+below :data:`MAX_BINS`.
 
 The plain versions are the port's arithmetic before the kernels, moved
 here unchanged: a stable sort by segment and ``torch.segment_reduce``
@@ -64,6 +75,8 @@ _count_lock = threading.Lock()
 MAX_BINS = 256        # csrc: kMaxBins (a thread per bin)
 MAX_CHANNELS = 4      # csrc: kMaxChannels
 BLOCK = 16            # XLA:CPU's cumsum block
+MAX_DEPTH = 10        # csrc: kMaxDepth
+PREDICT_MAX_FEATURES = 1024  # csrc: kMaxPredictFeatures (one warp's rows)
 
 
 def reset_launches() -> None:
@@ -453,7 +466,10 @@ def route_params(node: Optional[torch.Tensor], bins: torch.Tensor,
     _check("gbdt_route feat", feat, torch.int64, 2, dev)
     _check("gbdt_route thr", thr, torch.int64, 2, dev)
     _check("gbdt_route bins", bins, torch.int64, bins.dim(), dev)
-    n = int(bins.shape[-2])
+    n, d = int(bins.shape[-2]), int(bins.shape[-1])
+    if width < (2 << level) - 1:
+        raise ValueError(f"gbdt_route: {width} splits a tree hold no level "
+                         f"{level}")
     if node is not None:
         _check("gbdt_route node", node, torch.int32, 2, dev)
     out = torch.empty((T, n), dtype=torch.int32, device=dev)
@@ -461,7 +477,7 @@ def route_params(node: Optional[torch.Tensor], bins: torch.Tensor,
     p.node, p.bins, p.feat, p.thr, p.out = (_ptr(node), bins.data_ptr(),
                                             feat.data_ptr(), thr.data_ptr(),
                                             out.data_ptr())
-    p.n, p.trees, p.d = n, T, int(bins.shape[-1])
+    p.n, p.trees, p.d = n, T, d
     p.offset, p.width = (1 << level) - 1, int(width)
     p.per_round, p.models = per_round, _bins_models(bins, T, per_round)
     return p, out
@@ -501,13 +517,18 @@ def predict_params(bins: torch.Tensor, feats: torch.Tensor,
         raise ValueError(f"gbdt_predict: trees {tuple(feats.shape)}, "
                          f"{tuple(thrs.shape)}, {tuple(leaves.shape)} and "
                          f"base {tuple(base.shape)} at depth {depth}")
-    n = int(bins.shape[0])
+    n, d = bins.shape
+    if not 1 <= d <= PREDICT_MAX_FEATURES or not 0 <= depth <= MAX_DEPTH:
+        raise ValueError(f"gbdt_predict: {d} features at depth {depth} (at "
+                         f"most {PREDICT_MAX_FEATURES} features, the widest "
+                         f"rows whose bins one warp's 32 rows stage, and "
+                         f"depth {MAX_DEPTH})")
     out = torch.empty((T, n), dtype=torch.float32, device=dev)
     p = PredictParams()
     p.bins, p.feats, p.thrs, p.leaves, p.base, p.out = (
         bins.data_ptr(), feats.data_ptr(), thrs.data_ptr(),
         leaves.data_ptr(), base.data_ptr(), out.data_ptr())
-    p.n, p.trees, p.d, p.rounds, p.depth = n, T, int(bins.shape[1]), R, depth
+    p.n, p.trees, p.d, p.rounds, p.depth = n, T, d, R, depth
     return p, out
 
 
@@ -517,7 +538,11 @@ def predict(bins: torch.Tensor, feats: torch.Tensor, thrs: torch.Tensor,
     """Margins of boosted trees: ``bins`` int64 [n, d], ``feats`` /
     ``thrs`` int64 [R, T, 2^depth - 1], ``leaves`` f32 [R, T, 2^depth],
     ``base`` f32 [T] per class tree ([1] otherwise). Returns f32 [T, n]
-    when ``multiclass``, else [n] (T is 1)."""
+    when ``multiclass``, else [n] (T is 1). The bins are the binner's
+    codes, in [0, MAX_BINS) (``models/gbdt.py`` ``_Binner`` emits at most
+    ``max_bin``, itself at most 63): the card's kernel reads a bin as a
+    byte (rows of four features or fewer) or a 16-bit word, so a bin
+    outside that range gives another margin than the plain version."""
     if not _on_card("gbdt_predict", bins):
         return predict_plain(bins, feats, thrs, leaves, depth, base,
                              multiclass)

@@ -832,28 +832,51 @@ def test_gbdt_kernels_match_plain_on_card(card, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("objective,k,depth,R,n", [
-    ("multiclass", 8, 5, 40, 100_000), ("binary", 1, 3, 200, 4099),
-    ("regression", 1, 7, 3, 1)])
-def test_gbdt_predict_matches_plain_on_card(card, objective, k, depth, R, n):
-    """K4 bit for bit its plain version (the round-by-round f32 sum)."""
-    rng = np.random.default_rng(R + n)
-    d, n_bins = 6, 64
-    width = (1 << depth) - 1
-    bins = torch.from_numpy(rng.integers(0, n_bins, (n, d)))
-    feats = torch.from_numpy(rng.integers(0, d, (R, k, width)))
-    thrs = torch.from_numpy(rng.integers(0, n_bins + 1, (R, k, width)))
-    leaves = torch.from_numpy(rng.normal(0, 0.3, (R, k, width + 1))
-                              .astype(np.float32))
-    base = torch.from_numpy(rng.normal(size=k).astype(np.float32))
-    multi = objective == "multiclass"
-    want = k_gbdt.predict(bins, feats, thrs, leaves, depth, base, multi)
+@pytest.mark.parametrize("shape", chip_smoke.GBDT_ROUTE_EDGES)
+def test_gbdt_route_matches_plain_on_card(card, shape):
+    """K3c bit for bit its plain version on the same card tensors at the
+    edges chip_smoke.py holds it to (``GBDT_ROUTE_EDGES``: levels 0 to 6,
+    shared and per-model bins, n below and past a tile, 16 and 55
+    features, bins and thresholds from -3 to 70,000), at level 0 with
+    node ids None and zeros; one launch a call."""
+    a = {k: v.to(card) if hasattr(v, "shape") else v for k, v in
+         chip_smoke.gbdt_route_edge_inputs(shape, sum(shape[:6])).items()}
+    variants = [a]
+    if a["node"] is None:
+        variants.append(dict(a, node=torch.zeros(
+            (a["feat"].shape[0], a["bins"].shape[-2]), dtype=torch.int32,
+            device=card)))
+    for v in variants:
+        before = k_gbdt.launches["gbdt_route"]
+        got = k_gbdt.route(**v)
+        want = k_gbdt.route_plain(**v)
+        torch.cuda.synchronize()
+        assert k_gbdt.launches["gbdt_route"] == before + 1
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+# (objective, T, R, depth, d, n, n_bins, kind): the test's three earlier
+# cases, then the edges chip_smoke.py holds K4 to (GBDT_PREDICT_EDGES)
+GBDT_PREDICT_SHAPES = [("multiclass", 8, 40, 5, 6, 100_000, 64, ""),
+                       ("binary", 1, 200, 3, 6, 4099, 64, ""),
+                       ("regression", 1, 3, 7, 6, 1, 64, "")] \
+    + chip_smoke.GBDT_PREDICT_EDGES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GBDT_PREDICT_SHAPES)
+def test_gbdt_predict_matches_plain_on_card(card, shape):
+    """K4 bit for bit its plain version (the round-by-round f32 sum) on
+    the same card tensors, NaN equal to NaN; one launch a call."""
+    a = {k: v.to(card) if hasattr(v, "shape") else v for k, v in
+         chip_smoke.gbdt_predict_edge_inputs(shape,
+                                             sum(shape[1:7])).items()}
+    want = k_gbdt.predict_plain(**a)
     before = k_gbdt.launches["gbdt_predict"]
-    got = k_gbdt.predict(bins.to(card), feats.to(card), thrs.to(card),
-                         leaves.to(card), depth, base.to(card), multi)
+    got = k_gbdt.predict(**a)
     torch.cuda.synchronize()
     assert k_gbdt.launches["gbdt_predict"] == before + 1
-    assert torch.equal(got.cpu(), want)
+    assert got.shape == want.shape and chip_smoke.same_bits(torch, got, want)
 
 
 @pytest.mark.cuda

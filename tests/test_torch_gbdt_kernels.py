@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from delphi_tpu.models import gbdt as j_gbdt
 from delphi_tpu_torch import set_device
 from delphi_tpu_torch.models import gbdt as t_gbdt
@@ -75,6 +76,8 @@ LEVEL_CASES = [
     (3, 17, 2, 4, 1.0, 1.0, 5.0),
     (3, 64, 55, 3, 1.0, 1.0, 0.0),
     (4, 64, 9, 2, 1.0, 1.0, 0.0),
+    # depth 7: the card's K3c at level 6 (64 split words a tree)
+    (7, 16, 3, 3, 1.0, 1.0, 0.0),
 ]
 
 # (depth, n_bins, d, C, reg_lambda, min_child_weight, min_child_samples, n,
@@ -361,21 +364,35 @@ def test_boost_multiclass_per_model_bins_match_jax():
                                    rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("objective,k,depth", [("multiclass", 4, 5),
-                                               ("binary", 1, 3),
-                                               ("regression", 1, 5)])
-def test_predict_plain_matches_jax(objective, k, depth):
+@pytest.mark.parametrize("objective,k,depth,n,R,d,kind", [
+    pytest.param("multiclass", 4, 5, 700, 12, 5, "", id="multiclass-4-5"),
+    pytest.param("binary", 1, 3, 700, 12, 5, "", id="binary-1-3"),
+    pytest.param("regression", 1, 5, 700, 12, 5, "", id="regression-1-5"),
+    # the card's K4 at its edges: depth 1, depth 7 past many staged chunks
+    # of rounds, the gauntlet's 55 features, thresholds only 0, n_bins - 1
+    # and the sentinel n_bins, a NaN leaf (and -0.0 and +inf ones)
+    pytest.param("multiclass", 3, 1, 700, 12, 5, "", id="depth1"),
+    pytest.param("binary", 1, 7, 40, 300, 5, "", id="depth7-300-rounds"),
+    pytest.param("multiclass", 4, 3, 300, 25, 55, "", id="d55"),
+    pytest.param("multiclass", 4, 5, 700, 12, 5, "sentinel", id="sentinel"),
+    pytest.param("regression", 1, 3, 500, 20, 4, "nan", id="nan-leaf")])
+def test_predict_plain_matches_jax(objective, k, depth, n, R, d, kind):
     """The plain traversal against ``_predict_tree`` per tree and
     ``_predict_boosted``: equal bit for bit, since JAX's scan adds each
     round's leaves to the carry in f32 in round order, as the port does
-    (the stated tolerance, 1e-6, is never used)."""
+    (the stated tolerance, 1e-6, is never used; a NaN equals a NaN)."""
     rng = np.random.default_rng(k + depth)
-    n, d, n_bins, R = 700, 5, 33, 12
+    n_bins = 33
     width = (1 << depth) - 1
     bins = rng.integers(0, n_bins, (n, d)).astype(np.int32)
     feats = rng.integers(0, d, (R, k, width)).astype(np.int32)
-    thrs = rng.integers(0, n_bins + 1, (R, k, width)).astype(np.int32)
+    if kind == "sentinel":
+        thrs = rng.choice(np.int32([0, n_bins - 1, n_bins]), (R, k, width))
+    else:
+        thrs = rng.integers(0, n_bins + 1, (R, k, width)).astype(np.int32)
     leaves = rng.normal(0, 0.3, (R, k, width + 1)).astype(np.float32)
+    if kind == "nan":
+        leaves[R // 2, 0, :3] = [np.nan, -0.0, np.inf]
     base = rng.normal(0, 1, k).astype(np.float32)
     got = k_gbdt.predict(
         torch.from_numpy(bins).long(), torch.from_numpy(feats).long(),
@@ -386,6 +403,8 @@ def test_predict_plain_matches_jax(objective, k, depth):
         jnp.asarray(leaves), R, depth, objective, k, jnp.asarray(base)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     np.testing.assert_array_equal(got, want)
+    if kind == "nan":
+        assert np.isnan(got).any() and not np.isnan(got).all()
     one = np.asarray(j_gbdt._predict_tree(
         jnp.asarray(bins), jnp.asarray(feats[0, 0]), jnp.asarray(thrs[0, 0]),
         jnp.asarray(leaves[0, 0]), depth))
@@ -478,6 +497,60 @@ def test_parameter_tables_match_the_cuda_layouts():
                  "delphi_gbdt_route", "delphi_gbdt_predict"):
         assert f'extern "C" int {name}(const void* params, void* stream)' \
             in src
+
+
+@pytest.mark.parametrize("shape", chip_smoke.GBDT_PREDICT_EDGES)
+def test_predict_edges_plain_match_jax(shape):
+    """The card's K4 edge inputs (``chip_smoke.GBDT_PREDICT_EDGES``, rows
+    cut to 257) through the plain traversal equal the JAX package's
+    ``_predict_boosted`` on the same arrays, NaN equal to NaN: the edges
+    the card holds its kernel to are the reference's answers too."""
+    objective, T, R, depth, d, n, n_bins, kind = shape
+    shape = (objective, T, R, depth, d, min(n, 257), n_bins, kind)
+    a = chip_smoke.gbdt_predict_edge_inputs(shape, sum(shape[1:7]))
+    got = k_gbdt.predict_plain(**a).numpy()
+    want = np.asarray(j_gbdt._predict_boosted(
+        jnp.asarray(a["bins"].numpy().astype(np.int32)),
+        jnp.asarray(a["feats"].numpy().astype(np.int32)),
+        jnp.asarray(a["thrs"].numpy().astype(np.int32)),
+        jnp.asarray(a["leaves"].numpy()), R, depth, objective, T,
+        jnp.asarray(a["base"].numpy())))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_card_wrappers_raise_past_the_kernels_limits():
+    """What the card's K4 cannot take raises before any launch, naming its
+    limit: rows wider than ``PREDICT_MAX_FEATURES`` (one warp's rows of
+    staged bins) or trees deeper than ``MAX_DEPTH``; K3c raises on a split
+    table narrower than the level. The tables are built as for the card,
+    from CPU tensors (nothing launches). The widest K4 edge the card
+    checks is the widest admitted."""
+    def predict(d, depth):
+        W = (1 << depth) - 1
+        return k_gbdt.predict_params(
+            torch.zeros((5, d), dtype=torch.int64),
+            torch.zeros((2, 1, W), dtype=torch.int64),
+            torch.zeros((2, 1, W), dtype=torch.int64),
+            torch.zeros((2, 1, W + 1)), depth, torch.zeros(1), False)
+
+    def route(d, level, width=None):
+        width = (2 << level) - 1 if width is None else width
+        return k_gbdt.route_params(
+            None, torch.zeros((5, d), dtype=torch.int64),
+            torch.zeros((1, width), dtype=torch.int64),
+            torch.zeros((1, width), dtype=torch.int64), level)
+
+    predict(k_gbdt.PREDICT_MAX_FEATURES, 3)
+    predict(4, k_gbdt.MAX_DEPTH)
+    with pytest.raises(ValueError, match="at most 1024 features"):
+        predict(k_gbdt.PREDICT_MAX_FEATURES + 1, 3)
+    with pytest.raises(ValueError, match="depth 10"):
+        predict(4, k_gbdt.MAX_DEPTH + 1)
+    route(55, 6)
+    with pytest.raises(ValueError, match="14 splits a tree hold no level 3"):
+        route(4, 3, 14)
+    assert max(e[4] for e in chip_smoke.GBDT_PREDICT_EDGES) \
+        == k_gbdt.PREDICT_MAX_FEATURES
 
 
 def test_wrappers_refuse_other_devices():
