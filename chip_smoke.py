@@ -56,12 +56,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    windows and rounds, 55 features, every C, -0.0 / inf / NaN values)
    bitwise against their plain versions on the card (:func:`gbdt_edges`),
    K3c and K4 those of ``GBDT_ROUTE_EDGES`` and ``GBDT_PREDICT_EDGES``
-   (:func:`gbdt_route_edges`), one launch a call;
+   (:func:`gbdt_route_edges`), one launch a call; every traced path that
+   fits the logistic head on the card records the first K10 call of each
+   structure (:func:`k10_key`), held bitwise against its plain version
+   right after its path, its heaviest call of each kernel timed (the
+   library yardsticks: ``index_add_`` for K10b's ``gWcat``, a fused
+   ``torch.optim.Adam`` step for K10c) and run under the sync check; and
+   K10a, K10b and K10c run the shapes of ``LOGREG_EDGES`` bitwise against
+   their plain versions (:func:`logreg_edges`), one launch a call;
    4c. the same table through batched training
    (``setParallelStatTrainingEnabled(True)``): the same frame, at least
    one multi-target CV launch and one batched fit launch, no fallback;
    4d. a seeded 200,000-row table whose one NULL-bearing column has 40
-   classes: it must train the logistic head and repair at least 0.85;
+   classes: it must train the logistic head on its gather route, launch
+   K10a ``logreg_forward``, K10b ``logreg_backward`` and K10c
+   ``adam_step`` at least once an applied step, and repair at least 0.85;
+   it prints the launches, steps, ms a step and the training span, the
+   same fit warm on a 10,000-row sample, a fresh process's first fit on
+   that sample timed from the interpreter's start (``torch._dynamo`` must
+   stay unloaded), and a fresh process's first ``torch.optim.Adam`` (the
+   same host's yardstick);
    4e. one boosting round of a CV step at the 1M run's shapes, depths 3
    and 5: ms, the kernels the profiler saw and the K3 launches (one K3a
    per level and one for the leaf sums, one K3b and one K3c per level);
@@ -380,7 +394,8 @@ JSON line (the hand kernels K1, K2 and K5, one entry for each of K5's
 modes, the integer mode's numbers from its main path, the escalation run;
 K3's three kernels and K4, each with the numbers of its heaviest recorded
 call of the main path and every recorded call under ``calls``; and K8,
-which is plain PyTorch),
+which is plain PyTorch; K10's three kernels, each with the numbers of
+its heaviest recorded call of 4d's path, the edges and 4d's fit),
 the ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -6173,6 +6188,370 @@ def gbdt_measure(torch, k_gbdt, build, flush, label, key, name, a):
     return row
 
 
+# ---------------------------------------------------------------------------
+# K10: the logistic head's gather step and the Adam step
+# ---------------------------------------------------------------------------
+
+K10_KERNELS = ("logreg_forward", "logreg_backward", "adam_step")
+# the path whose fit 4d gates: the 200,000-row zones table
+K10_MAIN_PATH = "logistic"
+K10_REPLACES = {
+    "logreg_forward": "_fit_logreg_gather's loss :137-143 (jitted XLA, not "
+                      "Pallas)",
+    "logreg_backward": "the loss's jax.value_and_grad :155 (jitted XLA, not "
+                       "Pallas)",
+    "adam_step": "optax.adam's update :133, :156-157, and :58 / :194, the "
+                 "dense and MLP fits (jitted XLA, not Pallas)"}
+# (n, F, C, V, k, kind) of LOGREG_EDGES: 4d's shape, k 8 and 1,024 (a
+# target of about 1,000 values), no continuous column, n = 1 with one
+# vocabulary id, an id with no occurrence, rows of zero weight (labels in
+# a class of weight 0), ±0.0 weights (all-zero logits of both signs),
+# and large logits (weights of about ±1e4: most exponentials underflow)
+LOGREG_EDGES = [(10_000, 3, 1, 25, 40, ""),
+                (10_000, 3, 1, 25, 8, ""),
+                (2_000, 2, 0, 60, 1_024, ""),
+                (1, 1, 1, 1, 8, ""),
+                (300, 2, 2, 12, 40, "unseen"),
+                (500, 2, 1, 10, 16, "zero_w"),
+                (400, 2, 1, 10, 24, "signed_zero"),
+                (400, 2, 1, 10, 24, "large")]
+# Adam steps each edge's update is taken at
+LOGREG_EDGE_STEPS = (1, 37)
+
+
+def logreg_edge_inputs(shape, seed) -> dict:
+    """CPU tensors of one LOGREG_EDGES shape: ids of F features over V
+    (a share of V each, at least one id), labels in the first k
+    - 2 classes (the last two padded, weight 0; "zero_w": a third of the
+    rows labelled in a class of weight 0), balanced weights, normal
+    weights (scaled by the kind), the host's denom."""
+    import torch
+    from delphi_tpu_torch.ops.kernels import linear as k_lin
+    n, F, C, V, k, kind = shape
+    rng = np.random.default_rng(seed)
+    sizes = V // F + (np.arange(F) < V % F)   # V >= F: an id or more each
+    offsets = np.concatenate([[0], np.cumsum(sizes[:-1])])
+    gid = (offsets + np.stack([rng.integers(0, s, n) for s in sizes], 1)) \
+        .astype(np.int64)
+    if kind == "unseen":
+        gid[gid == 1] = 0
+    real = max(k - 2, 1)
+    y = rng.integers(0, real, n).astype(np.int64)
+    counts = np.bincount(y, minlength=k).astype(np.float64)
+    cw = np.zeros(k, np.float32)
+    cw[:real] = np.where(counts[:real] > 0,
+                         n / (real * np.maximum(counts[:real], 1)), 0.0)
+    if kind == "zero_w":
+        cw[0] = 0.0
+        y[: n // 3] = 0
+    sw = cw[y].astype(np.float32)
+    scale = {"large": 1e4, "signed_zero": 0.0}.get(kind, 0.5)
+    weights = [(rng.standard_normal(s) * scale).astype(np.float32)
+               for s in ((V, k), (C, k), (k,))]
+    if kind == "signed_zero":
+        weights = [np.where(rng.random(w.shape) < 0.5, np.float32(-0.0),
+                            np.float32(0.0)) for w in weights]
+    t = {"gid": torch.from_numpy(gid),
+         "cont": torch.from_numpy(rng.standard_normal((n, C))
+                                  .astype(np.float32)),
+         "y": torch.from_numpy(y), "sample_w": torch.from_numpy(sw),
+         "Wcat": torch.from_numpy(weights[0]),
+         "Wcont": torch.from_numpy(weights[1]),
+         "b": torch.from_numpy(weights[2])}
+    t["denom"] = max(float(k_lin.tree_sum(t["sample_w"])), 1.0)
+    t["l2"], t["V"], t["k"] = 1e-4, V, k
+    return t
+
+
+def k10_key(name, args) -> tuple:
+    """The structure of one K10 call: the design's shape but its row
+    count (features, continuous columns, ids, classes); K10c's length."""
+    if name == "adam_step":
+        return (name, int(args[0].numel()))
+    plan = args[0]
+    return (name, int(plan.gid.shape[1]), int(plan.cont.shape[1]),
+            plan.n_vocab, plan.k)
+
+
+def k10_record(calls, name, args) -> None:
+    """Keeps the first call of each structure (:func:`k10_key`) of a K10
+    wrapper in ``calls`` (key -> (name, inputs)), its tensors cloned: the
+    fit's buffers move on every step."""
+    key = k10_key(name, args)
+    if key in calls:
+        return
+    if name == "logreg_forward":
+        plan, Wcat, Wcont, b = args[:4]
+        a = (plan, Wcat.clone(), Wcont.clone(), b.clone())
+    elif name == "logreg_backward":
+        plan, dl, Wcat, Wcont = args[:4]
+        a = (plan, dl.clone(), Wcat.clone(), Wcont.clone())
+    else:
+        params, grads, mu, nu, lr, t = args
+        a = (params.clone(), grads.clone(), mu.clone(), nu.clone(), lr, t)
+    calls[key] = (name, a)
+
+
+def k10_outputs(torch, name, a):
+    """Fresh outputs of one recorded call (K10c's: copies of its
+    parameters and moments, updated in place)."""
+    if name == "adam_step":
+        return tuple(x.clone() for x in (a[0], a[2], a[3]))
+    plan = a[0]
+    n, dev = int(plan.gid.shape[0]), plan.gid.device
+    if name == "logreg_forward":
+        return (torch.empty(1, device=dev),
+                torch.empty((n, plan.k), device=dev))
+    return (torch.empty_like(a[2]), torch.empty_like(a[3]),
+            torch.empty(plan.k, device=dev))
+
+
+def k10_call(k_lin, name, a, out, plain=False) -> None:
+    """One recorded call into ``out`` (the wrapper, or the plain
+    version)."""
+    fn = getattr(k_lin, name + "_plain" if plain else name)
+    if name == "adam_step":
+        params, grads, _, _, lr, t = a
+        p, mu, nu = out
+        fn(p, grads, mu, nu, lr, t)
+    else:
+        fn(*a, *out)
+
+
+def k10_held(torch, k_lin, name, a, label) -> float:
+    """One call on the card against its plain version on the same card
+    tensors, bit for bit (NaN equal to NaN); fails on a difference.
+    Returns the largest |difference| over the finite outputs."""
+    got, want = k10_outputs(torch, name, a), k10_outputs(torch, name, a)
+    k10_call(k_lin, name, a, got)
+    k10_call(k_lin, name, a, want, plain=True)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not same_bits(torch, g, w):
+            fail(f"{label}: {name} differs from its plain version")
+        both = torch.isfinite(g) & torch.isfinite(w)
+        if both.any():
+            err = max(err, float((g[both] - w[both]).abs().max().item()))
+    return err
+
+
+def k10_hold(torch, k_lin, calls, label):
+    """Every recorded K10 call (:func:`k10_record`) held bitwise against
+    its plain version on the card. Returns ({kernel: {"calls_checked",
+    "max_abs_err", "shapes"}}, {kernel: (key, name, inputs) of its
+    heaviest call by bound})."""
+    held = {k: {"calls_checked": 0, "max_abs_err": 0.0, "shapes": []}
+            for k in K10_KERNELS}
+    heaviest = {}
+    for key, (name, a) in calls.items():
+        h = held[name]
+        h["max_abs_err"] = max(h["max_abs_err"],
+                               k10_held(torch, k_lin, name, a, label))
+        h["calls_checked"] += 1
+        h["shapes"].append(list(key[1:]))
+        bound = max(k10_bound_ms(name, a))
+        if name not in heaviest or bound > heaviest[name][0]:
+            heaviest[name] = (bound, key, name, a)
+    return held, {k: v[1:] for k, v in heaviest.items()}
+
+
+def k10_bound_ms(name, a):
+    """(bytes ms, operations ms) of one K10 call. Bytes: each input read
+    once, each output written once. K10a: gid (8 bytes a row and
+    feature), cont (4 a row and column), y and sample_w (12 a row) and
+    the weights in, dlogits and the loss out. K10b: dlogits, the
+    occurrence rows (8 each), the offsets (8 an id), cont and the weights
+    in, the three gradients out. K10c: parameters, gradients and both
+    moments in, parameters and moments out (28 bytes a parameter).
+    Operations over the FP32 rate: K10a per (row, class) F - 1 + 2 C + 1
+    for the logit, the max, the subtraction, the class sum's add, the
+    division and the multiply (F + 2 C + 5), and two a weight (its
+    square, its add); its exp a (row, class) and its log a row over the
+    FP64 rate. K10b per (row, class) F adds of the gathered sums and C
+    multiplies and C + 1 adds of the row trees (F + 2 C + 1), three a
+    weight (the L2 term). K10c twelve a parameter."""
+    if name == "adam_step":
+        N = int(a[0].numel())
+        return 1e3 * 28 * N / HBM_BYTES_PER_S, 1e3 * 12 * N / FP32_OPS_PER_S
+    plan = a[0]
+    n, F = (int(x) for x in plan.gid.shape)
+    C, V, k = int(plan.cont.shape[1]), plan.n_vocab, plan.k
+    weights = (V + C + 1) * k * 4
+    if name == "logreg_forward":
+        nbytes = n * F * 8 + n * C * 4 + n * 12 + weights + n * k * 4 + 4
+        ops = n * k * (F + 2 * C + 5) + 2 * (V + C) * k
+        f64 = n * k + n
+        return (1e3 * nbytes / HBM_BYTES_PER_S,
+                1e3 * ops / FP32_OPS_PER_S + 1e3 * f64 / FP64_OPS_PER_S)
+    nbytes = n * k * 4 + n * F * 8 + (V + 1) * 8 + n * C * 4 + weights \
+        + weights
+    ops = n * k * (F + 2 * C + 1) + 3 * (V + C) * k
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+
+
+def k10_library(torch, name, a):
+    """One PyTorch call computing the same function as the recorded call,
+    for ``library_ms``, built outside the timing: K10b's ``gWcat`` as
+    ``index_add_`` (float atomics, another order), K10c as a fused
+    ``torch.optim.Adam`` step (``fused=True``; another order of the same
+    update); None for K10a. Timed here only: the port calls neither."""
+    if name == "logreg_backward":
+        plan, dl = a[0], a[1]
+        flat = plan.gid.reshape(-1)
+        src = dl.repeat_interleave(plan.gid.shape[1], dim=0)
+        out = torch.zeros((plan.n_vocab, plan.k), device=dl.device)
+        return lambda: out.index_add_(0, flat, src)
+    if name == "adam_step":
+        p = a[0].clone().requires_grad_()
+        p.grad = a[1].clone()
+        opt = torch.optim.Adam([p], lr=a[4], fused=True)
+        opt.step()   # the state's first allocation, outside the timing
+        return opt.step
+    return None
+
+
+def k10_bare(k_lin, build, name, a, out):
+    """The recorded call's kernel launch through ctypes alone (its table
+    prepared once)."""
+    import ctypes
+    if name == "adam_step":
+        p = k_lin.adam_params(out[0], a[1], out[1], out[2], a[4], a[5])
+    elif name == "logreg_forward":
+        p = k_lin.forward_params(*a, *out)
+    else:
+        p = k_lin.backward_params(*a, *out)
+    lib, stream = build.library(), build.current_stream()
+    fn = getattr(lib, f"delphi_{name}")
+
+    def launch():
+        return fn(ctypes.addressof(p), stream)
+    launch.keep = (a, out)  # the tensors the table points at stay allocated
+    return launch
+
+
+def k10_measure(torch, k_lin, build, flush, label, key, name, a):
+    """4b for K10: one recorded call (a path's heaviest of its kernel,
+    already held bitwise) timed: ms, host, plain, the library's, the
+    bound; its kernel_ms deferred."""
+    bytes_ms, ops_ms = k10_bound_ms(name, a)
+    out = k10_outputs(torch, name, a)
+    fn = lambda: k10_call(k_lin, name, a, out)  # noqa: E731
+    lib_fn = k10_library(torch, name, a)
+    row = {"ms": time_ms(torch, fn, flush), "host_ms": host_ms(torch, fn),
+           "plain_ms": time_ms(torch, lambda: k10_call(
+               k_lin, name, a, out, plain=True), flush),
+           "library_ms": None if lib_fn is None
+           else time_ms(torch, lib_fn, flush),
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms), "shape": list(key[1:])}
+    defer_kernel_ms(f"{name} {label}", row, fn,
+                    k10_bare(k_lin, build, name, a, out), [name + "_kernel"],
+                    1)
+    log(f"[{label}-kernels] {name} heaviest call {key[1:]}: "
+        f"{fmt({k: v for k, v in row.items() if k != 'shape'})}")
+    return row
+
+
+def logreg_edges(torch, k_lin) -> dict:
+    """LOGREG_EDGES: K10a, K10b (on the plain forward's dlogits) and K10c
+    (the flat weights, their plain gradients, moments from a first plain
+    step, at LOGREG_EDGE_STEPS) on the card against their plain versions
+    on the same card tensors, bit for bit (NaN equal to NaN), one launch a
+    call. Fails on a difference. These launches come after every traced
+    path and count in no path's launches."""
+    t0 = time.perf_counter()
+    calls = {name: 0 for name in K10_KERNELS}
+    for shape in LOGREG_EDGES:
+        t = {k: v.cuda() if hasattr(v, "shape") else v
+             for k, v in logreg_edge_inputs(shape, sum(shape[:5])).items()}
+        plan = k_lin.gather_plan(t["gid"], t["cont"], t["y"], t["sample_w"],
+                                 t["denom"], t["l2"], t["V"], t["k"])
+        fwd = (plan, t["Wcat"], t["Wcont"], t["b"])
+        want = k10_outputs(torch, "logreg_forward", fwd)
+        k10_call(k_lin, "logreg_forward", fwd, want, plain=True)
+        bwd = (plan, want[1], t["Wcat"], t["Wcont"])
+        grads = k10_outputs(torch, "logreg_backward", bwd)
+        k10_call(k_lin, "logreg_backward", bwd, grads, plain=True)
+        flat = torch.cat([t["Wcat"].reshape(-1), t["Wcont"].reshape(-1),
+                          t["b"]])
+        g = torch.cat([x.reshape(-1) for x in grads])
+        mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
+        k_lin.adam_step_plain(flat.clone(), g, mu, nu, 0.2, 1)
+        cases = [("logreg_forward", fwd), ("logreg_backward", bwd)] + [
+            ("adam_step", (flat, g, mu, nu, 0.2, s))
+            for s in LOGREG_EDGE_STEPS]
+        for name, a in cases:
+            before = k_lin.launches[name]
+            k10_held(torch, k_lin, name, a, f"4b edge {shape}")
+            launched = k_lin.launches[name] - before
+            if launched != 1:
+                fail(f"4b: {name} launched {launched} times at the edge "
+                     f"{shape}")
+            calls[name] += 1
+        del t, plan, fwd, bwd, want, grads
+    return {"shapes": len(LOGREG_EDGES), "calls": calls,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+FRESH_FIT_CHILD = r"""
+import sys, time
+t_run = time.time()
+import pandas as pd
+sys.path.insert(0, sys.argv[2])
+import torch
+from delphi_tpu_torch.models.encoding import FeatureEncoder
+from delphi_tpu_torch.models.linear import LogisticRegressionModel
+from delphi_tpu_torch.ops.kernels import build
+t_imports = time.time()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t_cuda = time.time()
+build.library()
+t_lib = time.time()
+sample = pd.read_pickle(sys.argv[1])
+design = FeatureEncoder(["district", "parity", "channel", "amount"],
+                        ["amount"]).fit_transform_compact(sample)
+t0 = time.perf_counter()
+model = LogisticRegressionModel().fit(design, sample["zone"])
+torch.cuda.synchronize()
+fit_s = time.perf_counter() - t0
+print(t_run, t_imports, t_cuda, t_lib, time.time(), fit_s,
+      model.n_steps_run_, int("torch._dynamo" in sys.modules))
+"""
+
+
+def fresh_fit(sample) -> dict:
+    """A fresh process's first ``LogisticRegressionModel().fit`` on
+    ``sample`` (the kernel library from phase 2's build): seconds from
+    the spawn (the parent's clock) to the fit's end (the child's), split
+    into the interpreter's start, the imports (torch and the package),
+    the CUDA context, the library's load and the fit (the design's
+    encoding between the last two is not counted); the fit's steps; and
+    whether ``torch._dynamo`` is loaded after it (the first
+    ``torch.optim`` optimizer of a process imports it)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="delphi_smoke_4d_")
+    try:
+        path = os.path.join(tmp, "sample.pkl")
+        sample.to_pickle(path)
+        start = time.time()
+        out = subprocess.run([sys.executable, "-c", FRESH_FIT_CHILD, path,
+                              HERE], capture_output=True, text=True,
+                             timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if out.returncode != 0:
+        fail(f"the fresh-process fit failed:\n{out.stderr[-3000:]}")
+    *marks, fit_s, steps, dynamo = out.stdout.split()[-8:]
+    t_run, t_imports, t_cuda, t_lib, end = (float(m) for m in marks)
+    return {"from_start_s": end - start, "interpreter_s": t_run - start,
+            "imports_s": t_imports - t_run, "cuda_init_s": t_cuda - t_imports,
+            "library_s": t_lib - t_cuda, "fit_s": float(fit_s),
+            "steps": int(steps), "dynamo_imported": bool(int(dynamo))}
+
+
 def fmt(row) -> str:
     return " ".join(f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
                     for k, v in row.items())
@@ -6383,6 +6762,7 @@ def main() -> None:
     from delphi_tpu_torch.ops.kernels import domain_scores as k_domain
     from delphi_tpu_torch.ops.kernels import entropy as k_entropy
     from delphi_tpu_torch.ops.kernels import gbdt as k_gbdt
+    from delphi_tpu_torch.ops.kernels import linear as k_lin
     from delphi_tpu_torch.ops.kernels import pair_counts as k_pair
     from delphi_tpu_torch.models import gbdt
     from delphi_tpu_torch.models.encoding import FeatureEncoder
@@ -6445,6 +6825,7 @@ def main() -> None:
     orig_ds, orig_wl = k_domain.domain_scores, k_domain.weak_label
     orig_gbdt = {name: getattr(k_gbdt, name)
                  for name in ("hist", "split", "route", "predict")}
+    orig_k10 = {name: getattr(k_lin, name) for name in K10_KERNELS}
     from delphi_tpu_torch.ops import domain as t_domain
     orig_bucket = t_domain._launch_bucket_once
 
@@ -6517,6 +6898,19 @@ def main() -> None:
                 return fn_(*args, **kwargs)
             return call
 
+        # the first K10 call of each structure, held after the run (card
+        # tensors only: a CPU fit takes the plain versions)
+        k10_calls = {}
+
+        def rec_k10(name):
+            fn_ = orig_k10[name]
+
+            def call(*args):
+                if args[1].is_cuda:
+                    k10_record(k10_calls, name, args)
+                return fn_(*args)
+            return call
+
         phase_walls.clear()
         counters.clear()
         histograms.clear()
@@ -6526,6 +6920,7 @@ def main() -> None:
         k_entropy.reset_launches()
         k_domain.reset_launches()
         k_gbdt.reset_launches()
+        k_lin.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -6536,6 +6931,8 @@ def main() -> None:
         t_domain._launch_bucket_once = rec_launch_bucket
         for name in orig_gbdt:
             setattr(k_gbdt, name, rec_gbdt(name))
+        for name in orig_k10:
+            setattr(k_lin, name, rec_k10(name))
         try:
             t0 = time.perf_counter()
             res = fn()
@@ -6547,7 +6944,10 @@ def main() -> None:
             t_domain._launch_bucket_once = orig_bucket
             for name, fn_ in orig_gbdt.items():
                 setattr(k_gbdt, name, fn_)
+            for name, fn_ in orig_k10.items():
+                setattr(k_lin, name, fn_)
         gbdt_launches = dict(k_gbdt.launches)
+        k10_launches = dict(k_lin.launches)
         launches = {"pair_counts": k_pair.launches,
                     "entropy_terms": k_entropy.launches}
         # K5 launches only where weak-label demotion scores cells (every
@@ -6558,7 +6958,7 @@ def main() -> None:
                                 "domain_scores": k_domain.launches,
                                 **{f"k5_{m}": n for m, n in
                                    k_domain.mode_launches.items()},
-                                **gbdt_launches}
+                                **gbdt_launches, **k10_launches}
         log(f"[{label}] K3 / K4 launches: {json.dumps(gbdt_launches)}")
         if label in GBDT_PATHS and min(gbdt_launches.values()) < 1:
             fail(f"{label}: a GBDT kernel was not launched by the run: "
@@ -6575,6 +6975,18 @@ def main() -> None:
             log(f"[{label}] K3 / K4 calls of distinct structure, each "
                 f"bitwise equal to its plain version: "
                 f"{json.dumps(rec['gbdt_held'])}")
+        # every structure of K10 call this path made, bitwise; its
+        # heaviest call of each kernel kept for 4b's times
+        rec["k10_held"], rec["k10"] = k10_hold(torch, k_lin, k10_calls,
+                                               label)
+        for kernel, n in k10_launches.items():
+            if n and not rec["k10_held"][kernel]["calls_checked"]:
+                fail(f"{label}: {kernel} launched {n} times, no call "
+                     "recorded")
+        if any(n for n in k10_launches.values()):
+            log(f"[{label}] K10 launches {json.dumps(k10_launches)}; calls "
+                f"of distinct structure, each bitwise equal to its plain "
+                f"version: {json.dumps(rec['k10_held'])}")
         int_path = label in K5_INT_PATHS
         if k_domain.mode_launches["weak" if int_path else "int"]:
             fail(f"{label}: K5 launched {k_domain.mode_launches}, the "
@@ -6656,27 +7068,54 @@ def main() -> None:
     log(f"[elapsed] 4c done at {time.perf_counter() - t_start:.1f} s")
     # -- 4d. the logistic head -----------------------------------------------
     zclean, zdirty = zones_table(LOGISTIC_ROWS, seed=2)
-    _, _, _, zmodels, _ = drive("logistic", zdirty, zclean, ["zone"])
-    if not isinstance(zmodels.get("zone"), LogisticRegressionModel):
-        fail(f"zone trained {type(zmodels.get('zone')).__name__}, not the "
-             "logistic head")
-    # the same fit warm, and what a fresh process pays for its first Adam
+    _, _, _, zmodels, _ = drive(K10_MAIN_PATH, zdirty, zclean, ["zone"])
+    zmodel = zmodels.get("zone")
+    if not isinstance(zmodel, LogisticRegressionModel):
+        fail(f"zone trained {type(zmodel).__name__}, not the logistic head")
+    # the gather route: K10a, K10b and K10c at least once an applied step
+    k10_e2e = {n: path_launches[K10_MAIN_PATH][n] for n in K10_KERNELS}
+    zsteps = zmodel.n_steps_run_
+    if zmodel._compact is None or min(k10_e2e.values()) < zsteps:
+        fail(f"logistic: {zsteps} steps of the gather route launched "
+             f"{k10_e2e}, not K10a, K10b and K10c once a step")
+    zfit_s = zmodel.train_report_["fit_seconds"]
+    logistic_run = {"steps": zsteps, "launches": k10_e2e,
+                    "fit_s": zfit_s, "ms_per_step": 1e3 * zfit_s / zsteps,
+                    "training_span_s": phase_walls["repair model training"]}
+    log(f"[logistic] gather fit: {zsteps} steps, K10 launches "
+        f"{json.dumps(k10_e2e)}, fit {zfit_s:.3f} s, "
+        f"{logistic_run['ms_per_step']:.4f} ms a step, training span "
+        f"{logistic_run['training_span_s']:.3f} s")
+    # the same fit warm, a fresh process's first fit, and, on the same
+    # host, what a fresh process pays for its first torch.optim.Adam
     sample = zclean.sample(n=10_000, random_state=0)
     design = FeatureEncoder(["district", "parity", "channel", "amount"],
                             ["amount"]).fit_transform_compact(sample)
     torch.cuda.synchronize()
+    k_lin.reset_launches()
     t0 = time.perf_counter()
     warm = LogisticRegressionModel().fit(design, sample["zone"])
     warm_s = time.perf_counter() - t0
+    warm_launches = dict(k_lin.launches)
+    fresh = fresh_fit(sample)
+    if fresh["dynamo_imported"]:
+        fail("a fresh process's first logistic fit imported torch._dynamo")
     first_adam = subprocess.run(
         [sys.executable, "-c", "import time, torch; t = time.perf_counter(); "
          "torch.optim.Adam([torch.zeros(1, requires_grad=True)]); "
          "print(time.perf_counter() - t)"],
         capture_output=True, text=True, timeout=300, check=True)
+    logistic_run.update({
+        "warm_fit_s": warm_s, "warm_steps": warm.n_steps_run_,
+        "warm_ms_per_step": 1e3 * warm_s / warm.n_steps_run_,
+        "warm_launches": warm_launches, "fresh_process": fresh,
+        "first_torch_optim_adam_s": float(first_adam.stdout.strip())})
     log(f"[logistic] warm fit, 10,000 rows: {warm_s:.3f} s, "
-        f"{warm.n_steps_run_} steps, {1e3 * warm_s / warm.n_steps_run_:.3f} "
-        f"ms a step; first torch.optim.Adam of a fresh process: "
-        f"{float(first_adam.stdout.strip()):.3f} s")
+        f"{warm.n_steps_run_} steps, "
+        f"{logistic_run['warm_ms_per_step']:.4f} ms a step, K10 launches "
+        f"{json.dumps(warm_launches)}; a fresh process's first fit: "
+        f"{json.dumps(fresh)}; first torch.optim.Adam of a fresh process: "
+        f"{logistic_run['first_torch_optim_adam_s']:.3f} s")
 
     log(f"[elapsed] 4d done at {time.perf_counter() - t_start:.1f} s")
     # -- 4e. tree-builder cost per boosting round ----------------------------
@@ -6837,6 +7276,10 @@ def main() -> None:
     log(f"[kernels] K3c and K4 at their edges bitwise equal to their plain "
         f"versions (NaN equal to NaN), one launch a call: "
         f"{json.dumps(rp_edges)}")
+    lr_edges = logreg_edges(torch, k_lin)
+    log(f"[kernels] LOGREG_EDGES: K10a, K10b and K10c at their edges "
+        f"bitwise equal to their plain versions (NaN equal to NaN), one "
+        f"launch a call: {json.dumps(lr_edges)}")
     # K3 and K4: each traced path's heaviest call of each kernel timed
     gbdt_rows = {path: {kernel: gbdt_measure(torch, k_gbdt, build, flush,
                                              path, *call)
@@ -6845,6 +7288,14 @@ def main() -> None:
     for name in GBDT_KERNELS:
         if name not in gbdt_rows[GBDT_MAIN_PATH]:
             fail(f"{GBDT_MAIN_PATH}: no {name} call recorded")
+    # K10: each traced path's heaviest call of each kernel timed
+    k10_rows = {path: {kernel: k10_measure(torch, k_lin, build, flush, path,
+                                           *call)
+                       for kernel, call in rec["k10"].items()}
+                for path, rec in recorded.items()}
+    for name in K10_KERNELS:
+        if name not in k10_rows[K10_MAIN_PATH]:
+            fail(f"{K10_MAIN_PATH}: no {name} call recorded")
 
     # neither wrapper may wait for the card at any path's shapes
     torch.cuda.synchronize()
@@ -6859,12 +7310,14 @@ def main() -> None:
                 k5_run(k_domain, call)
             for _, name, a in rec["gbdt"].values():
                 gbdt_run(k_gbdt, name, a)
+            for _, name, a in rec["k10"].values():
+                k10_call(k_lin, name, a, k10_outputs(torch, name, a))
     except RuntimeError as exc:
         fail(f"a kernel wrapper synchronised with the card: {exc}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log("[sync] K1, K2, K3, K4 and K5 wrappers ran under "
+    log("[sync] K1, K2, K3, K4, K5 and K10 wrappers ran under "
         "set_sync_debug_mode('error') "
         f"at the shapes of paths {list(recorded)} without synchronising")
 
@@ -7140,6 +7593,39 @@ def main() -> None:
             **({"launch_floor_kernel_ms": floor["kernel_ms"]}
                if name == "gbdt_route" else {}),
             "paths": entry_paths, "per_round": rounds, "ok": True})
+    # K10: the main path's heaviest call of each; per traced path its
+    # launches, the calls of distinct structure held bitwise and its
+    # heaviest call's times
+    for name in K10_KERNELS:
+        top = k10_rows[K10_MAIN_PATH][name]
+        entry_paths = []
+        for p, rec in recorded.items():
+            e = {"path": p, "launches": path_launches[p].get(name, 0),
+                 **rec["k10_held"][name]}
+            if name in k10_rows[p]:
+                e["heaviest"] = {k: v for k, v in k10_rows[p][name].items()
+                                 if k not in ("bytes_ms", "ops_ms")}
+            entry_paths.append(e)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "delphi_tpu_torch/csrc/linear.cu",
+            "replaces": "delphi_tpu/models/linear.py:118",
+            "also_replaces": (["delphi_tpu/models/linear.py:58",
+                               "delphi_tpu/models/linear.py:194"]
+                              if name == "adam_step" else []),
+            "tpu_source": K10_REPLACES[name],
+            "main_path": K10_MAIN_PATH,
+            "launches": path_launches[K10_MAIN_PATH][name],
+            "max_abs_err": max(e["max_abs_err"] for e in entry_paths),
+            "calls_checked": sum(e["calls_checked"] for e in entry_paths),
+            "ms": top["ms"], "kernel_ms": top["kernel_ms"],
+            "host_ms": top["host_ms"], "launch_floor_ms": floor["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": "bytes" if top["bytes_ms"] >= top["ops_ms"]
+            else "operations",
+            "library_ms": top["library_ms"], "shape": top["shape"],
+            "edges": lr_edges, "fit": logistic_run, "paths": entry_paths,
+            "ok": True})
     o_rows = shard["rows"][0]["entropy_terms_owned"]
     o_bytes = sum(r["bytes_ms"] for r in o_rows)
     o_ops = sum(r["ops_ms"] for r in o_rows)

@@ -3,12 +3,15 @@ package's ``models/linear.py``.
 
 The classifier is a class-weighted multinomial logistic regression over
 the one-hot features, the regressor a small MLP; both train full-batch
-with Adam (``torch.optim.Adam``, optax's ``adam`` update rule) and stop
-once the loss plateaus (the JAX package's ``while_loop`` rule, read on the
-host after every step). The logistic head trains on the factored one-hot
-design (:class:`OneHotDesign`) as an embedding gather whose backward is a
-fixed-order segment sum, so two fits on the card are bit-identical; a
-dense design trains with one matmul.
+with Adam (optax's ``adam`` update rule, the hand kernel K10c
+:func:`~delphi_tpu_torch.ops.kernels.linear.adam_step` over one flat
+buffer of parameters) and stop once the loss plateaus (the JAX package's
+``while_loop`` rule, read on the host after every step). The logistic
+head trains on the factored one-hot design (:class:`OneHotDesign`) as an
+embedding gather whose loss and gradients are the hand kernels K10a and
+K10b, each summing in a fixed order, so two fits on the card are
+bit-identical and a step is three launches; a dense design trains with
+one matmul, its gradients from autograd.
 
 Rows are not padded: padded rows carry zero weight and padded vocabulary
 or feature columns only feel the L2 pull from zero, so they change
@@ -26,7 +29,7 @@ They expose the scikit-learn-like duck type (``classes_`` / ``predict`` /
 """
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -34,6 +37,7 @@ import torch
 
 from delphi_tpu_torch.models.encoding import (OneHotDesign,
                                               balanced_class_weights)
+from delphi_tpu_torch.ops.kernels import linear as k_lin
 from delphi_tpu_torch.ops.xfer import to_device
 from delphi_tpu_torch.parallel import planner
 
@@ -50,72 +54,79 @@ def _pad_cols(X: np.ndarray) -> np.ndarray:
         [X, np.zeros((X.shape[0], target - d), X.dtype)], axis=1)
 
 
-def _adam_until_plateau(params: List[torch.Tensor],
-                        loss_fn: Callable[[], torch.Tensor], lr: float,
+class _FlatAdam:
+    """One fit's parameters, its step's ``[loss, gradients]`` and Adam's
+    two moments, one flat f32 buffer each on ``device``; ``views`` and
+    ``grad_views`` are the parameters (of ``shapes``) and their gradients
+    as views into them. The parameters start at 0, or at ``inits``."""
+
+    def __init__(self, shapes: Sequence[Tuple[int, ...]],
+                 device: torch.device,
+                 inits: Optional[Sequence[Any]] = None) -> None:
+        self.shapes = [tuple(s) for s in shapes]
+        size = sum(math.prod(s) for s in self.shapes)
+        self.params = torch.zeros(size, dtype=torch.float32, device=device)
+        self.lg = torch.zeros(size + 1, dtype=torch.float32, device=device)
+        self.mu = torch.zeros(size, dtype=torch.float32, device=device)
+        self.nu = torch.zeros(size, dtype=torch.float32, device=device)
+        self.loss, self.grads = self.lg[:1], self.lg[1:]
+        self.views = self.split(self.params)
+        self.grad_views = self.split(self.grads)
+        for view, start in zip(self.views, inits or ()):
+            if not isinstance(start, torch.Tensor):
+                start = torch.from_numpy(np.array(start, np.float32))
+            view.copy_(start)
+
+    def split(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        out, at = [], 0
+        for shape in self.shapes:
+            size = math.prod(shape)
+            out.append(flat[at:at + size].view(shape))
+            at += size
+        return out
+
+
+def _autograd_step(adam: _FlatAdam,
+                   loss_fn: Callable[..., torch.Tensor]) -> Callable[[], None]:
+    """A step function for :func:`_adam_until_plateau` whose gradients
+    come from autograd: ``loss_fn(*parameters)`` on views of a leaf that
+    shares the flat parameters, its gradient copied into ``adam.grads``
+    and its value into ``adam.loss``."""
+    def step() -> None:
+        leaf = adam.params.detach().requires_grad_()
+        loss = loss_fn(*adam.split(leaf))
+        (grad,) = torch.autograd.grad(loss, leaf)
+        adam.grads.copy_(grad)
+        adam.loss.copy_(loss.detach().reshape(1))
+    return step
+
+
+def _adam_until_plateau(adam: _FlatAdam, step: Callable[[], None], lr: float,
                         n_steps: int, min_steps: int, tol: float,
                         reduce: Optional[Callable[[torch.Tensor],
                                                   torch.Tensor]] = None) \
         -> Tuple[int, float]:
     """Full-batch Adam steps until ``n_steps`` or, from step ``min_steps``,
     until ``|prev - cur| <= tol * (1 + |cur|)`` (f32, as the JAX package's
-    ``while_loop`` condition). Each step applies one update and records the
-    loss it was computed at. Reading that loss waits for the device once a
-    step. ``reduce`` (a mesh sum) takes the step's loss and gradients as
-    one flat tensor before the update, so every rank steps alike and
-    reads the same exit test. Returns (updates applied, last loss)."""
-    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    ``while_loop`` condition). Each step calls ``step()``, which fills
+    ``adam.lg`` with the loss at the current parameters and its
+    gradients, and applies one update (K10c, :func:`k_lin.adam_step`).
+    Reading that loss waits for the device once a step. ``reduce`` (a mesh
+    sum) takes the flat ``[loss, gradients]`` before the update, so every
+    rank steps alike and reads the same exit test. Returns (updates
+    applied, last loss)."""
     tol32 = np.float32(tol)
     prev = cur = np.float32(np.inf)
     i = 0
     while i < n_steps and (
             i < min_steps or np.abs(prev - cur) > tol32 * (np.float32(1.0)
                                                            + np.abs(cur))):
-        opt.zero_grad()
-        loss = loss_fn()
-        loss.backward()
-        if reduce is not None:
-            flat = reduce(torch.cat([loss.detach().reshape(1)]
-                                    + [p.grad.reshape(-1) for p in params]))
-            loss, at = flat[0], 1
-            for p in params:
-                p.grad.copy_(flat[at:at + p.numel()].view_as(p))
-                at += p.numel()
-        opt.step()
+        step()
+        lg = adam.lg if reduce is None else reduce(adam.lg)
+        k_lin.adam_step(adam.params, lg[1:], adam.mu, adam.nu, lr, i + 1)
         i += 1
-        prev, cur = cur, np.float32(loss.item())
+        prev, cur = cur, np.float32(lg[0].item())
     return i, float(cur)
-
-
-class _GatherSum(torch.autograd.Function):
-    """``Wcat[gid].sum(1)`` ([n, k]) with a fixed-order backward: the
-    gradient of each vocabulary row is the sum of its (row, feature)
-    occurrences in row-major order (a stable sort by id, then
-    ``segment_reduce``), never float atomics."""
-
-    @staticmethod
-    def forward(ctx: Any, Wcat: torch.Tensor, gid: torch.Tensor,
-                rows_sorted: torch.Tensor,
-                lengths: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(rows_sorted, lengths)
-        return Wcat[gid].sum(dim=1)
-
-    @staticmethod
-    def backward(ctx: Any, grad_out: torch.Tensor) -> Tuple[Any, ...]:
-        rows_sorted, lengths = ctx.saved_tensors
-        grad = torch.segment_reduce(grad_out[rows_sorted], "sum",
-                                    lengths=lengths, axis=0, unsafe=True)
-        return grad, None, None, None
-
-
-def _gather_plan(gid: torch.Tensor, n_vocab: int) \
-        -> Tuple[torch.Tensor, torch.Tensor]:
-    """(row of each occurrence in vocabulary-sorted order, occurrences per
-    vocabulary id) for :class:`_GatherSum`'s backward, made once a fit."""
-    flat = gid.reshape(-1)
-    order = torch.argsort(flat, stable=True)
-    lengths = torch.zeros(n_vocab, dtype=torch.int64, device=gid.device) \
-        .index_add_(0, flat, torch.ones_like(flat))
-    return order // gid.shape[1], lengths
 
 
 def _nll(logits: torch.Tensor, y: torch.Tensor, sample_w: torch.Tensor,
@@ -131,18 +142,16 @@ def _fit_logreg(X: torch.Tensor, y: torch.Tensor, class_weights: torch.Tensor,
     """Dense logistic head: logits = X @ W + b. Returns ((W, b), last loss,
     updates applied)."""
     d, k = X.shape[1], class_weights.shape[0]
-    W = torch.zeros((d, k), dtype=torch.float32, device=X.device,
-                    requires_grad=True)
-    b = torch.zeros((k,), dtype=torch.float32, device=X.device,
-                    requires_grad=True)
+    adam = _FlatAdam([(d, k), (k,)], X.device)
     sample_w = class_weights[y]
     denom = torch.clamp_min(sample_w.sum(), 1.0)
 
-    def loss_fn() -> torch.Tensor:
+    def loss_fn(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _nll(X @ W + b, y, sample_w, denom) + l2 * torch.sum(W * W)
 
-    steps, loss = _adam_until_plateau([W, b], loss_fn, lr, n_steps, 20, 1e-6)
-    return (W.detach(), b.detach()), loss, steps
+    steps, loss = _adam_until_plateau(adam, _autograd_step(adam, loss_fn),
+                                      lr, n_steps, 20, 1e-6)
+    return tuple(adam.views), loss, steps
 
 
 def _mesh_fit_logreg(mesh: Any, X: np.ndarray, y: torch.Tensor,
@@ -163,55 +172,51 @@ def _mesh_fit_logreg(mesh: Any, X: np.ndarray, y: torch.Tensor,
     Xb = to_device(np.ascontiguousarray(X[lo:hi], np.float32))
     yb = y[lo:hi]
     d, k = X.shape[1], class_weights.shape[0]
-    W = torch.zeros((d, k), dtype=torch.float32, device=Xb.device,
-                    requires_grad=True)
-    b = torch.zeros((k,), dtype=torch.float32, device=Xb.device,
-                    requires_grad=True)
+    adam = _FlatAdam([(d, k), (k,)], Xb.device)
     sample_w = class_weights[yb]
     denom = torch.clamp_min(psum(sample_w.sum(), mesh,
                                  site="mesh.logreg.denom"), 1.0)
     reg_scale = 1.0 / mesh.shape["dp"]
 
-    def loss_fn() -> torch.Tensor:
+    def loss_fn(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _nll(Xb @ W + b, yb, sample_w, denom) \
             + reg_scale * l2 * torch.sum(W * W)
 
     steps, loss = _adam_until_plateau(
-        [W, b], loss_fn, lr, n_steps, 20, 1e-6,
+        adam, _autograd_step(adam, loss_fn), lr, n_steps, 20, 1e-6,
         reduce=lambda t: psum(t, mesh, site="mesh.logreg.step"))
-    return (W.detach(), b.detach()), loss, steps
+    return tuple(adam.views), loss, steps
 
 
 def _fit_logreg_gather(gid: torch.Tensor, cont: torch.Tensor, y: torch.Tensor,
-                       class_weights: torch.Tensor, l2: float, lr: float,
-                       n_steps: int, n_vocab: int) \
+                       class_weights: torch.Tensor, denom: float, l2: float,
+                       lr: float, n_steps: int, n_vocab: int) \
         -> Tuple[Tuple[torch.Tensor, ...], float, int]:
     """The logistic head on the factored one-hot design: ``X @ W`` over a
     block-one-hot matrix is an embedding gather (``gid`` [n, F] global
     vocabulary ids), plus the continuous columns' matmul. Same objective,
-    weights and exit rule as :func:`_fit_logreg`. Returns ((Wcat, Wcont,
-    b), last loss, updates applied)."""
+    weights and exit rule as :func:`_fit_logreg`, over the weighted row
+    normalizer ``denom`` (computed on the host). Each step is K10a
+    (:func:`k_lin.logreg_forward`: the loss and its gradient at the
+    logits), K10b (:func:`k_lin.logreg_backward`: the weights' gradients,
+    each in a fixed order, so two fits on the card are bit-identical) and
+    K10c, with no autograd graph. Returns ((Wcat, Wcont, b), last loss,
+    updates applied)."""
     k = class_weights.shape[0]
     dev = gid.device
-    Wcat = torch.zeros((n_vocab, k), dtype=torch.float32, device=dev,
-                       requires_grad=True)
-    Wcont = torch.zeros((cont.shape[1], k), dtype=torch.float32, device=dev,
-                        requires_grad=True)
-    b = torch.zeros((k,), dtype=torch.float32, device=dev, requires_grad=True)
-    sample_w = class_weights[y]
-    denom = torch.clamp_min(sample_w.sum(), 1.0)
-    rows_sorted, lengths = _gather_plan(gid, n_vocab)
+    adam = _FlatAdam([(n_vocab, k), (cont.shape[1], k), (k,)], dev)
+    plan = k_lin.gather_plan(gid, cont, y, class_weights[y], denom, l2,
+                             n_vocab, k)
+    dlogits = torch.empty((gid.shape[0], k), dtype=torch.float32, device=dev)
+    Wcat, Wcont, b = adam.views
+    gWcat, gWcont, gb = adam.grad_views
 
-    def loss_fn() -> torch.Tensor:
-        logits = _GatherSum.apply(Wcat, gid, rows_sorted, lengths) + b
-        if cont.shape[1]:
-            logits = logits + cont @ Wcont
-        return _nll(logits, y, sample_w, denom) \
-            + l2 * (torch.sum(Wcat * Wcat) + torch.sum(Wcont * Wcont))
+    def step() -> None:
+        k_lin.logreg_forward(plan, Wcat, Wcont, b, adam.loss, dlogits)
+        k_lin.logreg_backward(plan, dlogits, Wcat, Wcont, gWcat, gWcont, gb)
 
-    steps, loss = _adam_until_plateau([Wcat, Wcont, b], loss_fn, lr, n_steps,
-                                      20, 1e-6)
-    return (Wcat.detach(), Wcont.detach(), b.detach()), loss, steps
+    steps, loss = _adam_until_plateau(adam, step, lr, n_steps, 20, 1e-6)
+    return (Wcat, Wcont, b), loss, steps
 
 
 def _mlp_init(d: int, hidden: int, seed: int) -> Dict[str, torch.Tensor]:
@@ -243,21 +248,23 @@ def _fit_mlp_regressor(X: torch.Tensor, y: torch.Tensor, l2: float, lr: float,
     ``init`` (numpy or tensors; e.g. another package's initial draw) or
     :func:`_mlp_init`. Returns (params, last loss, updates applied)."""
     start = init if init is not None else _mlp_init(X.shape[1], hidden, seed)
-    # a copy: Adam updates in place and must not write into ``init``
-    params = {name: torch.tensor(np.asarray(v), dtype=torch.float32,
-                                 device=X.device, requires_grad=True)
-              for name, v in start.items()}
+    names = list(start)
+    # copied into the flat buffer: Adam updates in place and must not
+    # write into ``init``
+    adam = _FlatAdam([np.shape(start[name]) for name in names], X.device,
+                     [start[name] for name in names])
     denom = float(max(X.shape[0], 1))
 
-    def loss_fn() -> torch.Tensor:
+    def loss_fn(*views: torch.Tensor) -> torch.Tensor:
+        params = dict(zip(names, views))
         mse = ((_mlp_forward(params, X) - y) ** 2).sum() / denom
         reg = sum(torch.sum(params[w] ** 2) for w in ("w1", "w2", "w3"))
         return mse + l2 * reg
 
     # non-convex objective: only a near-exact plateau stops early
-    steps, loss = _adam_until_plateau(list(params.values()), loss_fn, lr,
-                                      n_steps, 50, 1e-7)
-    return {k: v.detach() for k, v in params.items()}, loss, steps
+    steps, loss = _adam_until_plateau(adam, _autograd_step(adam, loss_fn),
+                                      lr, n_steps, 50, 1e-7)
+    return dict(zip(names, adam.views)), loss, steps
 
 
 class LogisticRegressionModel:
@@ -309,9 +316,12 @@ class LogisticRegressionModel:
             sizes = np.asarray(X.cat_sizes, np.int64)
             offsets = np.concatenate([[0], np.cumsum(sizes[:-1])])
             gid = to_device(offsets[None, :] + X.cat_idx, torch.int64)
+            # the weighted row normalizer on the host, in the kernels' order
+            denom = max(float(k_lin.tree_sum(torch.from_numpy(
+                class_weights[codes]))), 1.0)
             params, loss, steps = _fit_logreg_gather(
-                gid, to_device(X.cont, torch.float32), y_d, cw, self.l2,
-                self.lr, self.n_steps, int(sizes.sum()))
+                gid, to_device(X.cont, torch.float32), y_d, cw, denom,
+                self.l2, self.lr, self.n_steps, int(sizes.sum()))
             self._compact = {"offsets": offsets, "sizes": sizes,
                              "layout": X.layout, "width": X.width}
         else:

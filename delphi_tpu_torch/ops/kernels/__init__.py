@@ -9,7 +9,11 @@
 * :mod:`.gbdt` — K3 (``gbdt_hist``, ``gbdt_split``, ``gbdt_route``: one
   level of the tree builder) and K4 (``gbdt_predict``), replacing the
   jitted ``_build_tree`` and ``_predict_tree`` / ``_predict_boosted`` of
-  its ``models/gbdt.py``.
+  its ``models/gbdt.py``;
+* :mod:`.linear` — K10 (``logreg_forward``, ``logreg_backward``: one step
+  of the logistic head's gather route; ``adam_step``: Adam's update over
+  a fit's flat parameters, on every route of the logistic and MLP heads),
+  replacing the jitted fits of its ``models/linear.py``.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and uses its plain
 version for a CPU tensor; nothing falls back from one to the other.

@@ -174,7 +174,9 @@ def library() -> ctypes.CDLL:
             lib.delphi_domain_scores.argtypes = [vp, i32, i32, i32, vp]
             # (parameter table pointer, stream)
             for name in ("delphi_gbdt_hist", "delphi_gbdt_split",
-                         "delphi_gbdt_route", "delphi_gbdt_predict"):
+                         "delphi_gbdt_route", "delphi_gbdt_predict",
+                         "delphi_logreg_forward", "delphi_logreg_backward",
+                         "delphi_adam_step"):
                 getattr(lib, name).restype = i32
                 getattr(lib, name).argtypes = [vp, vp]
             lib.delphi_launch_floor.restype = i32

@@ -1701,3 +1701,152 @@ def test_gauntlet_card_matches_cpu(card):
         assert gpu["repair"] == cpu["repair"] and gpu["repair"]["repairs"]
         assert gpu["counters"] == cpu["counters"]
         assert gpu["downstream"] == cpu["downstream"]
+
+
+# -- K10: the logistic head's gather step and the Adam step -------------------
+
+
+def _k10_inputs(shape, dev):
+    from delphi_tpu_torch.ops.kernels import linear as k_lin
+    t = {k: v.to(dev) if hasattr(v, "shape") else v
+         for k, v in chip_smoke.logreg_edge_inputs(shape, sum(shape[:5]))
+         .items()}
+    plan = k_lin.gather_plan(t["gid"], t["cont"], t["y"], t["sample_w"],
+                             t["denom"], t["l2"], t["V"], t["k"])
+    return t, plan
+
+
+def _k10_step(k_lin, t, plan, suffix=""):
+    """One gather step through the wrappers (``suffix`` "_plain": the
+    plain versions): loss, dlogits, gradients, the updated flat weights
+    and moments after two Adam steps."""
+    dev = t["Wcat"].device
+    n, k = plan.gid.shape[0], plan.k
+    loss, dl = torch.empty(1, device=dev), torch.empty((n, k), device=dev)
+    getattr(k_lin, "logreg_forward" + suffix)(plan, t["Wcat"], t["Wcont"],
+                                              t["b"], loss, dl)
+    grads = [torch.empty_like(t["Wcat"]), torch.empty_like(t["Wcont"]),
+             torch.empty(k, device=dev)]
+    getattr(k_lin, "logreg_backward" + suffix)(plan, dl, t["Wcat"],
+                                               t["Wcont"], *grads)
+    flat = torch.cat([t["Wcat"].reshape(-1), t["Wcont"].reshape(-1), t["b"]])
+    g = torch.cat([x.reshape(-1) for x in grads])
+    mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
+    for step in (1, 2):
+        getattr(k_lin, "adam_step" + suffix)(flat, g, mu, nu, 0.2, step)
+    return [loss, dl, *grads, flat, mu, nu]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [chip_smoke.LOGREG_EDGES[0],
+                                   chip_smoke.LOGREG_EDGES[2]])
+def test_logreg_kernels_match_plain_on_card(card, shape):
+    """K10a, K10b and K10c at 4d's shape (10,000 rows, 40 classes) and at
+    1,024 classes without continuous columns: one launch each a call, every
+    output bit for bit the plain version's on the same card tensors."""
+    from delphi_tpu_torch.ops.kernels import linear as k_lin
+    t, plan = _k10_inputs(shape, card)
+    before = dict(k_lin.launches)
+    got = _k10_step(k_lin, t, plan)
+    torch.cuda.synchronize()
+    assert {n: k_lin.launches[n] - before[n] for n in before} == {
+        "logreg_forward": 1, "logreg_backward": 1, "adam_step": 2}
+    want = _k10_step(k_lin, t, plan, "_plain")
+    for g, w in zip(got, want):
+        assert chip_smoke.same_bits(torch, g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.LOGREG_EDGES)
+def test_logreg_edges_match_plain_on_card(card, shape):
+    """``chip_smoke.LOGREG_EDGES`` (k 8 to 1,024, one id, an unseen id,
+    C = 0, n = 1, zero weights, ±0.0 and large logits): the kernels'
+    outputs bit for bit the plain versions' on the card."""
+    from delphi_tpu_torch.ops.kernels import linear as k_lin
+    t, plan = _k10_inputs(shape, card)
+    got = _k10_step(k_lin, t, plan)
+    want = _k10_step(k_lin, t, plan, "_plain")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert chip_smoke.same_bits(torch, g, w)
+
+
+def _zones(n, k, seed):
+    rng = np.random.default_rng(seed)
+    latent = rng.integers(0, k, n)
+    df = pd.DataFrame({"a": [f"a{v // 2}" for v in latent],
+                       "b": [f"b{v % 2}" for v in latent],
+                       "x": latent + rng.normal(0, 3, n)})
+    y = pd.Series(np.where(rng.random(n) < 0.2, rng.integers(0, k, n),
+                           latent).astype(str))
+    return df, y
+
+
+@pytest.mark.cuda
+def test_gather_fit_card_matches_cpu(card):
+    """A gather fit on the card takes the CPU fit's steps and ends at its
+    weights bit for bit: K10a, K10b and K10c give the plain versions'
+    bits, and the f64 exponentials and logarithms rounded to f32 agree
+    between the two devices. Every step launches each kernel once."""
+    from delphi_tpu_torch.models.encoding import FeatureEncoder
+    from delphi_tpu_torch.models.linear import LogisticRegressionModel
+    from delphi_tpu_torch.ops.kernels import linear as k_lin
+    df, y = _zones(5000, 40, 16)
+    fits = []
+    for dev in ("cpu", "cuda"):
+        T.set_device(dev)
+        X = FeatureEncoder(["a", "b", "x"], ["x"]).fit_transform_compact(df)
+        k_lin.reset_launches()
+        fits.append(LogisticRegressionModel().fit(X, y))
+    cpu, gpu = fits
+    assert gpu._compact is not None
+    assert k_lin.launches == {"logreg_forward": gpu.n_steps_run_,
+                              "logreg_backward": gpu.n_steps_run_,
+                              "adam_step": gpu.n_steps_run_}
+    assert cpu.n_steps_run_ == gpu.n_steps_run_
+    assert cpu.loss_ == gpu.loss_
+    for pc, pg in zip(cpu._params, gpu._params):
+        np.testing.assert_array_equal(pc, pg)
+
+
+@pytest.mark.cuda
+def test_dense_mesh_and_mlp_routes_step_with_adam_kernel_on_card(card):
+    """The dense logistic route, the mesh route on a one-slot mesh and the
+    MLP step with K10c on the card (one launch an applied step, no other
+    K10 kernel); their gradients come from autograd over matmuls whose f32
+    sums the card orders otherwise than the CPU, so each ends within 1e-3
+    relative of the CPU fit's loss rather than bitwise."""
+    from delphi_tpu_torch.models import linear as t_lin
+    from delphi_tpu_torch.ops.kernels import linear as k_lin
+    from delphi_tpu_torch.parallel import mesh as t_mesh
+    rng = np.random.default_rng(5)
+    n, d, k = 2_000, 16, 24
+    latent = rng.integers(0, k, n)
+    X = np.zeros((n, d), np.float32)
+    X[np.arange(n), latent % d] = 1.0
+    X[:, -1] = latent * 0.1 + rng.normal(0, 1, n)
+    y = torch.from_numpy(latent.astype(np.int64))
+    cw = torch.ones(k)
+    yr = (X @ rng.normal(size=d)).astype(np.float32)
+
+    def fits(dev):
+        Xd, yd, cwd = (torch.from_numpy(X).to(dev), y.to(dev), cw.to(dev))
+        return {
+            "dense": t_lin._fit_logreg(Xd, yd, cwd, 1e-4, 0.2, 60),
+            "mesh": t_lin._mesh_fit_logreg(t_mesh.Mesh((0,)), X, yd, cwd,
+                                           1e-4, 0.2, 60),
+            "mlp": t_lin._fit_mlp_regressor(
+                Xd, torch.from_numpy(yr).to(dev), 1e-5, 0.01, 80, 64, 42)}
+
+    T.set_device("cpu")
+    want = fits("cpu")
+    T.set_device("cuda")
+    k_lin.reset_launches()
+    got = fits("cuda")
+    torch.cuda.synchronize()
+    steps = sum(r[2] for r in got.values())
+    assert k_lin.launches == {"logreg_forward": 0, "logreg_backward": 0,
+                              "adam_step": steps}
+    for route in got:
+        assert got[route][2] == want[route][2]
+        assert got[route][1] == pytest.approx(want[route][1], rel=1e-3)

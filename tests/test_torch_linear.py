@@ -16,6 +16,7 @@ from delphi_tpu.models import linear as j_lin
 from delphi_tpu_torch import set_device
 from delphi_tpu_torch.models import encoding as t_enc
 from delphi_tpu_torch.models import linear as t_lin
+from delphi_tpu_torch.ops.kernels import linear as k_lin
 
 
 @pytest.fixture(autouse=True)
@@ -161,28 +162,38 @@ def test_mlp_seeded_init_is_device_independent():
 def test_adam_exit_rule_counts_applied_updates():
     """The loop stops at the first step past the minimum whose loss moved
     by at most tol * (1 + |loss|); a constant loss stops at the minimum."""
-    p = torch.zeros(3, requires_grad=True)
+    adam = t_lin._FlatAdam([(3,)], torch.device("cpu"))
     steps, loss = t_lin._adam_until_plateau(
-        [p], lambda: (p * 0.0).sum() + 1.0, 0.1, 300, 20, 1e-6)
+        adam, t_lin._autograd_step(adam, lambda p: (p * 0.0).sum() + 1.0),
+        0.1, 300, 20, 1e-6)
     assert steps == 20 and loss == 1.0
-    q = torch.full((2,), 5.0, requires_grad=True)
+    adam = t_lin._FlatAdam([(2,)], torch.device("cpu"),
+                           [np.full(2, 5.0, np.float32)])
     steps, _ = t_lin._adam_until_plateau(
-        [q], lambda: (q ** 2).sum(), 0.1, 7, 20, 1e-6)
+        adam, t_lin._autograd_step(adam, lambda q: (q ** 2).sum()), 0.1, 7,
+        20, 1e-6)
     assert steps == 7
 
 
 def test_gather_backward_equals_index_add():
+    """K10b's plain version: the gradient of the gathered logits, each
+    vocabulary id's occurrences added in row-major order, equals
+    ``index_add_`` (which adds its source rows in that order on one
+    thread) bit for bit; with l2 = 0 and no continuous column, ``gb`` is
+    the column sum (another order: within 1e-5)."""
     rng = np.random.default_rng(2)
     gid = torch.from_numpy(rng.integers(0, 11, (40, 3)))
-    W = torch.randn(11, 5, dtype=torch.float64, requires_grad=True)
-    rows, lengths = t_lin._gather_plan(gid, 11)
-    out = t_lin._GatherSum.apply(W, gid, rows, lengths)
-    g = torch.randn(40, 5, dtype=torch.float64)
-    out.backward(g)
-    want = torch.zeros(11, 5, dtype=torch.float64).index_add_(
-        0, gid.reshape(-1), g.repeat_interleave(3, dim=0))
-    assert torch.allclose(W.grad, want, rtol=1e-12, atol=1e-12)
-    assert torch.equal(out.detach(), W.detach()[gid].sum(1))
+    g = torch.from_numpy(rng.standard_normal((40, 5)).astype(np.float32))
+    plan = k_lin.gather_plan(gid, torch.zeros((40, 0)),
+                             torch.zeros(40, dtype=torch.int64),
+                             torch.ones(40), 1.0, 0.0, 11, 5)
+    W = torch.from_numpy(rng.standard_normal((11, 5)).astype(np.float32))
+    gW, gWc, gb = torch.empty(11, 5), torch.empty(0, 5), torch.empty(5)
+    k_lin.logreg_backward_plain(plan, g, W, torch.zeros((0, 5)), gW, gWc, gb)
+    want = torch.zeros(11, 5).index_add_(0, gid.reshape(-1),
+                                         g.repeat_interleave(3, dim=0))
+    assert torch.equal(gW, want)
+    assert torch.allclose(gb, g.sum(0), rtol=1e-5, atol=1e-5)
 
 
 def test_class_weights_and_f1_match_jax():
