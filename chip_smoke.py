@@ -61,8 +61,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    structure (:func:`k10_key`), held bitwise against its plain version
    right after its path, its heaviest call of each kernel timed (the
    library yardsticks: ``index_add_`` for K10b's ``gWcat``, a fused
-   ``torch.optim.Adam`` step for K10c) and run under the sync check; and
-   K10a, K10b and K10c run the shapes of ``LOGREG_EDGES`` bitwise against
+   ``torch.optim.Adam`` step for K10c; K10b's order floor, its longest
+   chain of adds times one add's latency) and run under the sync check;
+   and K10a, K10b and K10c run the shapes of ``LOGREG_EDGES`` (every
+   route of K10a and K10b; among them the corners of K10b's ring: a
+   chain of 25,000 occurrences, k 41 and 2, ids of one ring stage and one
+   more or less, 20,000 short ids; and k 128 to 33,000) bitwise against
    their plain versions (:func:`logreg_edges`), one launch a call;
    4c. the same table through batched training
    (``setParallelStatTrainingEnabled(True)``): the same frame, at least
@@ -342,7 +346,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    against a ``git archive`` copy of the parent at PARENT, N times in
    each of four processes, parent, change, change, parent
    (:func:`parent_ab`: walls, training spans, ms per round, equal
-   frames);
+   frames); ``--logreg-ab PARENT N`` the same for 4d's warm gather fit
+   (seconds, steps and ms a step, equal weights);
    ``python3 chip_smoke.py --gbdt-probe [-DNAME ...] [--parent DIR]``
    builds the kernels (with those macros; ``-DDELPHI_GBDT_PHASE_CLOCKS``
    adds K3a's per-phase clocks) and times K3a, K3b, K3c and K4
@@ -357,6 +362,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``delphi_add_chain``); ``--parent DIR`` times the same K3c / K4 calls
    through DIR's ``csrc/gbdt.cu`` built alone (a ``git archive`` copy of
    the parent);
+   ``python3 chip_smoke.py --logreg-probe [--parent DIR]`` builds the
+   kernels and times K10a, K10b and K10c (:func:`logreg_probe`) at 4d's
+   first step (the zones table's 10,000-row sample) and at every
+   ``LOGREG_EDGES`` shape, each call held bitwise first: bare launches
+   and ``torch.profiler`` device times (L2 flushed, and back to back),
+   the bounds, the empty kernel's floor, K10b's order floor and
+   ``index_add_``;
+   ``--parent DIR`` builds DIR's ``csrc/linear.cu`` alone (a ``git
+   archive`` copy of the parent) and holds and times its K10a and K10b on
+   the same inputs in turns (parent, change, change, parent);
    ``python3 chip_smoke.py --ab N`` runs phases 1 and 2, then N
    same-host pairs of 4l(a) and of 4l(b) in alternating order
    (:func:`planes_ab`), and prints their walls and spans with median and
@@ -2327,11 +2342,12 @@ print("DOMAIN_AB " + json.dumps(out), flush=True)
 
 
 def parent_ab(tag: str, child: str, parent: str, reps: int) -> dict:
-    """``python3 chip_smoke.py --domain-ab|--gbdt-ab PARENT REPS``: this
-    tree against the parent commit's (a ``git archive`` copy at PARENT),
-    same host, in four processes in the order parent, change, change,
-    parent, each running ``child`` (:data:`DOMAIN_AB_CHILD`,
-    :data:`GBDT_AB_CHILD`) from its tree's root with REPS. A child prints
+    """``python3 chip_smoke.py --domain-ab|--gbdt-ab|--logreg-ab PARENT
+    REPS``: this tree against the parent commit's (a ``git archive`` copy at
+    PARENT), same host, in four processes in the order parent, change,
+    change, parent, each running ``child`` (:data:`DOMAIN_AB_CHILD`,
+    :data:`GBDT_AB_CHILD`, :data:`LOGREG_AB_CHILD`) from its tree's root
+    with REPS. A child prints
     one line ``<TAG> {name: [run, ...]}``; the runs' digests, where they
     have one, must be equal on both sides. Returns the runs and, per side
     and name, the spread of every other number of a run (a value that is
@@ -2368,6 +2384,41 @@ def parent_ab(tag: str, child: str, parent: str, reps: int) -> dict:
                 else runs[0][k] for k in runs[0] if k != "digest"}
     log(f"[{tag}] frames equal on both sides; {json.dumps(summary)}")
     return {"runs": out, "summary": summary}
+
+
+# One side of ``--logreg-ab`` (:func:`parent_ab`): after a first fit (the
+# kernels' build and load), argv[1] warm gather fits of 4d's sample (the
+# zones table's 10,000 rows, as 4d's warm fit), each with its seconds,
+# steps, ms a step and the fitted weights' digest
+LOGREG_AB_CHILD = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+import chip_smoke as cs
+import delphi_tpu_torch as T
+from delphi_tpu_torch.models.encoding import FeatureEncoder
+from delphi_tpu_torch.models.linear import LogisticRegressionModel
+T.set_device("cuda")
+reps = int(sys.argv[1])
+zclean, _ = cs.zones_table(cs.LOGISTIC_ROWS, seed=2)
+sample = zclean.sample(n=10_000, random_state=0)
+design = FeatureEncoder(["district", "parity", "channel", "amount"],
+                        ["amount"]).fit_transform_compact(sample)
+LogisticRegressionModel().fit(design, sample["zone"])
+runs = []
+for _ in range(reps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = LogisticRegressionModel().fit(design, sample["zone"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    digest = hashlib.sha1(b"".join(np.ascontiguousarray(p).tobytes()
+                                   for p in m._params)).hexdigest()
+    runs.append({"fit_s": fit_s, "steps": m.n_steps_run_,
+                 "ms_per_step": 1e3 * fit_s / m.n_steps_run_,
+                 "digest": digest})
+print("LOGREG_AB " + json.dumps({"warm_fit": runs}), flush=True)
+"""
 
 
 # One side of ``--gbdt-ab`` (:func:`parent_ab`): after a 20,000-row warm-up,
@@ -6206,7 +6257,17 @@ K10_REPLACES = {
 # target of about 1,000 values), no continuous column, n = 1 with one
 # vocabulary id, an id with no occurrence, rows of zero weight (labels in
 # a class of weight 0), ±0.0 weights (all-zero logits of both signs),
-# and large logits (weights of about ±1e4: most exponentials underflow)
+# and large logits (weights of about ±1e4: most exponentials underflow);
+# then the corners of K10b's ring and groups: two binary features at
+# 50,000 rows (chains of about 25,000 occurrences, the ring wrapping many
+# times), k 41 and 2 (a last group of 1 or 2 of its 8 classes), ids of
+# exactly one ring stage of occurrences and one less and one more
+# ("stage"), and 20,000 ids of about two occurrences each at k 8; then
+# K10a's other routes and K10b's block an id: k 128 with the weights
+# staged and binary features (chains of about 5,000 occurrences, several
+# of K10b's row stages), k 200 with 81.6 KB of weights (not staged: the
+# rows kernel), and 33 and 1,032 chunks of 32 classes (deep stacks of its
+# class tree)
 LOGREG_EDGES = [(10_000, 3, 1, 25, 40, ""),
                 (10_000, 3, 1, 25, 8, ""),
                 (2_000, 2, 0, 60, 1_024, ""),
@@ -6214,14 +6275,25 @@ LOGREG_EDGES = [(10_000, 3, 1, 25, 40, ""),
                 (300, 2, 2, 12, 40, "unseen"),
                 (500, 2, 1, 10, 16, "zero_w"),
                 (400, 2, 1, 10, 24, "signed_zero"),
-                (400, 2, 1, 10, 24, "large")]
+                (400, 2, 1, 10, 24, "large"),
+                (50_000, 2, 1, 4, 40, ""),
+                (3_000, 3, 1, 25, 41, ""),
+                (3_000, 3, 1, 25, 2, ""),
+                (2_000, 2, 1, 20, 40, "stage"),
+                (20_000, 2, 1, 20_000, 8, ""),
+                (10_000, 2, 1, 4, 128, ""),
+                (2_000, 2, 1, 100, 200, ""),
+                (500, 2, 0, 4, 1_056, ""),
+                (64, 1, 0, 2, 33_000, "")]
 # Adam steps each edge's update is taken at
 LOGREG_EDGE_STEPS = (1, 37)
 
 
 def logreg_edge_inputs(shape, seed) -> dict:
     """CPU tensors of one LOGREG_EDGES shape: ids of F features over V
-    (a share of V each, at least one id), labels in the first k
+    (a share of V each, at least one id; "stage": the first feature's
+    first three ids held by exactly RING_STAGE, RING_STAGE - 1 and
+    RING_STAGE + 1 rows), labels in the first k
     - 2 classes (the last two padded, weight 0; "zero_w": a third of the
     rows labelled in a class of weight 0), balanced weights, normal
     weights (scaled by the kind), the host's denom."""
@@ -6235,6 +6307,11 @@ def logreg_edge_inputs(shape, seed) -> dict:
         .astype(np.int64)
     if kind == "unseen":
         gid[gid == 1] = 0
+    if kind == "stage":
+        s = k_lin.RING_STAGE
+        col = np.concatenate([np.zeros(s), np.ones(s - 1), np.full(s + 1, 2),
+                              rng.integers(3, sizes[0], n - 3 * s)])
+        gid[:, 0] = offsets[0] + rng.permutation(col).astype(np.int64)
     real = max(k - 2, 1)
     y = rng.integers(0, real, n).astype(np.int64)
     counts = np.bincount(y, minlength=k).astype(np.float64)
@@ -6427,7 +6504,14 @@ def k10_bare(k_lin, build, name, a, out):
     def launch():
         return fn(ctypes.addressof(p), stream)
     launch.keep = (a, out)  # the tensors the table points at stay allocated
+    launch.table = p
     return launch
+
+
+def k10_order_chain(a) -> int:
+    """K10b's longest chain of dependent adds: the occurrences of its
+    most frequent id (every class of an id walks them all)."""
+    return int(a[0].lengths.max().item())
 
 
 def k10_measure(torch, k_lin, build, flush, label, key, name, a):
@@ -6445,42 +6529,49 @@ def k10_measure(torch, k_lin, build, flush, label, key, name, a):
            else time_ms(torch, lib_fn, flush),
            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
            "bound_ms": max(bytes_ms, ops_ms), "shape": list(key[1:])}
+    if name == "logreg_backward":
+        row["order_chain"] = k10_order_chain(a)
+        row["order_floor_ms"] = row["order_chain"] * ADD_NS[0] / 1e6
     defer_kernel_ms(f"{name} {label}", row, fn,
-                    k10_bare(k_lin, build, name, a, out), [name + "_kernel"],
-                    1)
+                    k10_bare(k_lin, build, name, a, out), [name], 1)
     log(f"[{label}-kernels] {name} heaviest call {key[1:]}: "
         f"{fmt({k: v for k, v in row.items() if k != 'shape'})}")
     return row
 
 
+def logreg_edge_calls(torch, k_lin, shape):
+    """One LOGREG_EDGES shape's K10 calls on the card: K10a, K10b on the
+    plain forward's dlogits, and K10c (the flat weights, their plain
+    gradients, moments from a first plain step, at LOGREG_EDGE_STEPS); as
+    (name, inputs) pairs."""
+    t = {k: v.cuda() if hasattr(v, "shape") else v
+         for k, v in logreg_edge_inputs(shape, sum(shape[:5])).items()}
+    plan = k_lin.gather_plan(t["gid"], t["cont"], t["y"], t["sample_w"],
+                             t["denom"], t["l2"], t["V"], t["k"])
+    fwd = (plan, t["Wcat"], t["Wcont"], t["b"])
+    want = k10_outputs(torch, "logreg_forward", fwd)
+    k10_call(k_lin, "logreg_forward", fwd, want, plain=True)
+    bwd = (plan, want[1], t["Wcat"], t["Wcont"])
+    grads = k10_outputs(torch, "logreg_backward", bwd)
+    k10_call(k_lin, "logreg_backward", bwd, grads, plain=True)
+    flat = torch.cat([t["Wcat"].reshape(-1), t["Wcont"].reshape(-1),
+                      t["b"]])
+    g = torch.cat([x.reshape(-1) for x in grads])
+    mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
+    k_lin.adam_step_plain(flat.clone(), g, mu, nu, 0.2, 1)
+    return [("logreg_forward", fwd), ("logreg_backward", bwd)] + [
+        ("adam_step", (flat, g, mu, nu, 0.2, s)) for s in LOGREG_EDGE_STEPS]
+
+
 def logreg_edges(torch, k_lin) -> dict:
-    """LOGREG_EDGES: K10a, K10b (on the plain forward's dlogits) and K10c
-    (the flat weights, their plain gradients, moments from a first plain
-    step, at LOGREG_EDGE_STEPS) on the card against their plain versions
-    on the same card tensors, bit for bit (NaN equal to NaN), one launch a
-    call. Fails on a difference. These launches come after every traced
-    path and count in no path's launches."""
+    """LOGREG_EDGES (:func:`logreg_edge_calls`) on the card against their
+    plain versions on the same card tensors, bit for bit (NaN equal to
+    NaN), one launch a call. Fails on a difference. These launches come
+    after every traced path and count in no path's launches."""
     t0 = time.perf_counter()
     calls = {name: 0 for name in K10_KERNELS}
     for shape in LOGREG_EDGES:
-        t = {k: v.cuda() if hasattr(v, "shape") else v
-             for k, v in logreg_edge_inputs(shape, sum(shape[:5])).items()}
-        plan = k_lin.gather_plan(t["gid"], t["cont"], t["y"], t["sample_w"],
-                                 t["denom"], t["l2"], t["V"], t["k"])
-        fwd = (plan, t["Wcat"], t["Wcont"], t["b"])
-        want = k10_outputs(torch, "logreg_forward", fwd)
-        k10_call(k_lin, "logreg_forward", fwd, want, plain=True)
-        bwd = (plan, want[1], t["Wcat"], t["Wcont"])
-        grads = k10_outputs(torch, "logreg_backward", bwd)
-        k10_call(k_lin, "logreg_backward", bwd, grads, plain=True)
-        flat = torch.cat([t["Wcat"].reshape(-1), t["Wcont"].reshape(-1),
-                          t["b"]])
-        g = torch.cat([x.reshape(-1) for x in grads])
-        mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
-        k_lin.adam_step_plain(flat.clone(), g, mu, nu, 0.2, 1)
-        cases = [("logreg_forward", fwd), ("logreg_backward", bwd)] + [
-            ("adam_step", (flat, g, mu, nu, 0.2, s))
-            for s in LOGREG_EDGE_STEPS]
+        cases = logreg_edge_calls(torch, k_lin, shape)
         for name, a in cases:
             before = k_lin.launches[name]
             k10_held(torch, k_lin, name, a, f"4b edge {shape}")
@@ -6489,9 +6580,139 @@ def logreg_edges(torch, k_lin) -> dict:
                 fail(f"4b: {name} launched {launched} times at the edge "
                      f"{shape}")
             calls[name] += 1
-        del t, plan, fwd, bwd, want, grads
+        del cases
     return {"shapes": len(LOGREG_EDGES), "calls": calls,
             "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def parent_k10_library(build, parent):
+    """``--logreg-probe --parent DIR``: DIR's ``csrc/linear.cu`` built
+    alone with this tree's flags (ptxas's report logged) and loaded. Its
+    entry points take this tree's parameter tables (their layouts are
+    unchanged)."""
+    import ctypes
+    out = os.path.join(HERE, "build", "parent_linear")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "libparent_linear.so")
+    done = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas=-v",
+                           "-shared", "-o", path,
+                           os.path.join(parent, "delphi_tpu_torch", "csrc",
+                                        "linear.cu")],
+                          check=True, capture_output=True, text=True)
+    for line in (done.stdout + done.stderr).splitlines():
+        if "registers" in line or "Compiling entry" in line \
+                or "spill" in line:
+            log(f"[parent build] {line.strip()}")
+    lib = ctypes.CDLL(path)
+    for name in K10_KERNELS:
+        getattr(lib, "delphi_" + name).restype = ctypes.c_int
+        getattr(lib, "delphi_" + name).argtypes = [ctypes.c_void_p,
+                                                   ctypes.c_void_p]
+    return lib
+
+
+def k10_probe_row(torch, k_lin, build, flush, label, name, a, floor,
+                  parent=None) -> dict:
+    """One K10 call of --logreg-probe, held bitwise against its plain
+    version on the card, then timed from back-to-back bare launches (L2
+    flushed before each burst) and by the profiler (L2 flushed before
+    each launch, and back to back) beside its bounds, K10b's order floor
+    and ``index_add_``; with ``parent`` (:func:`parent_k10_library`) the
+    parent's K10a / K10b on the same inputs too, held bitwise, the device
+    times taken parent, change, change, parent."""
+    import ctypes
+    k10_held(torch, k_lin, name, a, f"--logreg-probe {label}")
+    out = k10_outputs(torch, name, a)
+    bare = k10_bare(k_lin, build, name, a, out)
+    kernel = name   # K10a's records: logreg_forward_kernel or _rows_kernel
+    bytes_ms, ops_ms = k10_bound_ms(name, a)
+    row = {"label": f"{label} {name}", "ms": bare_ms(torch, bare, flush),
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms), **floor}
+    if name == "logreg_backward":
+        row["order_chain"] = k10_order_chain(a)
+        row["order_floor_ms"] = row["order_chain"] * ADD_NS[0] / 1e6
+        row["index_add_ms"] = time_ms(torch, k10_library(torch, name, a),
+                                      flush)
+    launches = [("device", bare)]
+    if parent is not None and name != "adam_step":
+        pout = k10_outputs(torch, name, a)
+        table = bare.table.__class__.from_buffer_copy(bare.table)
+        if name == "logreg_forward":
+            table.loss, table.dlogits = (x.data_ptr() for x in pout)
+        else:
+            table.gwcat, table.gwcont, table.gb = (x.data_ptr() for x in pout)
+        fn = getattr(parent, "delphi_" + name)
+        stream = build.current_stream()
+        build.check(fn(ctypes.addressof(table), stream), f"parent {name}")
+        want = k10_outputs(torch, name, a)
+        k10_call(k_lin, name, a, want, plain=True)
+        torch.cuda.synchronize()
+        if not all(same_bits(torch, g, w) for g, w in zip(pout, want)):
+            fail(f"--logreg-probe: the parent's {name} differs at {label}")
+
+        def parent_launch():
+            return fn(ctypes.addressof(table), stream)
+        parent_launch.keep = (table, pout)
+        row["parent_ms"] = bare_ms(torch, parent_launch, flush)
+        launches = [("parent_device", parent_launch), ("device", bare),
+                    ("device", bare), ("parent_device", parent_launch)]
+    for key, launch in launches:
+        for suffix, fl in (("_ms", flush), ("_warm_ms", None)):
+            t = device_ms(torch, launch, fl, kernel)
+            row.setdefault(key + suffix, []).append(t)
+    for key in [k for k in row if k.startswith(("device", "parent_device"))]:
+        got = [t for t in row[key] if t is not None]
+        row[key] = sum(got) / len(got) if len(got) == len(row[key]) else None
+    return row
+
+
+def logreg_probe(torch, k_lin, build, flush, parent=None) -> list:
+    """``python3 chip_smoke.py --logreg-probe``: 4d's first step (the
+    zones table's 10,000-row sample, as 4d's warm fit takes it) and every
+    LOGREG_EDGES shape, each call held bitwise first, then timed
+    (:func:`k10_probe_row`); with ``parent`` the parent's K10a and K10b on
+    the same inputs."""
+    lib, stream = build.library(), build.current_stream()
+    empty = lambda: lib.delphi_launch_floor(stream)  # noqa: E731
+    floor = {"launch_floor_ms": bare_ms(torch, empty, flush),
+             "launch_floor_device_ms": device_ms(torch, empty, flush,
+                                                 "empty_kernel")}
+    log(f"[logreg-probe] launch floor (empty kernel): {fmt(floor)}")
+    import delphi_tpu_torch as T
+    from delphi_tpu_torch.models.encoding import FeatureEncoder
+    from delphi_tpu_torch.models.linear import LogisticRegressionModel
+    T.set_device("cuda")
+    zclean, _ = zones_table(LOGISTIC_ROWS, seed=2)
+    sample = zclean.sample(n=10_000, random_state=0)
+    design = FeatureEncoder(["district", "parity", "channel", "amount"],
+                            ["amount"]).fit_transform_compact(sample)
+    calls = {}
+    orig = {name: getattr(k_lin, name) for name in K10_KERNELS}
+
+    def recording(name):
+        def fn(*args):
+            k10_record(calls, name, args)
+            return orig[name](*args)
+        return fn
+    try:
+        for name in K10_KERNELS:
+            setattr(k_lin, name, recording(name))
+        LogisticRegressionModel(n_steps=1).fit(design, sample["zone"])
+    finally:
+        for name, fn in orig.items():
+            setattr(k_lin, name, fn)
+    cases = {"4d": list(calls.values())}
+    for shape in LOGREG_EDGES:
+        cases[f"edge {shape}"] = logreg_edge_calls(torch, k_lin, shape)
+    rows = []
+    for label, calls_ in cases.items():
+        for name, a in calls_:
+            row = k10_probe_row(torch, k_lin, build, flush, label, name, a,
+                                floor, parent)
+            log(f"[logreg-probe] {row['label']}: {fmt(row)}")
+            rows.append(row)
+    return rows
 
 
 FRESH_FIT_CHILD = r"""
@@ -6742,8 +6963,39 @@ def main() -> None:
             "count": torch.cuda.device_count()}}), flush=True)
         return
 
+    if "--logreg-probe" in sys.argv[1:]:
+        sys.path.insert(0, HERE)
+        from delphi_tpu_torch.ops.kernels import build
+        from delphi_tpu_torch.ops.kernels import linear as k_lin
+        path, compiler_log = build.build(ptxas_verbose=True)
+        for line in compiler_log.splitlines():
+            if "registers" in line or "Compiling entry" in line \
+                    or "spill" in line:
+                log(f"[build] {line.strip()}")
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
+                            device="cuda")
+        lib, stream = build.library(), build.current_stream()
+        chain_out = torch.empty(1, dtype=torch.float32, device="cuda")
+        ADD_NS.append(1e6 * time_ms(torch, lambda: lib.delphi_add_chain(
+            chain_out.data_ptr(), ADD_CHAIN, 1e-3, stream), flush, reps=5)
+            / ADD_CHAIN)
+        log(f"[add-latency] {ADD_NS[0]:.4f} ns an add")
+        args = sys.argv[1:]
+        parent = parent_k10_library(build, args[args.index("--parent") + 1]) \
+            if "--parent" in args else None
+        probe = logreg_probe(torch, k_lin, build, flush, parent)
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"logreg_probe": probe, "add_latency_ns": ADD_NS[0],
+                          "flags": build.NVCC_FLAGS}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+
     for flag, child in (("--gbdt-ab", GBDT_AB_CHILD),
-                        ("--domain-ab", DOMAIN_AB_CHILD)):
+                        ("--domain-ab", DOMAIN_AB_CHILD),
+                        ("--logreg-ab", LOGREG_AB_CHILD)):
         if flag in sys.argv[1:]:
             at = sys.argv.index(flag)
             ab = parent_ab(flag[2:], child, sys.argv[at + 1],
@@ -7624,6 +7876,10 @@ def main() -> None:
             "bound_by": "bytes" if top["bytes_ms"] >= top["ops_ms"]
             else "operations",
             "library_ms": top["library_ms"], "shape": top["shape"],
+            **({"order_chain": top["order_chain"],
+                "order_floor_ms": top["order_floor_ms"],
+                "add_latency_ns": ADD_NS[0]}
+               if name == "logreg_backward" else {}),
             "edges": lr_edges, "fit": logistic_run, "paths": entry_paths,
             "ok": True})
     o_rows = shard["rows"][0]["entropy_terms_owned"]

@@ -75,9 +75,12 @@ launches = {"logreg_forward": 0, "logreg_backward": 0, "adam_step": 0}
 _count_lock = threading.Lock()
 
 TILE = 32               # csrc: kTile, the fan-in of tree_sum (a warp)
-ROWS_PER_BLOCK = 32     # csrc: kRowWarps, K10a's rows (warps) a block
-WEIGHTS_PER_BLOCK = TILE * TILE  # K10a's squared weights a block
+ROWS_PER_BLOCK = 32     # K10a's rows an item (one tile of tree_sum)
+WEIGHTS_PER_BLOCK = TILE * TILE  # K10a's squared weights an item
 MAX_CLASSES = 1 << 16   # csrc: kMaxClasses (the class tree's stack)
+RING_STAGE = 256        # csrc: kOcc, K10b's occurrences a ring stage
+WIDE_CLASSES = 64       # csrc: kWideClasses, K10b a block an id from here
+WEIGHT_SMEM = 44 * 1024  # csrc: kWeightSmem, K10a's staged weights up to this
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 # optax's constants as f32: 1 - b taken in Python first

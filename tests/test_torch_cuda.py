@@ -1759,7 +1759,7 @@ def test_logreg_kernels_match_plain_on_card(card, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", chip_smoke.LOGREG_EDGES)
 def test_logreg_edges_match_plain_on_card(card, shape):
-    """``chip_smoke.LOGREG_EDGES`` (k 8 to 1,024, one id, an unseen id,
+    """``chip_smoke.LOGREG_EDGES`` (k 2 to 33,000, one id, an unseen id,
     C = 0, n = 1, zero weights, ±0.0 and large logits): the kernels'
     outputs bit for bit the plain versions' on the card."""
     from delphi_tpu_torch.ops.kernels import linear as k_lin

@@ -11,6 +11,8 @@ against the JAX package on the CPU, with numpy-seeded inputs:
 * the kernels' summation orders (the warp butterfly with its stack of
   class chunks, the tiles and levels of the tree sums) emulated in
   Python, equal to the plain versions' bit for bit;
+* ``chip_smoke.LOGREG_EDGES``' ring corners and kernel routes, and those
+  shapes through the plain versions against the JAX objective;
 * a fresh process's logistic and MLP fits leave ``torch._dynamo``
   unimported.
 """
@@ -27,11 +29,13 @@ import pandas as pd
 import pytest
 import torch
 
+import chip_smoke
 from delphi_tpu.models import encoding as j_enc
 from delphi_tpu.models import linear as j_lin
 from delphi_tpu_torch import set_device
 from delphi_tpu_torch.models import encoding as t_enc
 from delphi_tpu_torch.models import linear as t_lin
+from delphi_tpu_torch.ops.kernels import build
 from delphi_tpu_torch.ops.kernels import linear as k_lin
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -315,7 +319,8 @@ def _warp_pairwise(vals):
 def _kernel_class_sum(e):
     """K10a's class tree: each 32-class chunk's butterfly (zeros past k),
     the chunks' sums merged as a binary counter, the stack folded from
-    the top."""
+    the top (the rows kernel). The wave kernel's lanes butterfly over at
+    most 8 chunk sums and zeros is the same adjacent-pair tree."""
     stack, chunks = [], 0
     for c0 in range(0, len(e), 32):
         chunk = list(e[c0:c0 + 32]) + [0.0] * (32 - len(e[c0:c0 + 32]))
@@ -407,7 +412,8 @@ def test_xla_sum_equals_kernel_order(n):
     assert _f32(want) == _kernel_xla_sum([_f32(v) for v in x])
 
 
-@pytest.mark.parametrize("k", [1, 7, 8, 32, 33, 40, 72, 96, 1000, 1024])
+@pytest.mark.parametrize("k", [1, 7, 8, 32, 33, 40, 72, 96, 1000, 1024,
+                               1056, 33_000, 65_536])
 def test_class_tree_equals_kernel_order(k):
     rng = np.random.default_rng(k)
     e = np.exp(rng.uniform(-30, 0, k)).astype(np.float32)
@@ -435,6 +441,95 @@ def test_ctypes_layouts():
     assert ctypes.sizeof(k_lin.ForwardParams) == 136
     assert ctypes.sizeof(k_lin.BackwardParams) == 112
     assert ctypes.sizeof(k_lin.AdamParams) == 72
+
+
+# -- the card's edge shapes ----------------------------------------------------
+
+
+def test_logreg_edges_reach_the_ring_corners():
+    """``chip_smoke.LOGREG_EDGES`` holds the corners of K10b's ring and
+    class groups: a chain of more than 20,000 occurrences (the ring
+    wrapping many times), k 41 and 2 (a last group of 1 and 2 of its 8
+    classes), ids of exactly ``RING_STAGE`` occurrences and one less and
+    one more, and 20,000 ids of a few occurrences each at k 8."""
+    chains, ks, stage = [], set(), None
+    for shape in chip_smoke.LOGREG_EDGES:
+        t = chip_smoke.logreg_edge_inputs(shape, sum(shape[:5]))
+        lengths = np.bincount(t["gid"].numpy().reshape(-1),
+                              minlength=t["V"])
+        chains.append((shape, int(lengths.max())))
+        ks.add(t["k"])
+        if shape[-1] == "stage":
+            stage = lengths[:3].tolist()
+    assert max(c for _, c in chains) > 20_000
+    assert {41 % 8, 2 % 8} <= {k % 8 for k in ks}
+    s = k_lin.RING_STAGE
+    assert stage == [s, s - 1, s + 1]
+    assert any(shape[3] >= 20_000 and shape[4] == 8 and c < 20
+               for shape, c in chains)
+
+
+def test_logreg_edges_reach_every_kernel_route():
+    """``chip_smoke.LOGREG_EDGES`` drives every route of K10a and K10b
+    that ``delphi_logreg_forward`` / ``delphi_logreg_backward`` choose
+    (the constants mirrored in ``ops/kernels/linear.py`` equal
+    ``csrc/linear.cu``'s): K10a's wave kernel with 2 register chunks, its
+    weights staged and not, and with 8 staged; its rows kernel at 200
+    classes with the weights not staged and past 256 classes, its class
+    stack past 1,024 chunks; K10b's ring and its block an id, that one
+    over more than one stage of 1,024 occurrence rows."""
+    import re
+    src = open([s for s in build.sources() if s.endswith("linear.cu")][0]).read()
+
+    def const(name):
+        return int(eval(re.search(rf"constexpr int {name} = ([^;]+);",
+                                  src).group(1)))
+    assert const("kStageFloats") // const("kGroup") == k_lin.RING_STAGE
+    assert const("kWideClasses") == k_lin.WIDE_CLASSES
+    assert const("kWeightSmem") == k_lin.WEIGHT_SMEM
+    forward, backward = set(), set()
+    for shape in chip_smoke.LOGREG_EDGES:
+        n, F, C, V, k, kind = shape
+        chunks = -(-k // 32)
+        staged = (V + C + 1) * k * 4 <= k_lin.WEIGHT_SMEM
+        if chunks <= 2:
+            forward.add(("wave 2", staged))
+        elif chunks <= 8 and staged:
+            forward.add(("wave 8", True))
+        else:
+            forward.add(("rows", "past 1,024 chunks" if chunks > 1024
+                         else "past 256" if chunks > 8 else "not staged"))
+        t = chip_smoke.logreg_edge_inputs(shape, sum(shape[:5]))
+        chain = int(np.bincount(t["gid"].numpy().reshape(-1)).max())
+        backward.add("ring" if k < k_lin.WIDE_CLASSES
+                     else "id, several stages" if chain > 1024 else "id")
+    assert forward == {("wave 2", True), ("wave 2", False), ("wave 8", True),
+                       ("rows", "not staged"), ("rows", "past 256"),
+                       ("rows", "past 1,024 chunks")}
+    assert backward == {"ring", "id", "id, several stages"}
+
+
+@pytest.mark.parametrize("shape", chip_smoke.LOGREG_EDGES[8:])
+def test_logreg_edges_plain_match_jax(shape):
+    """The card's ring-corner edge inputs (rows cut to 2,000) through the
+    plain forward and backward agree with the JAX package's gather objective
+    within ``test_forward_plain_matches_jax``'s and
+    ``test_backward_plain_matches_jax_and_autograd``'s tolerances: the
+    edges the card holds its kernels to are the reference's answers too."""
+    n, F, C, V, k, kind = shape
+    t = chip_smoke.logreg_edge_inputs((min(n, 2_000), F, C, V, k, kind),
+                                      sum(shape[:5]))
+    P = {"gid": t["gid"].numpy(), "cont": t["cont"].numpy(),
+         "y": t["y"].numpy(), "sw": t["sample_w"].numpy(),
+         "Wcat": t["Wcat"].numpy(), "Wcont": t["Wcont"].numpy(),
+         "b": t["b"].numpy(), "denom": t["denom"], "l2": t["l2"],
+         "V": V, "k": k}
+    want_loss, want_dl, want_grads = _jax_objective(P)
+    loss, dl, grads, _ = _plain(P)
+    assert loss == pytest.approx(want_loss, rel=2e-6)
+    np.testing.assert_allclose(dl, want_dl, rtol=0, atol=1e-8)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-7)
 
 
 # -- no torch.optim, no torch._dynamo -----------------------------------------
